@@ -1,0 +1,51 @@
+"""FPN multimodal fusion neck (counterpart of cris_tpu/models/neck.py:26-114),
+in its unfused order: standalone bilinear upsamples and concatenations."""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.resize import avg_pool2d, upsample2x
+from .layers import BatchNorm, ConvBNReLU, CoordConv, LinearBNReLU
+
+
+class FPN(nn.Module):
+    def __init__(self, state_dim: int,
+                 in_channels: Sequence[int] = (512, 1024, 1024),
+                 out_channels: Sequence[int] = (256, 512, 1024)):
+        super().__init__()
+        in0, in1, in2 = in_channels
+        out0, out1, out2 = out_channels
+        self.txt_proj = LinearBNReLU(state_dim, out2)
+        self.f1_v_proj = ConvBNReLU(in2, out2, 1, 0)
+        self.norm_layer = nn.Sequential(BatchNorm(out2), nn.ReLU(inplace=True))
+        self.f2_v_proj = ConvBNReLU(in1, out1, 3, 1)
+        self.f2_cat = ConvBNReLU(out2 + out1, out1, 1, 0)
+        self.f3_v_proj = ConvBNReLU(in0, out0, 3, 1)
+        self.f3_cat = ConvBNReLU(out0 + out1, out1, 1, 0)
+        self.f4_proj5 = ConvBNReLU(out2, out1, 3, 1)
+        self.f4_proj4 = ConvBNReLU(out1, out1, 3, 1)
+        self.f4_proj3 = ConvBNReLU(out1, out1, 3, 1)
+        self.aggr = ConvBNReLU(3 * out1, out1, 1, 0)
+        self.coordconv = nn.Sequential(CoordConv(out1, out1, 3, 1),
+                                       ConvBNReLU(out1, out1, 3, 1))
+
+    def forward(self, imgs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                state: torch.Tensor) -> torch.Tensor:
+        v3, v4, v5 = imgs
+        # fusion 1: gate v5 with the projected sentence state
+        state = self.txt_proj(state)
+        f5 = self.f1_v_proj(v5) * state[:, :, None, None]
+        f5 = self.norm_layer(f5)
+        # fusion 2: v4 + upsampled f5
+        f4 = self.f2_cat(torch.cat([self.f2_v_proj(v4), upsample2x(f5)], 1))
+        # fusion 3: pooled v3 + f4
+        f3 = avg_pool2d(self.f3_v_proj(v3), 2, 2)
+        f3 = self.f3_cat(torch.cat([f3, f4], 1))
+        # fusion 4: project the three levels and aggregate at f4's grid
+        fq5 = upsample2x(self.f4_proj5(f5))
+        fq = torch.cat([self.f4_proj3(f3), self.f4_proj4(f4), fq5], 1)
+        return self.coordconv(self.aggr(fq))

@@ -1,0 +1,89 @@
+"""Warm predictor: the model and tokenizer stay resident across requests
+(counterpart of cris_tpu/serving.py:43-48,65-186).
+
+Request flow per (image, N sentences): one letterbox warp, one tokenize,
+device batches padded to the next bucket >= N (the JAX package's static
+shapes; here they bound the shapes the card sees), one inverse warp per
+sentence. BatchNorm runs in its eval form; the exact BN fold and the
+HTTP front come later.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from .data.transforms import (get_transform_mats, inverse_warp_prediction,
+                              normalize_image, warp_image)
+from .engine import EVAL_THRESHOLD, Evaluator
+from .models import build_segmenter, resolve_dtype
+from .utils.tokenizer import tokenize
+
+
+def _buckets(max_batch: int) -> List[int]:
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    return out + [max_batch]
+
+
+class PredictService:
+    """Single-model predictor with bucketed batch shapes.
+
+    Weights: the random init of seed 0; load trained ones into
+    ``self.model`` (e.g. with ``checkpoint.load_jax_variables``). The
+    forward runs under bf16 autocast when ``cfg.precision`` is bf16."""
+
+    def __init__(self, cfg, device="cuda", max_batch: int = 16):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.input_size = int(cfg.input_size)
+        self.word_len = int(cfg.word_len)
+        self.max_batch = int(max_batch)
+        self._lock = threading.Lock()  # one device batch at a time
+        self.model = build_segmenter(cfg, device=self.device)
+        self.evaluator = Evaluator(self.model, self.input_size,
+                                   resolve_dtype(cfg.get("precision", "bf16")))
+        self.warmup()
+
+    def warmup(self) -> None:
+        """Run every batch bucket once before the first request."""
+        size = self.input_size
+        for b in _buckets(self.max_batch):
+            img = np.zeros((b, 3, size, size), np.float32)
+            word = np.zeros((b, self.word_len), np.int64)
+            self.evaluator.predict_probs(img, word)
+
+    def predict(self, image_bgr: np.ndarray, sentences: Sequence[str],
+                threshold: float = EVAL_THRESHOLD) -> List[Dict[str, Any]]:
+        """BGR uint8 image + N referring expressions -> N binary masks at
+        the original resolution, with their foreground pixel counts."""
+        if not sentences:
+            return []
+        rgb = image_bgr[:, :, ::-1]
+        hw = (self.input_size, self.input_size)
+        mat, inv = get_transform_mats(rgb.shape[:2], hw)
+        net_in = normalize_image(warp_image(rgb, mat, hw)).transpose(2, 0, 1)
+        words = tokenize(list(sentences), self.word_len, True)
+
+        results: List[Dict[str, Any]] = []
+        for start in range(0, len(sentences), self.max_batch):
+            chunk = words[start : start + self.max_batch]
+            n = chunk.shape[0]
+            b = next(x for x in _buckets(self.max_batch) if x >= n)
+            images = np.repeat(net_in[None], b, axis=0)
+            word_batch = np.zeros((b, self.word_len), chunk.dtype)
+            word_batch[:n] = chunk
+            with self._lock:
+                probs = self.evaluator.predict_probs(images, word_batch)
+            for i in range(n):
+                warped = inverse_warp_prediction(probs[i], inv, rgb.shape[:2])
+                mask = warped > threshold
+                results.append({"sentence": sentences[start + i],
+                                "mask": mask,
+                                "foreground_px": int(mask.sum())})
+        return results

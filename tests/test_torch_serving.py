@@ -1,0 +1,160 @@
+"""The PyTorch port's serving path on the CPU: tokenizer and warps against
+the JAX package's (regex / OpenCV) versions, PredictService against the
+JAX chain on the same weights, and the port's import hygiene."""
+
+import os
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from cris_tpu.data import transforms as jax_tf
+from cris_tpu.utils.tokenizer import tokenize as jax_tokenize
+
+from cris_tpu_torch.checkpoint import load_jax_variables
+from cris_tpu_torch.data import transforms as port_tf
+from cris_tpu_torch.serving import PredictService, _buckets
+from cris_tpu_torch.utils import load_cfg_from_cfg_file
+from cris_tpu_torch.utils.tokenizer import tokenize
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TEXTS = {
+    "ascii": ["the man in the red shirt", "woman on the left holding an umbrella"],
+    "digits": ["guy wearing #12 jersey", "the 2nd person from 3 zebras 2024"],
+    "punctuation": ["pizza slice that isn't touched", "bottom-left (half) sandwich!?",
+                    "she's wearing a blue dress; he'll wait...", "snake_case & a/b"],
+    "accented": ["café au lait near the naïve façade", "Über große Straße",
+                 "cafe\u0301 with a combining accent", "  spaced\tout\n text  "],
+    "truncated": [" ".join(["zebra"] * 40), "a very long expression " * 6],
+}
+SIZES = [(333, 500), (480, 640), (427, 640), (640, 480)]
+
+
+@pytest.mark.parametrize("kind", sorted(TEXTS))
+def test_tokenizer_matches_jax(kind):
+    texts = TEXTS[kind]
+    np.testing.assert_array_equal(tokenize(texts, 17, True),
+                                  jax_tokenize(texts, 17, True))
+    if kind != "truncated":
+        np.testing.assert_array_equal(tokenize(texts), jax_tokenize(texts))
+
+
+def _smooth_image(h, w, seed):
+    """A seeded photo-like uint8 image: smooth color fields plus noise."""
+    rng = np.random.RandomState(seed)
+    small = rng.randint(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float32)
+    big = cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+    return np.clip(big + rng.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("hw", SIZES)
+def test_image_warp_matches_opencv(hw):
+    img = _smooth_image(*hw, seed=hw[0])
+    mat, _ = jax_tf.get_transform_mats(hw, (416, 416))
+    ref = jax_tf.warp_image(img, mat, (416, 416))
+    got = port_tf.warp_image(img, mat, (416, 416))
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    np.testing.assert_array_equal(port_tf.get_transform_mats(hw, (416, 416))[0], mat)
+
+
+@pytest.mark.parametrize("hw", SIZES)
+def test_inverse_warp_matches_opencv(hw):
+    rng = np.random.RandomState(hw[1])
+    logits = cv2.resize(rng.randn(26, 26).astype(np.float32) * 4, (416, 416),
+                        interpolation=cv2.INTER_CUBIC)
+    probs = 1 / (1 + np.exp(-logits))
+    _, inv = jax_tf.get_transform_mats(hw, (416, 416))
+    ref = jax_tf.inverse_warp_prediction(probs, inv, hw)
+    got = port_tf.inverse_warp_prediction(probs, inv, hw)
+    assert got.shape == hw and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 2e-2
+    assert ((got > 0.35) == (ref > 0.35)).mean() >= 0.999
+
+
+def test_buckets_match_jax():
+    from cris_tpu.serving import _buckets as jax_buckets
+
+    for n in (1, 4, 16, 24):
+        assert _buckets(n) == jax_buckets(n)
+
+
+def test_predict_service_matches_jax_chain():
+    """Tiny CRIS, the same weights: the port's PredictService against the
+    JAX chain (cv2 warps + tokenize + Evaluator.predict_probs + inverse
+    warp), in f32, at buckets 1 and 4 (5 sentences = 4 + 1)."""
+    from cris_tpu.engine import Evaluator as JaxEvaluator
+    from cris_tpu.models import build_segmenter as jax_build
+
+    cfg = load_cfg_from_cfg_file(
+        os.path.join(REPO, "config", "synthetic", "cris_tiny.yaml"))
+    cfg.precision = "fp32"
+    jmodel = jax_build(cfg)
+    variables = jmodel.init(jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 17), jnp.int32))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    service = PredictService(cfg, device="cpu", max_batch=4)
+    load_jax_variables(service.model, variables)
+    jev = JaxEvaluator(jmodel, 64, batch_size=4)
+
+    for hw, sents in [((48, 80), ["the red blob"]),
+                      ((90, 60), ["left one", "the big square on the right",
+                                  "nothing", "a thing 2", "top"])]:
+        bgr = _smooth_image(*hw, seed=sum(hw))
+        results = service.predict(bgr, sents)
+        assert [r["sentence"] for r in results] == sents
+
+        rgb = bgr[:, :, ::-1]
+        mat, inv = jax_tf.get_transform_mats(hw, (64, 64))
+        net_in = jax_tf.normalize_image(jax_tf.warp_image(rgb, mat, (64, 64)))
+        words = jax_tokenize(sents, 17, True)
+        probs = jev.predict_probs(variables, np.repeat(net_in[None], len(sents), 0),
+                                  words)
+        for i, r in enumerate(results):
+            ref = jax_tf.inverse_warp_prediction(probs[i], inv, hw) > 0.35
+            assert r["mask"].shape == hw and r["mask"].dtype == bool
+            assert r["foreground_px"] == int(r["mask"].sum())
+            assert (r["mask"] == ref).mean() >= 0.999
+
+
+def test_profile_stage_breakdown_times_every_stage():
+    """The serving profiler times each stage of real predict calls and
+    puts the service's functions back afterwards."""
+    from cris_tpu_torch import serving
+    from cris_tpu_torch.engine import Evaluator
+    from cris_tpu_torch.profile_serving import STAGES, busy_time, stage_breakdown
+
+    cfg = load_cfg_from_cfg_file(
+        os.path.join(REPO, "config", "synthetic", "cris_tiny.yaml"))
+    cfg.precision = "fp32"
+    service = PredictService(cfg, device="cpu", max_batch=16)
+    saved = {name: getattr(serving, name) for name in STAGES}
+    out = stage_breakdown(service, _smooth_image(48, 64, seed=5), runs=2)
+    assert sorted(out) == [1, 8, 16]
+    for rows in out.values():
+        assert sorted(rows) == sorted(["request", "device batch",
+                                       *STAGES.values()])
+        assert all(len(v) == 2 and min(v) > 0 for v in rows.values())
+        assert max(rows["device batch"]) <= max(rows["request"])
+    assert {name: getattr(serving, name) for name in STAGES} == saved
+    assert service.evaluator.predict_probs.__func__ is Evaluator.predict_probs
+    assert busy_time([(0, 4), (2, 6), (10, 11), (3, 5)]) == 7
+
+
+def test_port_imports_no_jax_opencv_yaml_or_regex():
+    code = (
+        "import sys\n"
+        "import cris_tpu_torch.serving, cris_tpu_torch.ops.kernels.build\n"
+        "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
+        "       if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
