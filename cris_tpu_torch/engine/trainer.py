@@ -1,0 +1,188 @@
+"""Optimizer, LR schedule, and the train step (counterpart of
+cris_tpu/engine/trainer.py).
+
+- Adam with two LR groups: the CLIP backbone at ``lr_multi x base_lr`` and
+  the head at ``base_lr``, positional embeddings counted as head
+  (``models.param_group_label``). The backbone runs at its multiple from
+  step 0, as in the JAX package (not the reference's first-epoch quirk
+  that trainer.py:8-13 describes).
+- betas (0.9, 0.999), eps 1e-8; ``weight_decay`` is torch Adam's L2,
+  added to the gradient before the moments, as ``optax.add_decayed_weights``
+  before ``scale_by_adam``.
+- ``max_norm`` clips the raw gradients' global norm before the optimizer,
+  as ``optax.chain(clip_by_global_norm, tx)`` does.
+- MultiStepLR's epoch milestones as a per-step ``LambdaLR``.
+- bf16 autocast over f32 parameters when the config says ``precision:
+  bf16``; no GradScaler (bf16 keeps f32's exponent range).
+
+A parameter that the loss does not reach (CLIP's ``logit_scale``) gets a
+zero gradient, as ``jax.grad`` gives it, so that Adam and weight decay
+treat it as the JAX optimizer does.
+"""
+
+from __future__ import annotations
+
+import bisect
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models import param_group_label, resolve_dtype
+from ..utils.logging import AverageMeter, ProgressMeter
+from .metrics import train_metrics
+
+
+def multistep_factor(milestones: Sequence[int], gamma: float,
+                     steps_per_epoch: int) -> Callable[[int], float]:
+    """step -> gamma ** (number of milestone epochs passed)."""
+    boundaries = sorted(int(m) * steps_per_epoch for m in milestones)
+
+    def factor(step: int) -> float:
+        return gamma ** bisect.bisect_right(boundaries, step)
+
+    return factor
+
+
+def multistep_schedule(base_lr: float, milestones: Sequence[int], gamma: float,
+                       steps_per_epoch: int) -> Callable[[int], float]:
+    """lr(step) = base_lr * gamma^(#milestone epochs passed) (torch
+    MultiStepLR semantics, trainer.py:39-52)."""
+    factor = multistep_factor(milestones, gamma, steps_per_epoch)
+    return lambda step: base_lr * factor(step)
+
+
+def lr_at_epoch(base_lr, milestones, gamma, epoch) -> float:
+    """Host-side mirror of the schedule for logging."""
+    return base_lr * gamma ** bisect.bisect_right(sorted(milestones), epoch - 1)
+
+
+def make_optimizer(model: torch.nn.Module, cfg, steps_per_epoch: int
+                   ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
+    """Two-group Adam and its per-step schedule. ``max_norm`` rides in the
+    param groups, where ``train_step`` reads it."""
+    groups = {"backbone": [], "head": []}
+    for name, param in model.named_parameters():
+        if param.requires_grad:
+            groups[param_group_label(name)].append(param)
+    base_lr = float(cfg.base_lr)
+    max_norm = float(cfg.get("max_norm", 0.0) or 0.0)
+    optimizer = torch.optim.Adam(
+        [{"params": groups["backbone"],
+          "lr": base_lr * float(cfg.get("lr_multi", 1.0)),
+          "max_norm": max_norm},
+         {"params": groups["head"], "lr": base_lr, "max_norm": max_norm}],
+        lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=float(cfg.get("weight_decay", 0.0) or 0.0))
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, multistep_factor(cfg.get("milestones", []),
+                                    cfg.get("lr_decay", 0.1), steps_per_epoch))
+    return optimizer, scheduler
+
+
+def _device_batch(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def put(x, dtype):
+        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        return x.to(device=device, dtype=dtype, non_blocking=True)
+
+    return (put(batch["image"], torch.float32), put(batch["word"], torch.long),
+            put(batch["mask"], torch.float32))
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
+    """The JAX ``apply_gradients`` on the parameters' ``.grad``: a missing
+    gradient becomes zeros, the global norm is clipped to the groups'
+    ``max_norm`` when it is set, then one Adam step and one schedule step."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for param in params:
+        if param.grad is None:
+            param.grad = torch.zeros_like(param)
+    max_norm = optimizer.param_groups[0].get("max_norm", 0.0)
+    if max_norm:
+        torch.nn.utils.clip_grad_norm_(params, max_norm)
+    optimizer.step()
+    scheduler.step()
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               scheduler, batch: Dict, step_seed: int,
+               dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """One optimisation step on ``batch`` = {"image" (B, 3, H, W) f32,
+    "word" (B, L) ids, "mask" (B, 1, H, W) in [0, 1]}, numpy or torch.
+
+    ``step_seed`` seeds the decoder's dropout; ``dtype`` = torch.bfloat16
+    runs forward and backward under autocast. Returns 0-dim device
+    tensors {loss, iou, prec@50}; nothing waits for the device."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    device = params[0].device
+    img, word, mask = _device_batch(batch, device)
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    with torch.autocast(device.type, dtype=dtype or torch.bfloat16,
+                        enabled=dtype is not None):
+        pred, target, loss = model(img, word, mask, dropout_seed=step_seed)
+    loss.backward()
+    apply_gradients(optimizer, scheduler)
+    iou, pr50 = train_metrics(pred, target)
+    return {"loss": loss.detach(), "iou": iou, "prec@50": pr50}
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of a global step (the JAX ``fold_in(rng, step)``):
+    the run's seed in the high word, the step in the low one."""
+    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+
+
+def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
+                epoch: int, cfg, seed: int = 0) -> Dict[str, float]:
+    """One epoch of the reference train loop (engine/engine.py:17-87) over
+    decoded batches: meters and a progress line every ``print_freq``
+    steps, under autocast to ``cfg.precision`` (bf16 by default, as in the
+    JAX package). Per-step metrics stay on the device and are drained (one
+    copy to the host) at each progress line and at the end, so the host
+    never waits for the device between steps. Returns the epoch's
+    averages."""
+    dtype = resolve_dtype(cfg.get("precision", "bf16"))
+    batch_time = AverageMeter("Batch", ":2.2f")
+    data_time = AverageMeter("Data", ":2.2f")
+    lr_meter = AverageMeter("Lr", ":1.6f")
+    loss_meter = AverageMeter("Loss", ":2.4f")
+    iou_meter = AverageMeter("IoU", ":2.2f")
+    pr_meter = AverageMeter("Prec@50", ":2.2f")
+    progress = ProgressMeter(
+        len(loader),
+        [batch_time, data_time, lr_meter, loss_meter, iou_meter, pr_meter],
+        prefix=f"Training: Epoch=[{epoch}/{cfg.epochs}] ")
+    cur_lr = lr_at_epoch(cfg.base_lr, cfg.get("milestones", []),
+                         cfg.get("lr_decay", 0.1), epoch)
+    print_freq = int(cfg.get("print_freq", 100))
+    pending = []  # [(batch size, device metrics), ...]
+
+    def drain():
+        if not pending:
+            return
+        values = torch.stack([torch.stack([m["loss"], m["iou"], m["prec@50"]])
+                              for _, m in pending]).tolist()
+        for (n, _), (loss, iou, pr50) in zip(pending, values):
+            loss_meter.update(loss, n)
+            iou_meter.update(iou, n)
+            pr_meter.update(pr50, n)
+        pending.clear()
+
+    end = time.time()
+    for i, batch in enumerate(loader):
+        data_time.update(time.time() - end)
+        step = scheduler.last_epoch
+        metrics = train_step(model, optimizer, scheduler, batch,
+                             step_seed(seed, step), dtype)
+        pending.append((len(batch["image"]), metrics))
+        lr_meter.update(cur_lr)
+        batch_time.update(time.time() - end)
+        end = time.time()
+        if (i + 1) % print_freq == 0:
+            drain()
+            progress.display(i + 1)
+    drain()
+    return {"loss": loss_meter.avg, "iou": iou_meter.avg,
+            "prec@50": pr_meter.avg}

@@ -3,7 +3,8 @@
 ``build_segmenter(cfg, device, seed)`` builds CRIS from a flat config with
 seeded random weights (a ``torch.Generator``), or with no storage at all
 on the ``meta`` device. Weights from the JAX package load through
-``cris_tpu_torch.checkpoint.from_jax``.
+``cris_tpu_torch.checkpoint.from_jax``. ``param_group_label`` splits the
+parameters into the optimizer's backbone and head groups.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ from .clip_resnet import AttentionPool2d, Bottleneck, ModifiedResNet
 from .clip_text import PackedAttention, ResidualAttentionBlock, Transformer
 from .decoder import (MultiheadAttention, TransformerDecoder,
                       TransformerDecoderLayer)
-from .layers import (BatchNorm, ConvBNReLU, CoordConv, LayerNormF32,
+from .layers import (BatchNorm, ConvBNReLU, CoordConv, Dropout, LayerNormF32,
                      LinearBNReLU, quick_gelu)
 from .neck import FPN
 from .projector import Projector
-from .segmenter import CRIS
+from .segmenter import CRIS, bce_with_logits
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "fp32": None, "float32": None, "f32": None}
@@ -68,8 +69,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def build_segmenter(cfg, device="cpu", seed: int = 0) -> CRIS:
-    """CRIS in eval mode from a flat config (see config/*/*.yaml).
+def build_segmenter(cfg, device="cpu", seed: int = 0, train: bool = False) -> CRIS:
+    """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
+    train mode (batch-statistics BN, dropout) with ``train=True``.
 
     On ``device="meta"`` the parameters have shapes and no storage;
     otherwise they are initialised on the CPU from ``seed`` and moved."""
@@ -88,14 +90,25 @@ def build_segmenter(cfg, device="cpu", seed: int = 0) -> CRIS:
         )
     if not meta:
         init_weights(model, seed).to(device)
-    return model.eval()
+    return model.train(train)
+
+
+def param_group_label(name: str) -> str:
+    """'backbone' for CLIP parameters except the positional embeddings,
+    'head' for everything else (cris_tpu/models/__init__.py:75-82, over
+    the port's parameter names)."""
+    if name.startswith("backbone.") and "positional_embedding" not in name:
+        return "backbone"
+    return "head"
 
 
 __all__ = [
     "AttentionPool2d", "BatchNorm", "Bottleneck", "CLIP", "CLIPConfig",
-    "CLIP_PRESETS", "CRIS", "ConvBNReLU", "CoordConv", "FPN", "LayerNormF32",
-    "LinearBNReLU", "ModifiedResNet", "MultiheadAttention", "Projector",
+    "CLIP_PRESETS", "CRIS", "ConvBNReLU", "CoordConv", "Dropout", "FPN",
+    "LayerNormF32", "LinearBNReLU", "ModifiedResNet", "MultiheadAttention",
+    "Projector",
     "ResidualAttentionBlock", "Transformer", "TransformerDecoder",
-    "TransformerDecoderLayer", "build_segmenter", "init_weights",
-    "preset_from_name", "quick_gelu", "resolve_dtype",
+    "TransformerDecoderLayer", "bce_with_logits", "build_segmenter",
+    "init_weights", "param_group_label", "preset_from_name", "quick_gelu",
+    "resolve_dtype",
 ]

@@ -5,46 +5,68 @@ The 676 visual tokens self-attend with fixed 2-D sincos positions, then
 cross-attend to the word features (1-D sincos positions on the keys,
 key-padding mask from token id 0), then pass an FFN with an internal
 LayerNorm; each sublayer is pre-LN with an extra LayerNorm before the
-residual add. Both attention sites go through K1.
+residual add. Both attention sites go through K1, or in training with
+dropout through K2.
+
+Randomness in training: the decoder's forward takes a seed and builds
+two generators from it, one on the CPU and one on the model's device.
+Each attention site of each layer draws its own K2 seed from the CPU one
+(no host-device sync), as ``nn.scan(split_rngs={"dropout": True})`` gives
+each JAX layer its own stream; the elementwise dropouts draw their masks
+from the device one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.kernels.dropout_mask import MAX_SEED
 from ..ops.posenc import sincos_1d, sincos_2d
-from .layers import LayerNormF32
+from .layers import Dropout, LayerNormF32
+
+# (CPU generator for the attention seeds, device generator for the masks)
+Rng = Tuple[torch.Generator, torch.Generator]
+
+
+def draw_seed(gen: torch.Generator) -> int:
+    """One attention-dropout seed in [0, 2**63) from a CPU generator."""
+    return int(torch.randint(0, MAX_SEED, (), generator=gen))
 
 
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention``'s parameters (packed
     ``in_proj_weight``/``in_proj_bias``, ``out_proj``), so state_dict keys
     match CRIS.pytorch. The forward projects q/k/v with ``F.linear`` on the
-    packed slices and calls the shared attention core (K1), never
-    ``nn.MultiheadAttention.forward``."""
+    packed slices and calls the shared attention core (K1, or K2 in
+    training with dropout), never ``nn.MultiheadAttention.forward``."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
+        self.dropout = float(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         w, b, e = self.in_proj_weight, self.in_proj_bias, self.d_model
         q = F.linear(query, w[:e], b[:e])
         k = F.linear(key, w[e:2 * e], b[e:2 * e])
         v = F.linear(value, w[2 * e:], b[2 * e:])
+        rate = self.dropout if self.training else 0.0
         out = dot_product_attention(q, k, v, self.num_heads,
-                                    key_padding_mask=key_padding_mask)
+                                    key_padding_mask=key_padding_mask,
+                                    dropout_rate=rate,
+                                    dropout_seed=dropout_seed)
         return self.out_proj(out)
 
 
@@ -52,12 +74,12 @@ class TransformerDecoderLayer(nn.Module):
     def __init__(self, d_model: int = 512, nhead: int = 8,
                  dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
-        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
         self.ffn = nn.Sequential(
             nn.Linear(d_model, dim_feedforward),
             nn.ReLU(True),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             LayerNormF32(dim_feedforward),
             nn.Linear(dim_feedforward, d_model),
         )
@@ -66,27 +88,40 @@ class TransformerDecoderLayer(nn.Module):
         self.norm3 = LayerNormF32(d_model)
         self.self_attn_norm = LayerNormF32(d_model)
         self.cross_attn_norm = LayerNormF32(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
 
     def forward(self, vis: torch.Tensor, txt: torch.Tensor,
                 vis_pos: torch.Tensor, txt_pos: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+                pad_mask: torch.Tensor, rng: Optional[Rng] = None
+                ) -> torch.Tensor:
+        """rng: the decoder's generators; needed in training with dropout."""
+        seeds, gen = (None, None), None
+        if rng is not None:
+            seeds = (draw_seed(rng[0]), draw_seed(rng[0]))
+            gen = rng[1]
         y = self.norm1(vis)
         q = y + vis_pos
-        y = self.self_attn(q, q, y)
-        vis = vis + self.self_attn_norm(y)
+        y = self.self_attn(q, q, y, dropout_seed=seeds[0])
+        vis = vis + self.dropout1(self.self_attn_norm(y), gen)
 
         y = self.norm2(vis)
         y = self.multihead_attn(y + vis_pos, txt + txt_pos, txt,
-                                key_padding_mask=pad_mask)
-        vis = vis + self.cross_attn_norm(y)
+                                key_padding_mask=pad_mask,
+                                dropout_seed=seeds[1])
+        vis = vis + self.dropout2(self.cross_attn_norm(y), gen)
 
-        return vis + self.ffn(self.norm3(vis))
+        fc1, relu, drop, norm, fc2 = self.ffn
+        y = fc2(norm(drop(relu(fc1(self.norm3(vis))), gen)))
+        return vis + self.dropout3(y, gen)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_ffn: int, dropout: float):
         super().__init__()
+        self.dropout = float(dropout)
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(d_model, nhead, dim_ffn, dropout)
             for _ in range(num_layers)
@@ -94,13 +129,23 @@ class TransformerDecoder(nn.Module):
         self.norm = LayerNormF32(d_model)
 
     def forward(self, vis: torch.Tensor, txt: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+                pad_mask: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         """vis (B, D, H, W), txt (B, L, D), pad_mask (B, L) True = padding
-        -> (B, D, H, W)."""
+        -> (B, D, H, W). In training with dropout the masks come from
+        ``dropout_seed``, which is then required."""
         b, d, h, w = vis.shape
         vis_pos = torch.from_numpy(sincos_2d(d, h, w)).to(vis.device)
         txt_pos = torch.from_numpy(sincos_1d(d, txt.shape[1])).to(vis.device)
+        rng = None
+        if self.training and self.dropout > 0.0:
+            if dropout_seed is None:
+                raise ValueError("decoder dropout in training needs a dropout_seed")
+            seed = int(dropout_seed)
+            rng = (torch.Generator().manual_seed(seed),
+                   torch.Generator(device=vis.device).manual_seed(seed))
         x = vis.flatten(2).transpose(1, 2)
         for layer in self.layers:
-            x = layer(x, txt, vis_pos.to(x.dtype), txt_pos.to(x.dtype), pad_mask)
+            x = layer(x, txt, vis_pos.to(x.dtype), txt_pos.to(x.dtype),
+                      pad_mask, rng)
         return self.norm(x).transpose(1, 2).reshape(b, d, h, w)

@@ -1,10 +1,14 @@
 """Building blocks, with CRIS.pytorch's module names so that state_dict keys
 match (counterpart of cris_tpu/models/layers.py:358-460,463-507,707-760).
 
-Eval forms only: BatchNorm normalizes with its running statistics.
+BatchNorm normalises with the batch statistics in training (and updates
+its running statistics) and with the running statistics in eval;
+``Dropout`` draws its mask from an explicit generator.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -14,11 +18,18 @@ from ..ops.resize import upsample2x
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 with torch's parameter names
-    (weight, bias, running_mean, running_var; eps 1e-5).
+    """BatchNorm over dim 1 with torch's parameter names (weight, bias,
+    running_mean, running_var; eps 1e-5, momentum 0.1).
 
-    The per-channel affine is prepared in f32 and applied in the input's
-    dtype, as the JAX BatchNorm does (layers.py:418-428)."""
+    The JAX BatchNorm's form (layers.py:398-431): in training the batch
+    mean and ``var = max(E[x^2] - E[x]^2, 0)`` are taken in f32 over every
+    dim but 1 and the output is normalised with that biased variance; the
+    running statistics are updated in place, outside autograd, with the
+    unbiased ``n / (n - 1)`` correction on the variance. In eval the
+    running statistics normalise. Either way the per-channel affine is
+    prepared in f32 and applied in the input's dtype."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -29,10 +40,41 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        shift = self.bias.float() - self.running_mean.float() * inv
+        if self.training:
+            with torch.autocast(x.device.type, enabled=False):
+                dims = [0] + list(range(2, x.dim()))
+                x32 = x.float()
+                mean = x32.mean(dims)
+                var = torch.clamp(x32.square().mean(dims) - mean.square(),
+                                  min=0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var.float() + self.eps) * self.weight.float()
+        shift = self.bias.float() - mean.float() * inv
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+class Dropout(nn.Module):
+    """Inverted elementwise dropout, as flax ``nn.Dropout``: kept values
+    are scaled by 1 / (1 - p), the mask comes from ``generator`` (on the
+    input's device). The identity in eval or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class LayerNormF32(nn.LayerNorm):

@@ -1,12 +1,13 @@
 """Multi-head scaled dot-product attention over (B, S, E) projections.
 
-Counterpart of ``cris_tpu.ops.attention``: the same dispatch, with K1 in
-CUDA where the JAX package has its Pallas kernel. Sites without an
+Counterpart of ``cris_tpu.ops.attention``: the same dispatch, with K1 and
+K2 in CUDA where the JAX package has its Pallas kernels. Sites without an
 additive mask, with head_dim <= 128 and S, T <= 2048 (decoder self- and
-cross-attention, attnpool) take ``fused_attention_bse``, which launches
-the CUDA kernel for a CUDA tensor and runs its plain version on the CPU.
-The causal text encoder carries an additive mask and stays on the plain
-path, as it does in the JAX package. Dropout comes with the train path.
+cross-attention, attnpool) take ``fused_attention_bse`` (K1), or in
+training with attention dropout ``fused_attention_bse_dropout`` (K2); each
+launches its CUDA kernel for a CUDA tensor and runs its plain version on
+the CPU. The causal text encoder carries an additive mask and stays on
+the plain path, as it does in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from .kernels.attention import (MAX_HEAD_DIM, NEG_INF, attention_plain,
                                 fused_attention_bse, merge_heads, split_heads)
+from .kernels.attention_dropout import (attention_dropout_plain,
+                                        fused_attention_bse_dropout)
 
 # The JAX dispatch's length gate, kept so that both packages route the same
 # sites to their kernel. It bounds the Pallas kernel's (block_q, T) logits
@@ -35,16 +38,35 @@ def dot_product_attention(
     num_heads: int,
     attn_mask: Optional[torch.Tensor] = None,
     key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over projected q (B, S, E) and k/v (B, T, E).
 
     attn_mask: additive (S, T) float mask (the causal mask).
     key_padding_mask: (B, T) bool, True = ignore that key.
+    dropout_rate, dropout_seed: inverted dropout on the weights, for
+    training only (the caller passes a rate only in training); the keep
+    mask is drawn from the seed, an int in [0, 2**63).
     Softmax is computed in float32 whatever the input dtype."""
     head_dim = q.shape[-1] // num_heads
     kv_valid = None if key_padding_mask is None else ~key_padding_mask
-    if (attn_mask is None and head_dim <= MAX_HEAD_DIM
-            and q.shape[1] <= MAX_FUSED_LEN and k.shape[1] <= MAX_FUSED_LEN):
+    # The JAX dispatch also asks the dropout kernel's ``supports_shape``
+    # (attention_train.py:155), which encodes the TPU's 128-lane blocks.
+    # The CUDA kernel takes any head dim up to 128, as K1 does, so
+    # cris_tiny's 4 x 16 heads take the XLA bernoulli path in JAX and K2
+    # here.
+    fused = (attn_mask is None and head_dim <= MAX_HEAD_DIM
+             and q.shape[1] <= MAX_FUSED_LEN and k.shape[1] <= MAX_FUSED_LEN)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("attention dropout needs a dropout_seed")
+        if fused:
+            return fused_attention_bse_dropout(q, k, v, num_heads, kv_valid,
+                                               dropout_rate, dropout_seed)
+        return attention_dropout_plain(q, k, v, num_heads, kv_valid,
+                                       dropout_rate, dropout_seed, attn_mask)
+    if fused:
         return fused_attention_bse(q, k, v, num_heads, kv_valid)
     return attention_plain(q, k, v, num_heads, kv_valid, attn_mask)
 

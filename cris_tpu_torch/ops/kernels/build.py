@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``cris_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
-``build/cris_tpu_torch/`` at the repository root. The library's name
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
+under ``build/cris_tpu_torch/`` at the repository root. The library's name
 carries a hash of the sources and flags, so an edited kernel is rebuilt
 and an unchanged one is loaded as it is. The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library as
@@ -29,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -68,20 +69,36 @@ def build() -> Path:
         last_build_seconds = 0.0
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent or cut-off
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    target.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, target)
+    # build under temporary names, then rename: a concurrent or cut-off
+    # build never leaves a half-written library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objects.append(obj)
+        logs, failed = [], False
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + out)
+            failed |= proc.returncode != 0
+        if not failed:
+            lib = os.path.join(tmp, "lib.so")
+            cmd = [nvcc, "-shared", "-o", lib, *objects]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            failed = proc.returncode != 0
+        last_build_seconds = time.perf_counter() - t0
+        log = "\n".join(logs)
+        target.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(lib, target)
     return target
 
 
@@ -99,6 +116,25 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_float, p,      # scale, stream
             ]
             lib.cris_attention_bse.restype = i
+            f, u = ctypes.c_float, ctypes.c_uint
+            dropout_tail = [
+                ll, ll, ll, ll, ll, ll,  # q/k/v batch and row strides
+                f, f,                   # scale, 1 / (1 - rate)
+                u, u, u, p,             # keep threshold, seed words, stream
+            ]
+            lib.cris_attention_dropout_fwd.argtypes = [
+                p, p, p, p, p, p,       # q, k, v, kv_valid, out, lse
+                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                *dropout_tail,
+            ]
+            lib.cris_attention_dropout_fwd.restype = i
+            lib.cris_attention_dropout_bwd.argtypes = [
+                p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, dout
+                p, p, p, p,             # delta (scratch), dq, dk, dv
+                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                *dropout_tail,
+            ]
+            lib.cris_attention_dropout_bwd.restype = i
             lib.cris_cuda_error_string.argtypes = [i]
             lib.cris_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -151,6 +151,9 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
     code = (
         "import sys\n"
         "import cris_tpu_torch.serving, cris_tpu_torch.ops.kernels.build\n"
+        "import cris_tpu_torch.engine.trainer\n"
+        "import cris_tpu_torch.ops.kernels.attention_dropout\n"
+        "import cris_tpu_torch.grad_spread, cris_tpu_torch.profile_train\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
