@@ -42,10 +42,31 @@ Phases (any failure raises, and the script exits non-zero):
    move, group learning rates 1e-5 / 1e-4, and per step K2 forward and
    backward 6 launches each (3 layers x 2 sites) and K1 one (attnpool);
    the median step time of steps 3-8 and the peak memory.
-The last lines are a JSON summary of the kernels, the card's name and
+9. K5 (fused bottleneck) and K7 (fused stem + pool) against their plain
+   versions at B 16, f32 (TF32 off) and bf16, at the phase-2 bars in
+   units of the reference's RMS: K5 at each R50 tail shape (104^2 x
+   256/64, 52^2 x 512/128, 26^2 x 1024/256, 13^2 x 2048/512) on the whole
+   image, so the bands at both image edges and a short last band (13 and
+   26 rows) are covered, once more on a contiguous NHWC input; K7 on
+   416^2 images and on a 100 x 76 one (partial tiles). CUDA-event times of
+   kernel, plain version, and the cuDNN chain that the folded model runs
+   with the switch off (library_ms);
+10. the BN-folded serving path, with BN statistics and affines made
+   non-trivial from a seed: (a) the R50 f32 folded forward with K5 and K7
+   on the card against the unfolded eval forward on the CPU (relative L2
+   <= 1e-4), 12 K5 and 1 K7 launches; (b) three requests through
+   PredictService(fold_bn, fused_bottleneck, fused_stem) in bf16, with 12
+   K5, 1 K7 and 7 K1 launches per device batch; (c) the b16 bf16 forward
+   on CUDA events, unfolded / folded / folded + K5 + K7.
+The last lines are a JSON summary of the kernels (with each one's bound:
+the larger of its bytes over 3.35 TB/s and its operations over the peak
+of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32), the card's name and
 power limit, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -76,6 +97,23 @@ K2_SITES = [(site, B, s, t, h, d, m) for site, s, t, h, d, m in SHAPES[:3]] + [
     ("decoder self-attn, train batch", 32, 676, 676, 8, 64, 0),
     ("decoder cross-attn, train batch", 32, 676, 17, 8, 64, "rows"),
 ]
+
+
+# K5's sites on R50 at 416 px: (site, H, W, C, mid, launches per forward)
+K5_SHAPES = [
+    ("layer1 tail", 104, 104, 256, 64, 2),
+    ("layer2 tail", 52, 52, 512, 128, 3),
+    ("layer3 tail", 26, 26, 1024, 256, 5),
+    ("layer4 tail", 13, 13, 2048, 512, 2),
+]
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(ms, 'bytes' or 'operations'): the least time the card could take."""
+    mem, ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(mem, ops) * 1e3, "bytes" if mem >= ops else "operations"
 
 
 def card_line() -> str:
@@ -126,21 +164,42 @@ def phase_kernel(fused, plain):
             k1 = cuda_ms(lambda: fused(qd, kd, vd, h, valid))
             k2 = cuda_ms(lambda: fused(qd, kd, vd, h, valid))
             p2 = cuda_ms(lambda: plain(qd, kd, vd, h, valid))
+            lib = _sdpa(qd, kd, vd, h, valid)
+            torch.testing.assert_close(lib().transpose(1, 2).reshape(ref.shape)
+                                       .float(), ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+            l1, l2 = cuda_ms(lib), cuda_ms(lib)
+            es = qd.element_size()
+            b_ms, b_by = bound(es * B * (2 * s + 2 * t) * e,
+                               4.0 * B * h * s * t * d, dtype)
             row = dict(site=site, B=B, S=s, T=t, H=h, D=d, masked=masked,
                        dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(),
-                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                       library_ms=(l1 + l2) / 2, bound_ms=b_ms, bound_by=b_by)
             worst = max(worst, row["max_abs_err"])
             rows.append(row)
             print(f"K1 {site:30s} {row['dtype']:8s} S={s} T={t} H={h} D={d} "
                   f"max|err|={row['max_abs_err']:.3e} "
                   f"mean|err|={row['mean_abs_err']:.3e} "
-                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms",
-                  flush=True)
+                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms "
+                  f"sdpa {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
     main = next(r for r in rows if r["site"] == "decoder self-attn"
                 and r["dtype"] == "bfloat16")
-    return rows, worst, main["ms"], main["plain_ms"]
+    return rows, worst, main
+
+
+def _sdpa(q, k, v, h, valid):
+    """One call of F.scaled_dot_product_attention on K1's inputs (head
+    views of the (B, S, E) rows; the output stays (B, H, S, D)), timed
+    beside K1 as its library yardstick and used nowhere in the port."""
+    b, s, e = q.shape
+    heads = [x.view(b, x.shape[1], h, e // h).transpose(1, 2) for x in (q, k, v)]
+    mask = None if valid is None else valid[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        *heads, attn_mask=mask)
 
 
 def phase_model(cfg, build_segmenter, tokenize):
@@ -171,8 +230,10 @@ def phase_model(cfg, build_segmenter, tokenize):
     del model
 
 
-def phase_serving(cfg, PredictService, fused):
-    service = PredictService(cfg, device="cuda", max_batch=16)
+def phase_serving(cfg, PredictService, counters, **service_args):
+    """Three requests; ``counters`` maps a kernel's name to (its wrapper,
+    launches per device batch). Returns ({name: launches}, latencies)."""
+    service = PredictService(cfg, device="cuda", max_batch=16, **service_args)
     batches = []
     inner = service.evaluator.predict_probs
 
@@ -187,7 +248,8 @@ def phase_serving(cfg, PredictService, fused):
     requests = [((480, 640), 1), ((427, 640), 5), ((640, 480), 16)]
     words = ["the", "man", "left", "red", "shirt", "dog", "on", "a", "chair"]
     latencies = []
-    fused.launches = 0
+    for fn, _ in counters.values():
+        fn.launches = 0
     for (h, w), n in requests:
         image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         sents = [" ".join(rng.choice(words, 1 + i % 6)) for i in range(n)]
@@ -197,14 +259,17 @@ def phase_serving(cfg, PredictService, fused):
         assert len(results) == n
         for r in results:
             assert r["mask"].shape == (h, w) and r["mask"].dtype == bool
-    launches = fused.launches
+    launches = {name: fn.launches for name, (fn, _) in counters.items()}
     for ((h, w), n), b, ms in zip(requests, batches, latencies):
         print(f"request {h}x{w} with {n} sentences: bucket {b}, "
               f"latency {ms:.2f} ms", flush=True)
     assert batches == [1, 8, 16], batches
-    assert launches == 7 * len(batches), (launches, batches)
-    print(f"K1 launches on the serving path: {launches} "
-          f"({len(batches)} device batches x 7)", flush=True)
+    for name, (_, per_batch) in counters.items():
+        assert launches[name] == per_batch * len(batches), (name, launches)
+        switches = sorted(k for k, v in service_args.items() if v is True)
+        print(f"{name} launches on the serving path {switches}: "
+              f"{launches[name]} ({len(batches)} device batches x "
+              f"{per_batch})", flush=True)
     return launches, latencies
 
 
@@ -509,19 +574,296 @@ def phase_train_bf16(cfg, build_segmenter, engine, counters, steps=8, b=32):
     return launches, median, peak, times
 
 
+def _cudnn_bottleneck(x, w1, b1, w2, b2, w3, b3):
+    """The chain the folded model runs for a tail block with K5 off:
+    three cuDNN convs with their biases, ReLUs and the residual add, in
+    the dtype, on the NCHW map; the weights are cast beforehand."""
+    dt = x.dtype
+    mid = w1.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    k1 = w1.t()[:, :, None, None].contiguous()
+    k2 = w2.reshape(3, 3, mid, mid).permute(3, 2, 0, 1).contiguous()
+    k3 = w3.t()[:, :, None, None].contiguous()
+    c1, c2, c3 = b1.to(dt), b2.to(dt), b3.to(dt)
+    F = torch.nn.functional
+
+    def run():
+        out = F.relu(F.conv2d(xc, k1, c1))
+        out = F.relu(F.conv2d(out, k2, c2, padding=1))
+        return F.relu(F.conv2d(out, k3, c3) + xc)
+    return run
+
+
+def _timed_rows(fused, plain, library, args):
+    """plain, kernel, kernel, plain, library, library on CUDA events."""
+    p1 = cuda_ms(lambda: plain(*args), 10)
+    k1 = cuda_ms(lambda: fused(*args), 10)
+    k2 = cuda_ms(lambda: fused(*args), 10)
+    p2 = cuda_ms(lambda: plain(*args), 10)
+    l1, l2 = cuda_ms(library, 10), cuda_ms(library, 10)
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2)
+
+
+def phase_k5(fused, plain):
+    """K5 at every R50 tail shape, B 16, f32 and bf16, against its plain
+    version; x is an NHWC view of NCHW memory, as the model hands it."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    for site, h, w, c, mid, per_forward in K5_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(B, c, h, w).to(dtype).permute(0, 2, 3, 1)
+            args = (x, (randn(c, mid) * c ** -0.5).to(dtype), randn(mid) * 0.1,
+                    (randn(9, mid, mid) * (9 * mid) ** -0.5).to(dtype),
+                    randn(mid) * 0.1, (randn(mid, c) * mid ** -0.5).to(dtype),
+                    randn(c) * 0.1)
+            before = fused.launches
+            got = fused(*args)
+            assert fused.launches == before + 1
+            ref = plain(*args)
+            library = _cudnn_bottleneck(*args)
+            torch.cuda.synchronize()
+            what = f"K5 {site} {dtype}"
+            err = _check(got, ref, dtype, what)
+            assert got.stride() == x.stride(), (got.stride(), x.stride())
+            if dtype == torch.float32:
+                _check(library().permute(0, 2, 3, 1), ref, dtype,
+                       what + ": the cuDNN chain")
+            # strides only address: a contiguous NHWC input, the same bits
+            assert torch.equal(fused(x.contiguous(), *args[1:]), got), what
+            times = _timed_rows(fused, plain, library, args)
+            es = x.element_size()
+            nbytes = (2 * x.numel() + 2 * c * mid + 9 * mid * mid) * es \
+                + 4 * (2 * mid + c)
+            flops = 2.0 * B * h * w * (2 * c * mid + 9 * mid * mid)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            row = dict(site=site, B=B, H=h, W=w, C=c, mid=mid,
+                       launches_per_forward=per_forward,
+                       dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6, **times)
+            rows.append(row)
+            print(f"K5 {site} {h}x{w}x{c}/{mid} {row['dtype']:8s} max|err| "
+                  f"{err:.3e}; kernel {row['ms']:.4f} ms plain "
+                  f"{row['plain_ms']:.4f} ms cuDNN chain "
+                  f"{row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+                  f"{row['gflop']:.1f} GFLOP, {row['mbytes']:.1f} MB)",
+                  flush=True)
+    return rows
+
+
+def _cudnn_stem(img, k1, b1, k2, b2, k3, b3):
+    """The folded model's stem with K7 off: three cuDNN convs with their
+    biases and ReLUs and the 2x2 pool, in the kernels' dtype, NCHW."""
+    F = torch.nn.functional
+    dt = k1.dtype
+    xc = img.permute(0, 3, 1, 2)
+    ks = [k.permute(3, 2, 0, 1).contiguous() for k in (k1, k2, k3)]
+    bs = [b.to(dt) for b in (b1, b2, b3)]
+
+    def run():
+        x = F.relu(F.conv2d(xc.to(dt), ks[0], bs[0], 2, 1))
+        x = F.relu(F.conv2d(x, ks[1], bs[1], 1, 1))
+        x = F.relu(F.conv2d(x, ks[2], bs[2], 1, 1))
+        return F.avg_pool2d(x, 2)
+    return run
+
+
+def phase_k7(fused, plain, size=416, widths=(32, 32, 64)):
+    """K7 on B 16 images at 416^2, f32 and bf16, against its plain version
+    (the image an NHWC view of f32 NCHW memory, as the model hands it); and
+    once on a 100 x 76 image, whose 25 x 19 pooled map ends in partial
+    tiles."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    c1, c2, c3 = widths
+    for dtype in (torch.float32, torch.bfloat16):
+        ks = ((randn(3, 3, 3, c1) * 27 ** -0.5).to(dtype), randn(c1) * 0.1,
+              (randn(3, 3, c1, c2) * (9 * c1) ** -0.5).to(dtype),
+              randn(c2) * 0.1,
+              (randn(3, 3, c2, c3) * (9 * c2) ** -0.5).to(dtype),
+              randn(c3) * 0.1)
+        small = randn(2, 3, 100, 76).permute(0, 2, 3, 1)
+        _check(fused(small, *ks), plain(small, *ks), dtype,
+               f"K7 100 x 76 {dtype}")
+        img = randn(B, 3, size, size).permute(0, 2, 3, 1)
+        args = (img, *ks)
+        before = fused.launches
+        got = fused(*args)
+        assert fused.launches == before + 1
+        ref = plain(*args)
+        library = _cudnn_stem(*args)
+        torch.cuda.synchronize()
+        what = f"K7 {size}^2 {dtype}"
+        err = _check(got, ref, dtype, what)
+        if dtype == torch.float32:
+            _check(library().permute(0, 2, 3, 1), ref, dtype,
+                   what + ": the cuDNN chain")
+        times = _timed_rows(fused, plain, library, args)
+        es = torch.tensor([], dtype=dtype).element_size()
+        h2 = size // 2
+        nbytes = img.numel() * 4 + got.numel() * es + 4 * (c1 + c2 + c3) \
+            + es * 9 * (3 * c1 + c1 * c2 + c2 * c3)
+        flops = 2.0 * B * h2 * h2 * 9 * (3 * c1 + c1 * c2 + c2 * c3)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        row = dict(site=f"stem {size}^2", B=B, dtype=str(dtype).replace(
+            "torch.", ""), max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6, **times)
+        rows.append(row)
+        print(f"K7 {size}^2 -> {size // 4}^2 x {c3} {row['dtype']:8s} max|err| "
+              f"{err:.3e}; kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.4f} ms cuDNN chain {row['library_ms']:.4f} "
+              f"ms bound {b_ms:.4f} ms ({b_by}, {row['gflop']:.1f} GFLOP, "
+              f"{row['mbytes']:.1f} MB)", flush=True)
+    return rows
+
+
+def randomize_bn(model, seed):
+    """BN statistics and affines made non-trivial from a seed, so that the
+    fold does real work: running mean N(0, 0.1), running var U(0.5, 1.5),
+    weight U(0.5, 1.5), bias N(0, 0.1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if hasattr(mod, "running_mean"):
+                n = mod.running_mean.shape
+                mod.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                mod.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+                mod.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                mod.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+    return model
+
+
+def _folded(cfg, build_segmenter, folded_sd, **switches):
+    model = build_segmenter(cfg, device="meta", fold_bn=True,
+                            pos_grid=cfg.input_size // 32, **switches)
+    model.load_state_dict(folded_sd, assign=True)
+    return model.cuda()
+
+
+def phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5, k7, tokenize):
+    """10(a): the R50 f32 folded forward with K5 and K7 on the card
+    against the unfolded eval forward on the CPU. Returns the unfolded
+    state dict with its non-trivial BN."""
+    base = randomize_bn(build_segmenter(cfg, device="cpu", seed=0), 3)
+    sd = base.state_dict()
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 3, cfg.input_size, cfg.input_size, generator=gen)
+    word = torch.from_numpy(tokenize(
+        ["the man in the red shirt on the left", "a dog"], cfg.word_len,
+        True)).long()
+    model = _folded(cfg, build_segmenter, fold_batchnorm(sd, cfg.input_size),
+                    fused_bottleneck=True, fused_stem=True)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = base(img, word)
+        cpu_s = time.perf_counter() - t0
+        k5.launches = k7.launches = 0
+        got = model(img.cuda(), word.cuda())
+        torch.cuda.synchronize()
+        launches = (k5.launches, k7.launches)
+    got = got.cpu()
+    assert torch.isfinite(got).all() and got.shape == ref.shape
+    rel = ((got - ref).norm() / ref.norm()).item()
+    agree = ((torch.sigmoid(got) > 0.35) == (torch.sigmoid(ref) > 0.35)
+             ).float().mean().item()
+    print(f"R50 f32 folded + K5 + K7 on the card vs unfolded on the CPU: "
+          f"logits {tuple(got.shape)} rel L2 {rel:.3e} mask agreement "
+          f"{agree:.6f}; K5, K7 launches {launches} (CPU forward "
+          f"{cpu_s:.1f} s)", flush=True)
+    assert launches == (12, 1), launches
+    assert rel <= 1e-4, rel
+    assert agree >= 0.999, agree
+    return sd, rel
+
+
+def phase_ab(cfg, build_segmenter, fold_batchnorm, sd):
+    """10(c): the b16 bf16 forward, unfolded / folded / folded + K5 + K7,
+    on CUDA events in turns (u, f, k, k, f, u)."""
+    unfolded = build_segmenter(cfg, device="meta")
+    unfolded.load_state_dict(sd, assign=True)
+    unfolded.cuda()
+    folded_sd = fold_batchnorm(sd, cfg.input_size)
+    folded = _folded(cfg, build_segmenter, folded_sd)
+    kernels = _folded(cfg, build_segmenter, folded_sd, fused_bottleneck=True,
+                      fused_stem=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    size = cfg.input_size
+    img = torch.randn(B, 3, size, size, device="cuda", generator=gen)
+    word = torch.randint(1, 49407, (B, cfg.word_len), device="cuda",
+                         generator=gen)
+
+    def forward(model):
+        @torch.no_grad()
+        def run():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return model(img, word)
+        return run
+
+    outs = [forward(m)().float() for m in (unfolded, folded, kernels)]
+    rel = [_rel(o, outs[0]) for o in outs[1:]]
+    u1, f1 = cuda_ms(forward(unfolded), 10), cuda_ms(forward(folded), 10)
+    k1, k2 = cuda_ms(forward(kernels), 10), cuda_ms(forward(kernels), 10)
+    f2, u2 = cuda_ms(forward(folded), 10), cuda_ms(forward(unfolded), 10)
+    ab = {"unfolded_ms": (u1 + u2) / 2, "folded_ms": (f1 + f2) / 2,
+          "folded_k5_k7_ms": (k1 + k2) / 2,
+          "rel_l2_vs_unfolded": {"folded": rel[0], "folded_k5_k7": rel[1]}}
+    print(f"R50 b16 bf16 forward (CUDA events, mean of 10, u f k k f u): "
+          f"unfolded {u1:.3f}/{u2:.3f} ms, folded {f1:.3f}/{f2:.3f} ms, "
+          f"folded + K5 + K7 {k1:.3f}/{k2:.3f} ms; logits rel L2 against "
+          f"the unfolded bf16 forward: folded {rel[0]:.3e}, + K5 + K7 "
+          f"{rel[1]:.3e}; on {card_line()}", flush=True)
+    assert all(np.isfinite(r) for r in rel), rel
+    return ab
+
+
+def _k2_bound(b, s, t, h, d, dtype, backward=False):
+    """K2's bound at a site: the forward reads q, k, v and writes the
+    output (plus the f32 log-sum-exp) with K1's two products; the
+    backward reads q, k, v, the output, dO and the log-sum-exp, writes dq,
+    dk, dv, and needs five products (S again, dV, dP, dQ, dK)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    e = h * d
+    if backward:
+        return bound(es * b * (4 * s + 4 * t) * e + 4 * b * h * s,
+                     10.0 * b * h * s * t * d, dtype)
+    return bound(es * b * (2 * s + 2 * t) * e + 4 * b * h * s,
+                 4.0 * b * h * s * t * d, dtype)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="all",
+                        help="comma-separated phase numbers to run (the "
+                             "build, phase 1, always runs); a subset prints "
+                             "no summary")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    run_all = args.phases == "all"
+    wanted = set(range(2, 11)) if run_all else {
+        int(x) for x in args.phases.split(",")}
+
     from cris_tpu_torch import engine
+    from cris_tpu_torch.checkpoint import fold_batchnorm
     from cris_tpu_torch.models import build_segmenter
     from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
                                             attention_dropout_forward,
                                             attention_dropout_plain,
-                                            attention_plain, build,
-                                            fused_attention_bse,
+                                            attention_plain, bottleneck_plain,
+                                            build, fused_attention_bse,
                                             fused_attention_bse_dropout,
-                                            keep_mask)
+                                            fused_bottleneck, fused_stem_pool,
+                                            keep_mask, stem_pool_plain)
     from cris_tpu_torch.serving import PredictService
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
 
@@ -540,66 +882,153 @@ def main() -> int:
     if log.is_file():
         print(log.read_text(), flush=True)
 
-    rows, worst, ms, plain_ms = phase_kernel(fused_attention_bse, attention_plain)
     cfg = cris_r50_refcoco()
-    phase_model(cfg, build_segmenter, tokenize)
-    serving_launches, _ = phase_serving(cfg, PredictService, fused_attention_bse)
-    k1_grad_rows, k1_grad_worst = phase_k1_backward(fused_attention_bse,
-                                                    attention_plain)
-    k2_rows, k2_fwd_worst, k2_bwd_worst, _ = phase_k2(
-        fused_attention_bse_dropout, attention_dropout_forward,
-        attention_dropout_backward, attention_dropout_plain,
-        fused_attention_bse, keep_mask)
-    phase_train_card_vs_cpu(cfg, build_segmenter)
-    counters = [fused_attention_bse_dropout, attention_dropout_backward,
-                fused_attention_bse]
-    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _ = phase_train_bf16(
-        cfg, build_segmenter, engine, counters)
+    k1 = fused_attention_bse
+    out = {}
+    if 2 in wanted:
+        out["k1_rows"], out["k1_worst"], out["k1_main"] = phase_kernel(
+            k1, attention_plain)
+    if 3 in wanted:
+        phase_model(cfg, build_segmenter, tokenize)
+    if 4 in wanted:
+        out["serving"], _ = phase_serving(cfg, PredictService,
+                                          {"K1": (k1, 7)})
+    if 5 in wanted:
+        out["k1_grad_rows"], out["k1_grad_worst"] = phase_k1_backward(
+            k1, attention_plain)
+    if 6 in wanted:
+        (out["k2_rows"], out["k2_fwd_worst"], out["k2_bwd_worst"],
+         _) = phase_k2(fused_attention_bse_dropout, attention_dropout_forward,
+                       attention_dropout_backward, attention_dropout_plain,
+                       k1, keep_mask)
+    if 7 in wanted:
+        phase_train_card_vs_cpu(cfg, build_segmenter)
+    if 8 in wanted:
+        counters = [fused_attention_bse_dropout, attention_dropout_backward,
+                    k1]
+        out["train"] = phase_train_bf16(cfg, build_segmenter, engine,
+                                        counters)
+    if 9 in wanted:
+        out["k5_rows"] = phase_k5(fused_bottleneck, bottleneck_plain)
+        out["k7_rows"] = phase_k7(fused_stem_pool, stem_pool_plain)
+    if 10 in wanted:
+        sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm,
+                                   fused_bottleneck, fused_stem_pool, tokenize)
+        out["folded_serving"], _ = phase_serving(
+            cfg, PredictService,
+            {"K1": (k1, 7), "K5": (fused_bottleneck, 12),
+             "K7": (fused_stem_pool, 1)},
+            state_dict=sd, fused_bottleneck=True, fused_stem=True)
+        out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
+    if not run_all:
+        print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
+              "prints no summary", flush=True)
+        return 0
+    print(json.dumps(summary(out)), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def summary(out) -> dict:
+    """The kernels line, after printing the detail rows as one JSON line."""
+    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _ = out["train"]
     # K2 at the train path's busiest site: self-attention, B 32, bf16
-    main_k2 = next(r for r in k2_rows if r["site"].startswith(
+    main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
         "decoder self-attn") and r["B"] == 32 and r["dtype"] == "bfloat16")
+    k2_site = (32, 676, 676, 8, 64, torch.bfloat16)
     k2_src = "cris_tpu_torch/csrc/attention_bse_dropout.cu"
-    summary = {"kernels": [{
+    folded = out["folded_serving"]
+    k1_main = out["k1_main"]
+
+    def per_forward(rows, key):
+        """bf16 K5 summed over one forward's 12 launches."""
+        return sum(r[key] * r["launches_per_forward"] for r in rows
+                   if r["dtype"] == "bfloat16")
+
+    # the term that holds more of the 12 launches' summed bound
+    by_kind = {"bytes": 0.0, "operations": 0.0}
+    for r in out["k5_rows"]:
+        if r["dtype"] == "bfloat16":
+            by_kind[r["bound_by"]] += r["bound_ms"] * r["launches_per_forward"]
+    k5_bound_by = max(by_kind, key=by_kind.get)
+    k7_main = next(r for r in out["k7_rows"] if r["dtype"] == "bfloat16")
+    kernels = [{
         "name": "fused_attention_bse",
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/attention_bse.cu",
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
-        "launches": serving_launches + k1_train_n,
-        "launches_by_path": {"serving": serving_launches,
-                             "train": k1_train_n},
-        "max_abs_err": max(worst, k1_grad_worst),
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches": out["serving"]["K1"] + k1_train_n + folded["K1"],
+        "launches_by_path": {"serving": out["serving"]["K1"],
+                             "train": k1_train_n,
+                             "folded serving": folded["K1"]},
+        "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
+        "ms": k1_main["ms"],
+        "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"],
+        "bound_by": k1_main["bound_by"],
+        "library_ms": k1_main["library_ms"],
     }, {
         "name": "fused_attention_bse_dropout (forward)",
         "route": "cuda",
         "source": k2_src,
         "replaces": "cris_tpu/ops/pallas/attention_train.py:218",
         "launches": k2_fwd_n,
-        "max_abs_err": k2_fwd_worst,
+        "max_abs_err": out["k2_fwd_worst"],
         "ms": main_k2["fwd_ms"],
         "plain_ms": main_k2["plain_fwd_ms"],
+        "bound_ms": _k2_bound(*k2_site)[0],
+        "bound_by": _k2_bound(*k2_site)[1],
+        "library_ms": None,
     }, {
         "name": "fused_attention_bse_dropout (backward)",
         "route": "cuda",
         "source": k2_src,
         "replaces": "cris_tpu/ops/pallas/attention_train.py:248",
         "launches": k2_bwd_n,
-        "max_abs_err": k2_bwd_worst,
+        "max_abs_err": out["k2_bwd_worst"],
         "ms": main_k2["bwd_ms"],
         "plain_ms": main_k2["plain_bwd_ms"],
-    }]}
-    print(json.dumps({"k1_shapes": rows, "k1_grad": k1_grad_rows,
-                      "k2_shapes": k2_rows,
+        "bound_ms": _k2_bound(*k2_site, backward=True)[0],
+        "bound_by": _k2_bound(*k2_site, backward=True)[1],
+        "library_ms": None,
+    }, {
+        "name": "fused_bottleneck (12 launches of one b16 bf16 forward)",
+        "route": "cuda",
+        "source": "cris_tpu_torch/csrc/bottleneck.cu",
+        "replaces": "cris_tpu/ops/pallas/bottleneck.py:208",
+        "launches": folded["K5"],
+        "max_abs_err": max(r["max_abs_err"] for r in out["k5_rows"]),
+        "ms": per_forward(out["k5_rows"], "ms"),
+        "plain_ms": per_forward(out["k5_rows"], "plain_ms"),
+        "bound_ms": per_forward(out["k5_rows"], "bound_ms"),
+        "bound_by": k5_bound_by,
+        "library_ms": per_forward(out["k5_rows"], "library_ms"),
+        "library": "cuDNN chain: 3 convs + biases, ReLUs, residual add",
+    }, {
+        "name": "fused_stem_pool",
+        "route": "cuda",
+        "source": "cris_tpu_torch/csrc/stem.cu",
+        "replaces": "cris_tpu/ops/pallas/stem.py:177",
+        "launches": folded["K7"],
+        "max_abs_err": max(r["max_abs_err"] for r in out["k7_rows"]),
+        "ms": k7_main["ms"],
+        "plain_ms": k7_main["plain_ms"],
+        "bound_ms": k7_main["bound_ms"],
+        "bound_by": k7_main["bound_by"],
+        "library_ms": k7_main["library_ms"],
+        "library": "cuDNN chain: 3 convs + biases, ReLUs, 2x2 avg pool",
+    }]
+    print(json.dumps({"k1_shapes": out["k1_rows"],
+                      "k1_grad": out["k1_grad_rows"],
+                      "k2_shapes": out["k2_rows"],
+                      "k5_shapes": out["k5_rows"], "k7": out["k7_rows"],
+                      "folded_forward_ab_b16_bf16": out["ab"],
                       "train_bf16_b32": {"median_step_ms": step_ms,
                                          "peak_gib": peak}}), flush=True)
-    print(json.dumps(summary), flush=True)
-    print(card_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return {"kernels": kernels}
 
 
 if __name__ == "__main__":

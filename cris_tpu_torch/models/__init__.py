@@ -1,8 +1,9 @@
 """Model registry and builder (counterpart of cris_tpu/models/__init__.py:33-73).
 
 ``build_segmenter(cfg, device, seed)`` builds CRIS from a flat config with
-seeded random weights (a ``torch.Generator``), or with no storage at all
-on the ``meta`` device. Weights from the JAX package load through
+seeded random weights (a ``torch.Generator``), on the card by default, or
+with no storage at all on the ``meta`` device; ``fold_bn=True`` builds the
+BN-folded inference variant. Weights from the JAX package load through
 ``cris_tpu_torch.checkpoint.from_jax``. ``param_group_label`` splits the
 parameters into the optimizer's backbone and head groups.
 """
@@ -69,12 +70,28 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def build_segmenter(cfg, device="cpu", seed: int = 0, train: bool = False) -> CRIS:
+def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
+                    fold_bn: bool = False, pos_grid: Optional[int] = None,
+                    fused_bottleneck: bool = False,
+                    fused_stem: bool = False) -> CRIS:
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
-    train mode (batch-statistics BN, dropout) with ``train=True``.
+    train mode (batch-statistics BN, dropout) with ``train=True``, on the
+    card unless ``device`` says otherwise.
+
+    ``fold_bn`` builds the inference variant for weights that
+    ``checkpoint.fold_batchnorm`` folded (convs with biases, no BN but the
+    neck's ``norm_layer``); ``pos_grid`` declares the attnpool embedding
+    at that grid (``fold_batchnorm(input_resolution=...)``). The kernel
+    switches, the JAX package's ``CRIS_PALLAS_BOTTLENECK`` and
+    ``CRIS_PALLAS_STEM``, default off as those do: ``fused_bottleneck``
+    runs every stride-1 identity bottleneck as K5, ``fused_stem`` the stem
+    and its pool as K7. Both need ``fold_bn`` and eval.
 
     On ``device="meta"`` the parameters have shapes and no storage;
     otherwise they are initialised on the CPU from ``seed`` and moved."""
+    if (fused_bottleneck or fused_stem) and train:
+        raise ValueError("fused_bottleneck and fused_stem are inference "
+                         "kernels: need train=False")
     clip_config = preset_from_name(cfg.clip_pretrain)
     meta = torch.device(device).type == "meta"
     with torch.device("meta" if meta else "cpu"):
@@ -87,6 +104,10 @@ def build_segmenter(cfg, device="cpu", seed: int = 0, train: bool = False) -> CR
             num_head=cfg.num_head,
             dim_ffn=cfg.dim_ffn,
             dropout=cfg.dropout,
+            fold_bn=fold_bn,
+            pos_grid=pos_grid,
+            fused_bottleneck=fused_bottleneck,
+            fused_stem=fused_stem,
         )
     if not meta:
         init_weights(model, seed).to(device)

@@ -52,7 +52,9 @@ def preset_from_name(name: str) -> CLIPConfig:
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, fold_bn: bool = False,
+                 pos_grid: Optional[int] = None,
+                 fused_bottleneck: bool = False, fused_stem: bool = False):
         super().__init__()
         self.visual = ModifiedResNet(
             layers=cfg.vision_layers,
@@ -60,6 +62,10 @@ class CLIP(nn.Module):
             heads=cfg.vision_heads,
             input_resolution=cfg.image_resolution,
             width=cfg.vision_width,
+            fold_bn=fold_bn,
+            pos_grid=pos_grid,
+            fused_bottleneck=fused_bottleneck,
+            fused_stem=fused_stem,
         )
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
         self.positional_embedding = nn.Parameter(

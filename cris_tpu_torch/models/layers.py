@@ -2,8 +2,10 @@
 match (counterpart of cris_tpu/models/layers.py:358-460,463-507,707-760).
 
 BatchNorm normalises with the batch statistics in training (and updates
-its running statistics) and with the running statistics in eval;
-``Dropout`` draws its mask from an explicit generator.
+its running statistics) and with the running statistics in eval; with
+``fold_bn`` (inference only) a conv or linear carries the BN's affine in
+its weight and bias and the BN is gone. ``Dropout`` draws its mask from an
+explicit generator.
 """
 
 from __future__ import annotations
@@ -96,26 +98,36 @@ class QuickGELU(nn.Module):
         return quick_gelu(x)
 
 
+def norm(num_features: int, fold_bn: bool = False) -> nn.Module:
+    """The BN after a conv or linear, or nothing where ``fold_bn`` has
+    folded it into that layer's weight and bias
+    (``checkpoint.fold.fold_batchnorm``)."""
+    return nn.Identity() if fold_bn else BatchNorm(num_features)
+
+
 class ConvBNReLU(nn.Sequential):
     """conv(bias=False) + BN + ReLU: CRIS.pytorch's ``conv_layer``
-    (keys ``0.weight`` and ``1.*``)."""
+    (keys ``0.weight`` and ``1.*``); with ``fold_bn``, conv(bias=True) +
+    ReLU (keys ``0.weight``, ``0.bias``)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 1,
-                 padding: int = 0, stride: int = 1):
+                 padding: int = 0, stride: int = 1, fold_bn: bool = False):
         super().__init__(
-            nn.Conv2d(in_dim, out_dim, kernel_size, stride, padding, bias=False),
-            BatchNorm(out_dim),
+            nn.Conv2d(in_dim, out_dim, kernel_size, stride, padding,
+                      bias=fold_bn),
+            norm(out_dim, fold_bn),
             nn.ReLU(inplace=True),
         )
 
 
 class LinearBNReLU(nn.Sequential):
-    """linear(bias=False) + BN1d + ReLU: CRIS.pytorch's ``linear_layer``."""
+    """linear(bias=False) + BN1d + ReLU: CRIS.pytorch's ``linear_layer``;
+    with ``fold_bn``, linear(bias=True) + ReLU."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, fold_bn: bool = False):
         super().__init__(
-            nn.Linear(in_dim, out_dim, bias=False),
-            BatchNorm(out_dim),
+            nn.Linear(in_dim, out_dim, bias=fold_bn),
+            norm(out_dim, fold_bn),
             nn.ReLU(inplace=True),
         )
 
@@ -124,9 +136,10 @@ class CoordConv(nn.Module):
     """Concatenates x/y coordinate planes in [-1, 1], then a ConvBNReLU."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 3,
-                 padding: int = 1):
+                 padding: int = 1, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = ConvBNReLU(in_dim + 2, out_dim, kernel_size, padding)
+        self.conv1 = ConvBNReLU(in_dim + 2, out_dim, kernel_size, padding,
+                                fold_bn=fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape

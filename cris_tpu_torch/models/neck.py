@@ -1,5 +1,7 @@
 """FPN multimodal fusion neck (counterpart of cris_tpu/models/neck.py:26-114),
-in its unfused order: standalone bilinear upsamples and concatenations."""
+in its unfused order: standalone bilinear upsamples and concatenations.
+With ``fold_bn`` every conv/linear + BN pair is folded; ``norm_layer``'s BN
+normalises a product of features, has nothing to fold into, and stays."""
 
 from __future__ import annotations
 
@@ -15,23 +17,25 @@ from .layers import BatchNorm, ConvBNReLU, CoordConv, LinearBNReLU
 class FPN(nn.Module):
     def __init__(self, state_dim: int,
                  in_channels: Sequence[int] = (512, 1024, 1024),
-                 out_channels: Sequence[int] = (256, 512, 1024)):
+                 out_channels: Sequence[int] = (256, 512, 1024),
+                 fold_bn: bool = False):
         super().__init__()
         in0, in1, in2 = in_channels
         out0, out1, out2 = out_channels
-        self.txt_proj = LinearBNReLU(state_dim, out2)
-        self.f1_v_proj = ConvBNReLU(in2, out2, 1, 0)
+        f = dict(fold_bn=fold_bn)
+        self.txt_proj = LinearBNReLU(state_dim, out2, **f)
+        self.f1_v_proj = ConvBNReLU(in2, out2, 1, 0, **f)
         self.norm_layer = nn.Sequential(BatchNorm(out2), nn.ReLU(inplace=True))
-        self.f2_v_proj = ConvBNReLU(in1, out1, 3, 1)
-        self.f2_cat = ConvBNReLU(out2 + out1, out1, 1, 0)
-        self.f3_v_proj = ConvBNReLU(in0, out0, 3, 1)
-        self.f3_cat = ConvBNReLU(out0 + out1, out1, 1, 0)
-        self.f4_proj5 = ConvBNReLU(out2, out1, 3, 1)
-        self.f4_proj4 = ConvBNReLU(out1, out1, 3, 1)
-        self.f4_proj3 = ConvBNReLU(out1, out1, 3, 1)
-        self.aggr = ConvBNReLU(3 * out1, out1, 1, 0)
-        self.coordconv = nn.Sequential(CoordConv(out1, out1, 3, 1),
-                                       ConvBNReLU(out1, out1, 3, 1))
+        self.f2_v_proj = ConvBNReLU(in1, out1, 3, 1, **f)
+        self.f2_cat = ConvBNReLU(out2 + out1, out1, 1, 0, **f)
+        self.f3_v_proj = ConvBNReLU(in0, out0, 3, 1, **f)
+        self.f3_cat = ConvBNReLU(out0 + out1, out1, 1, 0, **f)
+        self.f4_proj5 = ConvBNReLU(out2, out1, 3, 1, **f)
+        self.f4_proj4 = ConvBNReLU(out1, out1, 3, 1, **f)
+        self.f4_proj3 = ConvBNReLU(out1, out1, 3, 1, **f)
+        self.aggr = ConvBNReLU(3 * out1, out1, 1, 0, **f)
+        self.coordconv = nn.Sequential(CoordConv(out1, out1, 3, 1, **f),
+                                       ConvBNReLU(out1, out1, 3, 1, **f))
 
     def forward(self, imgs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                 state: torch.Tensor) -> torch.Tensor:

@@ -13,15 +13,15 @@ from .layers import ConvBNReLU, Upsample2x
 
 class Projector(nn.Module):
     def __init__(self, word_dim: int = 1024, in_dim: int = 256,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, fold_bn: bool = False):
         super().__init__()
         self.in_dim = in_dim
         self.kernel_size = kernel_size
         self.vis = nn.Sequential(
             Upsample2x(),
-            ConvBNReLU(in_dim * 2, in_dim * 2, 3, 1),
+            ConvBNReLU(in_dim * 2, in_dim * 2, 3, 1, fold_bn=fold_bn),
             Upsample2x(),
-            ConvBNReLU(in_dim * 2, in_dim, 3, 1),
+            ConvBNReLU(in_dim * 2, in_dim, 3, 1, fold_bn=fold_bn),
             nn.Conv2d(in_dim, in_dim, 1),
         )
         self.txt = nn.Linear(word_dim, in_dim * kernel_size * kernel_size + 1)

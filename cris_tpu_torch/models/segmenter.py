@@ -38,13 +38,19 @@ class CRIS(nn.Module):
                  fpn_in: Sequence[int] = (512, 1024, 1024),
                  fpn_out: Sequence[int] = (256, 512, 1024),
                  vis_dim: int = 512, num_layers: int = 3, num_head: int = 8,
-                 dim_ffn: int = 2048, dropout: float = 0.1):
+                 dim_ffn: int = 2048, dropout: float = 0.1,
+                 fold_bn: bool = False, pos_grid: Optional[int] = None,
+                 fused_bottleneck: bool = False, fused_stem: bool = False):
+        """``fold_bn``, ``pos_grid`` and the two kernel switches: see
+        ``models.build_segmenter``."""
         super().__init__()
-        self.backbone = CLIP(clip_config)
-        self.neck = FPN(clip_config.embed_dim, fpn_in, fpn_out)
+        self.backbone = CLIP(clip_config, fold_bn=fold_bn, pos_grid=pos_grid,
+                             fused_bottleneck=fused_bottleneck,
+                             fused_stem=fused_stem)
+        self.neck = FPN(clip_config.embed_dim, fpn_in, fpn_out, fold_bn)
         self.decoder = TransformerDecoder(num_layers, vis_dim, num_head,
                                           dim_ffn, dropout)
-        self.proj = Projector(clip_config.embed_dim, vis_dim // 2, 3)
+        self.proj = Projector(clip_config.embed_dim, vis_dim // 2, 3, fold_bn)
 
     def forward(self, img: torch.Tensor, word: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,

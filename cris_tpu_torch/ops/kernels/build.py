@@ -135,6 +135,22 @@ def load_library() -> ctypes.CDLL:
                 *dropout_tail,
             ]
             lib.cris_attention_dropout_bwd.restype = i
+            conv_tail = [
+                i, i, i, i, i, i,       # B, H, W, then the widths and dtype
+                ll, ll, ll, ll,         # input batch/row/column/channel strides
+                ll, ll, ll, ll,         # output strides, the same order
+                p,                      # stream
+            ]
+            lib.cris_bottleneck.argtypes = [
+                p, p, p, p, p, p, p, p,  # x, w1, b1, w2, b2, w3, b3, out
+                *conv_tail,             # B, H, W, C, mid, dtype, ...
+            ]
+            lib.cris_bottleneck.restype = i
+            lib.cris_stem_pool.argtypes = [
+                p, p, p, p, p, p, p, p,  # img, k1, b1, k2, b2, k3, b3, out
+                i, *conv_tail,          # B, H, W, C1, C2, C3, dtype, ...
+            ]
+            lib.cris_stem_pool.restype = i
             lib.cris_cuda_error_string.argtypes = [i]
             lib.cris_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

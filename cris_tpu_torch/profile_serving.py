@@ -1,9 +1,11 @@
 """Where a served request's time goes, on one CUDA card.
 
-    python3 -m cris_tpu_torch.profile_serving [--out FILE]
+    python3 -m cris_tpu_torch.profile_serving [--out FILE] [--unfolded]
+        [--fused-bottleneck] [--fused-stem]
 
 CRIS-R50 at 416 px (random weights from seed 0), bf16 autocast, as
-``chip_smoke.py`` serves it. For buckets 1, 8 and 16 it times each stage
+``chip_smoke.py`` serves it: BN folded unless ``--unfolded``, with K5 and
+K7 on the folded model when their switches are given. For buckets 1, 8 and 16 it times each stage
 of ``PredictService.predict`` on the host clock over five requests
 of a 640 x 480 image: the letterbox warp, the tokenizer, the device batch
 (``Evaluator.predict_probs``: copies in, forward, sigmoid, resize, copy
@@ -114,6 +116,12 @@ def profile(fn, top=TOP):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the results here as JSON")
+    parser.add_argument("--unfolded", action="store_true",
+                        help="serve eval-form BN instead of the BN fold")
+    parser.add_argument("--fused-bottleneck", action="store_true",
+                        help="run the stride-1 tail bottlenecks as K5")
+    parser.add_argument("--fused-stem", action="store_true",
+                        help="run the stem and its pool as K7")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
@@ -122,9 +130,14 @@ def main() -> None:
     print(f"card: {card}", flush=True)
 
     cfg = cris_r50_refcoco()
-    service = serving.PredictService(cfg, device="cuda", max_batch=16)
+    switches = dict(fold_bn=not args.unfolded,
+                    fused_bottleneck=args.fused_bottleneck,
+                    fused_stem=args.fused_stem)
+    service = serving.PredictService(cfg, device="cuda", max_batch=16,
+                                     **switches)
     image = np.random.RandomState(0).randint(0, 256, (480, 640, 3)).astype(np.uint8)
     out = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+           "service": switches,
            "stages_ms": stage_breakdown(service, image)}
     for bucket, rows in out["stages_ms"].items():
         print(f"bucket {bucket}: " + "; ".join(

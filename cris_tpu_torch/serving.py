@@ -4,8 +4,10 @@
 Request flow per (image, N sentences): one letterbox warp, one tokenize,
 device batches padded to the next bucket >= N (the JAX package's static
 shapes; here they bound the shapes the card sees), one inverse warp per
-sentence. BatchNorm runs in its eval form; the exact BN fold and the
-HTTP front come later.
+sentence. By default the service folds BatchNorm into the convs once at
+construction and pre-resizes the attnpool embedding to the input grid,
+as the JAX package serves; ``fused_bottleneck`` and ``fused_stem`` turn
+on K5 and K7 on that folded model. The HTTP front comes later.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
+from .checkpoint import fold_batchnorm
 from .data.transforms import (get_transform_mats, inverse_warp_prediction,
                               normalize_image, warp_image)
 from .engine import EVAL_THRESHOLD, Evaluator
@@ -34,18 +37,37 @@ def _buckets(max_batch: int) -> List[int]:
 class PredictService:
     """Single-model predictor with bucketed batch shapes.
 
-    Weights: the random init of seed 0; load trained ones into
-    ``self.model`` (e.g. with ``checkpoint.load_jax_variables``). The
-    forward runs under bf16 autocast when ``cfg.precision`` is bf16."""
+    ``state_dict``: unfolded weights under the port's names (e.g. from
+    ``checkpoint.from_jax``); None serves the random init of seed 0. With
+    ``fold_bn`` (the default, as ``cris_tpu.serving``) they are folded
+    once (``checkpoint.fold_batchnorm`` with the input resolution) and
+    served by the folded model with ``pos_grid = input_size // 32``; the
+    kernel switches ``fused_bottleneck`` (K5) and ``fused_stem`` (K7)
+    need it and stay off by default. The forward runs under bf16 autocast
+    when ``cfg.precision`` is bf16."""
 
-    def __init__(self, cfg, device="cuda", max_batch: int = 16):
+    def __init__(self, cfg, device="cuda", max_batch: int = 16,
+                 fold_bn: bool = True, state_dict=None,
+                 fused_bottleneck: bool = False, fused_stem: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.input_size = int(cfg.input_size)
         self.word_len = int(cfg.word_len)
         self.max_batch = int(max_batch)
         self._lock = threading.Lock()  # one device batch at a time
-        self.model = build_segmenter(cfg, device=self.device)
+        if state_dict is None:
+            state_dict = build_segmenter(cfg, device="cpu", seed=0).state_dict()
+        pos_grid = None
+        if fold_bn:
+            pos_grid = self.input_size // 32
+            state_dict = fold_batchnorm(state_dict, self.input_size)
+        model = build_segmenter(cfg, device="meta", fold_bn=fold_bn,
+                                pos_grid=pos_grid,
+                                fused_bottleneck=fused_bottleneck,
+                                fused_stem=fused_stem)
+        model.load_state_dict({k: torch.as_tensor(v).float()
+                               for k, v in state_dict.items()}, assign=True)
+        self.model = model.to(self.device)
         self.evaluator = Evaluator(self.model, self.input_size,
                                    resolve_dtype(cfg.get("precision", "bf16")))
         self.warmup()

@@ -177,12 +177,23 @@ def test_seeded_init_is_deterministic():
     cfg = CfgNode(dict(clip_pretrain="TINY", fpn_in=[128, 256, 64],
                        fpn_out=[32, 64, 128], vis_dim=64, num_layers=2,
                        num_head=4, dim_ffn=128, dropout=0.0))
-    a = build_segmenter(cfg, seed=3).state_dict()
-    b = build_segmenter(cfg, seed=3).state_dict()
-    c = build_segmenter(cfg, seed=4).state_dict()
+    a = build_segmenter(cfg, device="cpu", seed=3).state_dict()
+    b = build_segmenter(cfg, device="cpu", seed=3).state_dict()
+    c = build_segmenter(cfg, device="cpu", seed=4).state_dict()
     for key in a:
         torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
     assert not torch.equal(a["proj.txt.weight"], c["proj.txt.weight"])
+
+
+def test_build_segmenter_defaults_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; build_segmenter once defaulted to the CPU."""
+    import inspect
+
+    sig = inspect.signature(build_segmenter)
+    assert sig.parameters["device"].default == "cuda"
+    for switch in ("fold_bn", "fused_bottleneck", "fused_stem"):
+        assert sig.parameters[switch].default is False
 
 
 def test_config_preset_equals_yaml():

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from cris_tpu.data import transforms as jax_tf
 from cris_tpu.utils.tokenizer import tokenize as jax_tokenize
 
-from cris_tpu_torch.checkpoint import load_jax_variables
+from cris_tpu_torch.checkpoint import from_jax
 from cris_tpu_torch.data import transforms as port_tf
 from cris_tpu_torch.serving import PredictService, _buckets
 from cris_tpu_torch.utils import load_cfg_from_cfg_file
@@ -86,9 +86,10 @@ def test_buckets_match_jax():
 
 
 def test_predict_service_matches_jax_chain():
-    """Tiny CRIS, the same weights: the port's PredictService against the
-    JAX chain (cv2 warps + tokenize + Evaluator.predict_probs + inverse
-    warp), in f32, at buckets 1 and 4 (5 sentences = 4 + 1)."""
+    """Tiny CRIS, the same weights: the port's PredictService (BN folded,
+    its default) against the JAX chain (cv2 warps + tokenize +
+    Evaluator.predict_probs + inverse warp) on the unfolded weights, in
+    f32, at buckets 1 and 4 (5 sentences = 4 + 1)."""
     from cris_tpu.engine import Evaluator as JaxEvaluator
     from cris_tpu.models import build_segmenter as jax_build
 
@@ -99,8 +100,10 @@ def test_predict_service_matches_jax_chain():
     variables = jmodel.init(jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 17), jnp.int32))
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    service = PredictService(cfg, device="cpu", max_batch=4)
-    load_jax_variables(service.model, variables)
+    service = PredictService(cfg, device="cpu", max_batch=4,
+                             state_dict=from_jax(variables))
+    assert not any(k.endswith("running_mean") and "norm_layer" not in k
+                   for k in service.model.state_dict())  # served folded
     jev = JaxEvaluator(jmodel, 64, batch_size=4)
 
     for hw, sents in [((48, 80), ["the red blob"]),
@@ -154,6 +157,9 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.engine.trainer\n"
         "import cris_tpu_torch.ops.kernels.attention_dropout\n"
         "import cris_tpu_torch.grad_spread, cris_tpu_torch.profile_train\n"
+        "import cris_tpu_torch.checkpoint.fold\n"
+        "import cris_tpu_torch.ops.kernels.bottleneck\n"
+        "import cris_tpu_torch.ops.kernels.stem\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
