@@ -58,10 +58,27 @@ Phases (any failure raises, and the script exits non-zero):
    PredictService(fold_bn, fused_bottleneck, fused_stem) in bf16, with 12
    K5, 1 K7 and 7 K1 launches per device batch; (c) the b16 bf16 forward
    on CUDA events, unfolded / folded / folded + K5 + K7.
+11. the JAX package's public kernel API, K3 (fused_attention on (B, H, S,
+   D)), K4 (fused_matmul, conv1x1_fused) and K6 (layer_norm forward and
+   backward), at B 16, f32 (TF32 off) and bf16, against their plain
+   versions at the phase-2 bars in units of the reference's RMS (K6's
+   dscale and dbias also within their f32 sums' own rounding): K3 at the
+   decoder's self- and cross-attention, attnpool and an odd shape, its
+   gradient at the self-attention, and on head views of K1's (B, S, E)
+   rows with K1's bits; K4 at four folded R50 1x1 convs, the decoder
+   FFN's fc1 and fc2 and the JAX test's ragged (300, 70) -> 130; K6 at the
+   decoder's, the FFN's and the text encoder's LN widths; then K6 on the
+   inputs of every decoder LayerNormF32 and K4 on every FFN fc1's, as one
+   b16 bf16 folded R50 forward ran them (forward hooks), against the
+   modules' outputs. Each count equals the calls made. CUDA-event times
+   of kernel, plain version and library call (SDPA, the cuBLAS chain,
+   F.layer_norm and its backward), back to back and on the device alone
+   (device_ms: the host enqueues while the card sleeps).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
-of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32), the card's name and
-power limit, and {"ok": true, "device": {...}}.
+of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32; K3, K4 and K6 timed
+on the device alone), the card's name and power limit, and {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
 """
@@ -107,6 +124,7 @@ K5_SHAPES = [
     ("layer4 tail", 13, 13, 2048, 512, 2),
 ]
 HBM_BYTES_PER_S = 3.35e12
+SM_HZ = 1.98e9  # the H100 SXM's top SM clock: a sleep's cycles at the least
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
@@ -132,6 +150,34 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn: the card sleeps while the host enqueues
+    all the calls, then runs them back to back, so the host's time per
+    call (a Python wrapper's checks and launch, tens of us) adds no gaps.
+    The sleep is twice the host's enqueue time of the warm-up calls at the
+    card's top clock, and must outlast the enqueue: if it does not, the
+    run is repeated with a sleep four times as long."""
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    sleep_s = 2 * (time.perf_counter() - t0) / 3 * iters + 1e-3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(sleep_s * SM_HZ))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        if time.perf_counter() - t0 < sleep_s:
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+        sleep_s *= 4
+    raise RuntimeError("device_ms: the host's enqueue outlasted the sleep")
 
 
 def phase_kernel(fused, plain):
@@ -839,6 +885,300 @@ def _k2_bound(b, s, t, h, d, dtype, backward=False):
                  4.0 * b * h * s * t * d, dtype)
 
 
+# Phase 11: the JAX package's public kernel API (K3, K4, K6) at R50 widths
+K3_SHAPES = SHAPES[:2] + SHAPES[3:5]  # self, cross (5 masked), attnpool, odd
+# K4's sites: (site, H = W of a 1x1 conv's map or None for a matmul, M of
+# a matmul, K, N, residual, relu)
+K4_SITES = [
+    ("layer1 conv1 104^2 256->64", 104, None, 256, 64, False, True),
+    ("layer1 conv3 104^2 64->256", 104, None, 64, 256, True, True),
+    ("layer3 conv3 26^2 256->1024", 26, None, 256, 1024, True, True),
+    ("layer4 conv1 13^2 2048->512", 13, None, 2048, 512, False, True),
+    ("decoder FFN fc1", None, B * 676, 512, 2048, False, True),
+    ("decoder FFN fc2", None, B * 676, 2048, 512, True, False),
+    ("ragged (300, 70) -> 130", None, 300, 70, 130, True, True),
+]
+# K6's sites: (site, rows, C)
+K6_SITES = [
+    ("decoder LN", B * 676, 512),
+    ("FFN LN", B * 676, 2048),
+    ("text LN", B * 17, 512),
+]
+
+
+def _sum_bar(terms: torch.Tensor) -> torch.Tensor:
+    """Per column, twice the worst-case rounding of an f32 sum over the n
+    rows of terms in any order plus the terms' own few roundings, (n + 4)
+    2^-24 sum |terms|: the most two sums of the same f32 terms in two
+    orders can differ by."""
+    return 2 * (terms.shape[0] + 4) * 2.0 ** -24 * terms.abs().sum(0)
+
+
+def _cublas_chain(x, w, bias, residual, relu):
+    """torch.addmm with the bias in x's dtype, then the residual add and
+    the ReLU: what the port would run without K4 (TF32 off)."""
+    bias = bias.to(x.dtype)
+
+    def run():
+        y = torch.addmm(bias, x, w)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
+    return run
+
+
+def _decoder_activations(cfg, build_segmenter):
+    """One b16 bf16 forward of the folded R50 (seeded random weights) with
+    forward hooks on every decoder LayerNormF32 and FFN fc1: [(module,
+    input, output)] for each, as the model ran them."""
+    from cris_tpu_torch.models import LayerNormF32
+
+    model = build_segmenter(cfg, device="cuda", seed=0, fold_bn=True,
+                            pos_grid=cfg.input_size // 32)
+    lns, fc1s, hooks = [], [], []
+    for mod in model.decoder.modules():
+        if isinstance(mod, LayerNormF32):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o: lns.append((m, i[0], o))))
+    for layer in model.decoder.layers:
+        hooks.append(layer.ffn[0].register_forward_hook(
+            lambda m, i, o: fc1s.append((m, i[0], o))))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    img = torch.randn(B, 3, cfg.input_size, cfg.input_size, device="cuda",
+                      generator=gen)
+    word = torch.randint(1, 49407, (B, cfg.word_len), device="cuda",
+                         generator=gen)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model(img, word)
+    for h in hooks:
+        h.remove()
+    del model
+    n_ln = 6 * cfg.num_layers + 1  # 5 + the FFN's per layer, and the last
+    assert len(lns) == n_ln and len(fc1s) == cfg.num_layers, (len(lns),
+                                                              len(fc1s))
+    return lns, fc1s
+
+
+def phase_kernel_api(api, cfg, build_segmenter):
+    """11: K3, K4 and K6 through their public functions at R50 widths, B
+    16, f32 (TF32 off) and bf16, and on the model's own decoder
+    activations. Every count is set to 0, the API is driven once (each
+    output kept), and the counts are read: each must equal the calls made.
+    Then each output is held against its plain version at the phase-2
+    bars (in units of the reference's RMS where that exceeds 1; K6's
+    dscale and dbias against their sums' own rounding, _sum_bar), and
+    kernel, plain version and library call are timed in turns."""
+    from cris_tpu_torch.ops.kernels.attention import merge_heads, split_heads
+
+    t0 = time.perf_counter()
+    k3, k4, k6, k6_bwd = (api["fused_attention"], api["fused_matmul"],
+                          api["layer_norm"], api["layer_norm_backward"])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    dtypes = (torch.float32, torch.bfloat16)
+    lns, fc1s = _decoder_activations(cfg, build_segmenter)
+    inputs = {"K3": {}, "K4": {}, "K6": {}}
+    for site, s, t, h, d, masked in K3_SHAPES:
+        for dt in dtypes:
+            q, k, v, g, valid = _site_inputs(gen, B, s, t, h, d, masked, dt)
+            inputs["K3"][("K3", site, dt)] = (q, k, v, g, valid, h)
+    for site, hw, m, kk, n, res, relu in K4_SITES:
+        for dt in dtypes:
+            shape = (B, hw, hw) if hw else (m,)
+            x = randn(*shape, kk).to(dt)
+            w = (randn(kk, n) * kk ** -0.5).to(dt)
+            r = randn(*shape, n).to(dt) if res else None
+            inputs["K4"][("K4", site, dt)] = (x, w, randn(n) * 0.1, r, relu)
+    for site, rows, c in K6_SITES:
+        for dt in dtypes:
+            inputs["K6"][("K6", site, dt)] = (randn(rows, c).mul(2).add(1).to(dt),
+                                      1 + 0.1 * randn(c), 0.1 * randn(c),
+                                      randn(rows, c).to(dt))
+    torch.cuda.synchronize()
+
+    # the drive: each public function once per site and dtype, then on the
+    # model's activations; the counts are read right after
+    for fn in (k3, k4, k6, k6_bwd):
+        fn.launches = 0
+    calls = {"K3": 0, "K4": 0, "K6 fwd": 0, "K6 bwd": 0}
+    got = {}
+    for key, (q, k, v, g, valid, h) in inputs["K3"].items():
+        got[key] = k3(*(split_heads(x, h).contiguous() for x in (q, k, v)),
+                      valid)
+        calls["K3"] += 1
+        if key[1] == "decoder self-attn":  # kernel forward, plain backward
+            got[key + ("grad",)] = _fwd_bwd(
+                lambda q, k, v: merge_heads(k3(*(split_heads(x, h) for x in (
+                    q, k, v)), valid)), q, k, v, g)
+            calls["K3"] += 1
+    for key, (x, w, b, r, relu) in inputs["K4"].items():
+        if x.dim() == 4:
+            got[key] = api["conv1x1_fused"](x, w[None, None], b, r, relu)
+        else:
+            got[key] = k4(x, w, b, r, relu)
+        calls["K4"] += 1
+    for key, (x, sc, bi, g) in inputs["K6"].items():
+        xg, sg, bg = (t.detach().requires_grad_() for t in (x, sc, bi))
+        out = k6(xg, sg, bg)
+        out.backward(g)
+        got[key] = (out.detach(), xg.grad, sg.grad, bg.grad)
+        calls["K6 fwd"] += 1
+        calls["K6 bwd"] += 1
+    model_got = []
+    with torch.no_grad():
+        for mod, x, y in lns:
+            model_got.append(("K6", k6(x, mod.weight, mod.bias, mod.eps), y))
+            calls["K6 fwd"] += 1
+        for mod, x, y in fc1s:
+            xb = x.to(torch.bfloat16)
+            model_got.append(("K4", k4(xb.reshape(-1, xb.shape[-1]),
+                                       mod.weight.t().to(torch.bfloat16),
+                                       mod.bias, None, True),
+                              torch.relu(y).reshape(-1, y.shape[-1])))
+            calls["K4"] += 1
+    torch.cuda.synchronize()
+    launches = {"K3": k3.launches, "K4": k4.launches, "K6 fwd": k6.launches,
+                "K6 bwd": k6_bwd.launches}
+    print(f"kernel API launches {launches} for calls {calls}", flush=True)
+    assert launches == calls and all(launches.values()), (launches, calls)
+
+    rows, worst = [], {name: 0.0 for name in calls}
+
+    def _timed_api(fused, plain, library, args):
+        """_timed_rows' back-to-back times, and each one's device time
+        (device_ms) in the same turns."""
+        times = _timed_rows(fused, plain, library, args)
+        dp1 = device_ms(lambda: plain(*args), 10)
+        dk1 = device_ms(lambda: fused(*args), 10)
+        dk2 = device_ms(lambda: fused(*args), 10)
+        dp2 = device_ms(lambda: plain(*args), 10)
+        dl1, dl2 = device_ms(library, 10), device_ms(library, 10)
+        return dict(times, device_ms=(dk1 + dk2) / 2,
+                    plain_device_ms=(dp1 + dp2) / 2,
+                    library_device_ms=(dl1 + dl2) / 2)
+
+    def record(name, key, err, times, nbytes, flops, peak_dtype, **extra):
+        b_ms, b_by = bound(nbytes, flops, peak_dtype)
+        row = dict(kernel=name, site=key[1],
+                   dtype=str(key[2]).replace("torch.", ""),
+                   max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times,
+                   **extra)
+        worst[name] = max(worst[name], err)
+        rows.append(row)
+        print(f"{name} {key[1]:30s} {row['dtype']:8s} max|err| {err:.3e}; "
+              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"library {row['library_ms']:.4f} ms; on the device alone "
+              f"kernel {row['device_ms']:.4f} ms plain "
+              f"{row['plain_device_ms']:.4f} ms library "
+              f"{row['library_device_ms']:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+
+    plain3 = api["fused_attention_plain"]
+    for key, (q, k, v, g, valid, h) in inputs["K3"].items():
+        dt = key[2]
+        qh, kh, vh = (split_heads(x, h).contiguous() for x in (q, k, v))
+        err = _check(got[key], plain3(qh, kh, vh, valid), dt,
+                     f"K3 {key[1]} {dt}")
+        with torch.no_grad():
+            # one CUDA body: K3 on head views of K1's rows, K1's bits
+            views = [split_heads(x, h) for x in (q, k, v)]
+            assert torch.equal(merge_heads(k3(*views, valid)),
+                               api["fused_attention_bse"](q, k, v, h, valid)), \
+                f"K3 on head views differs from K1 at {key[1]} {dt}"
+            lib = _sdpa(q, k, v, h, valid)
+            torch.testing.assert_close(lib().float(), got[key].float(),
+                                       rtol=2e-2, atol=2e-2)
+            times = _timed_api(k3, plain3, lib, (qh, kh, vh, valid))
+        extra = {}
+        if key + ("grad",) in got:
+            ref = _reference(lambda q, k, v: merge_heads(plain3(*(
+                split_heads(x, h) for x in (q, k, v)), valid)), q, k, v, g)
+            errs = [_check(a, b_, dt, f"K3 grad {key[1]} {dt} {n}") for n, a, b_
+                    in zip(("out", "dq", "dk", "dv"), got[key + ("grad",)], ref)]
+            err = max(err, *errs)
+            extra["grad_max_abs_err"] = max(errs)
+        s, t, d = q.shape[1], k.shape[1], qh.shape[-1]
+        record("K3", key, err, times, q.element_size() * B * h * (2 * s + 2 * t)
+               * d, 4.0 * B * h * s * t * d, dt, H=h, S=s, T=t, D=d, **extra)
+
+    plain4 = api["fused_matmul_plain"]
+    for key, (x, w, b, r, relu) in inputs["K4"].items():
+        dt = key[2]
+        x2 = x.reshape(-1, x.shape[-1])
+        r2 = None if r is None else r.reshape(x2.shape[0], -1)
+        ref = plain4(x2, w, b, r2, relu)
+        err = _check(got[key].reshape(ref.shape), ref, dt, f"K4 {key[1]} {dt}")
+        lib = _cublas_chain(x2, w, b, r2, relu)
+        _check(lib(), ref, dt, f"cuBLAS chain {key[1]} {dt}")
+        times = _timed_api(k4, plain4, lib, (x2, w, b, r2, relu))
+        (m, kk), n = x2.shape, w.shape[1]
+        es = x.element_size()
+        nbytes = es * (m * kk + kk * n + m * n * (2 if r is not None else 1)) \
+            + 4 * n
+        record("K4", key, err, times, nbytes, 2.0 * m * n * kk, dt, M=m, K=kk,
+               N=n, residual=r is not None, relu=relu)
+
+    plain6, plain6_bwd = api["layer_norm_plain"], api["layer_norm_backward_plain"]
+    F = torch.nn.functional
+    for key, (x, sc, bi, g) in inputs["K6"].items():
+        dt = key[2]
+        out, dx, ds, db = got[key]
+        what = f"K6 {key[1]} {dt}"
+        err_f = _check(out, plain6(x, sc, bi), dt, what + " out")
+        rdx, rds, rdb = plain6_bwd(x, sc, g)
+        err_b = _check(dx, rdx, dt, what + " dx")
+        xf, gf = x.float(), g.float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        xhat = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + 1e-5)
+        for name, a, b_, terms in (("dscale", ds, rds.sum(0), gf * xhat),
+                                   ("dbias", db, rdb.sum(0), gf)):
+            # f32 sums over every row: the f32 bars, and each column within
+            # the rounding its sum can have
+            err_b = max(err_b, _check(a, b_, torch.float32, f"{what} {name}"))
+            e, bar = (a - b_).abs(), _sum_bar(terms)
+            assert (e <= bar).all(), (what, name, e.max().item(),
+                                      bar.min().item())
+        w_dt, b_dt = sc.to(dt), bi.to(dt)
+        with torch.no_grad():
+            lib_f = lambda: F.layer_norm(x, x.shape[-1:], w_dt, b_dt)  # noqa: E731
+            _check(lib_f(), out, dt, what + ": F.layer_norm")
+            t_f = _timed_api(k6, plain6, lib_f, (x, sc, bi))
+        xg, wg, bg = (t.detach().requires_grad_() for t in (x, w_dt, b_dt))
+        y_lib = F.layer_norm(xg, x.shape[-1:], wg, bg)
+        lib_b = lambda: torch.autograd.grad(y_lib, (xg, wg, bg), g,  # noqa: E731
+                                            retain_graph=True)
+        plain_b = lambda x, sc, g: [  # noqa: E731
+            t.sum(0) if i else t for i, t in enumerate(plain6_bwd(x, sc, g))]
+        t_b = _timed_api(k6_bwd, plain_b, lib_b, (x, sc, g))
+        del y_lib
+        rows_n, c = x.shape
+        es = x.element_size()
+        record("K6 fwd", key, err_f, t_f, es * 2 * rows_n * c + 8 * c,
+               10.0 * rows_n * c, torch.float32, rows=rows_n, C=c)
+        record("K6 bwd", key, err_b, t_b, es * 3 * rows_n * c + 12 * c,
+               20.0 * rows_n * c, torch.float32, rows=rows_n, C=c)
+
+    # the model's own activations, against the modules' outputs
+    model_err = {"K4": 0.0, "K6": 0.0}
+    for name, a, ref in model_got:
+        e = _check(a, ref, ref.dtype, f"{name} on the model's activations")
+        model_err[name] = max(model_err[name], e)
+    print(f"on the b16 bf16 folded R50 forward's activations: K6 on "
+          f"{len(lns)} decoder LNs max|err| {model_err['K6']:.3e}, K4 on "
+          f"{len(fc1s)} FFN fc1s (ReLU) max|err| {model_err['K4']:.3e}",
+          flush=True)
+    for name in model_err:
+        key = "K6 fwd" if name == "K6" else name
+        worst[key] = max(worst[key], model_err[name])
+    seconds = time.perf_counter() - t0
+    print(f"phase 11: {seconds:.1f} s", flush=True)
+    return dict(rows=rows, worst=worst, launches=launches,
+                model_max_abs_err=model_err, seconds=seconds)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -850,12 +1190,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 11)) if run_all else {
+    wanted = set(range(2, 12)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import engine
     from cris_tpu_torch.checkpoint import fold_batchnorm
     from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.ops import kernels
     from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
                                             attention_dropout_forward,
                                             attention_dropout_plain,
@@ -920,6 +1261,10 @@ def main() -> int:
              "K7": (fused_stem_pool, 1)},
             state_dict=sd, fused_bottleneck=True, fused_stem=True)
         out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
+    if 11 in wanted:
+        out["api"] = phase_kernel_api(
+            {n: getattr(kernels, n) for n in kernels.__all__}, cfg,
+            build_segmenter)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -1021,11 +1366,49 @@ def summary(out) -> dict:
         "library_ms": k7_main["library_ms"],
         "library": "cuDNN chain: 3 convs + biases, ReLUs, 2x2 avg pool",
     }]
+    api = out["api"]
+    # K3, K4 and K6 at their main sites, B 16 bf16
+    for name, kernel, site, src, replaces, library in (
+            ("fused_attention", "K3", "decoder self-attn", "attention_bse.cu",
+             "attention.py:101", "scaled_dot_product_attention"),
+            ("fused_matmul", "K4", "decoder FFN fc1", "fused_matmul.cu",
+             "fused_matmul.py:90", "cuBLAS chain: addmm, residual add, ReLU"),
+            ("layer_norm (forward)", "K6 fwd", "decoder LN", "layernorm.cu",
+             "layernorm.py:92", "F.layer_norm"),
+            ("layer_norm (backward)", "K6 bwd", "decoder LN", "layernorm.cu",
+             "layernorm.py:123", "F.layer_norm's autograd backward")):
+        row = next(r for r in api["rows"] if r["kernel"] == kernel and
+                   r["site"] == site and r["dtype"] == "bfloat16")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"cris_tpu_torch/csrc/{src}",
+            "replaces": f"cris_tpu/ops/pallas/{replaces}",
+            "launches": api["launches"][kernel],
+            "launches_by_path": {"kernel api": api["launches"][kernel]},
+            "max_abs_err": api["worst"][kernel],
+            # on the device alone: at the small sites the back-to-back
+            # times are the Python wrapper's enqueue rate
+            "ms": row["device_ms"],
+            "plain_ms": row["plain_device_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_device_ms"],
+            "back_to_back_ms": row["ms"],
+            "plain_back_to_back_ms": row["plain_ms"],
+            "library_back_to_back_ms": row["library_ms"],
+            "library": library,
+            "site": f"{site}, B 16 bf16",
+        })
     print(json.dumps({"k1_shapes": out["k1_rows"],
                       "k1_grad": out["k1_grad_rows"],
                       "k2_shapes": out["k2_rows"],
                       "k5_shapes": out["k5_rows"], "k7": out["k7_rows"],
                       "folded_forward_ab_b16_bf16": out["ab"],
+                      "kernel_api": api["rows"],
+                      "kernel_api_on_model_activations":
+                          api["model_max_abs_err"],
+                      "kernel_api_seconds": api["seconds"],
                       "train_bf16_b32": {"median_step_ms": step_ms,
                                          "peak_gib": peak}}), flush=True)
     return {"kernels": kernels}

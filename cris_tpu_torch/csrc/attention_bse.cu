@@ -1,8 +1,10 @@
-// K1: fused multi-head softmax attention over (B, S, E) projections.
+// K1 and K3: fused multi-head softmax attention, one body for two layouts.
 //
-// Replaces the TPU kernel `fused_attention_bse` (cris_tpu/ops/pallas/
-// attention.py:165, body `_attn_bse_kernel` at :132). Same math:
-//   out[b, s, h*D:(h+1)*D] = softmax(q_h k_h^T * D^-1/2, masked keys = -1e30) v_h
+// Replaces the TPU kernels `fused_attention_bse` (K1, cris_tpu/ops/pallas/
+// attention.py:165, body `_attn_bse_kernel` at :132), over (B, S, E)
+// projections, and `fused_attention` (K3, attention.py:57, body
+// `_attn_kernel` at :31), over (B, H, S, D) tensors. Same math:
+//   out[b, h, s, :] = softmax(q_bh k_bh^T * D^-1/2, masked keys = -1e30) v_bh
 // with f32 logits, f32 softmax statistics and f32 accumulation; the output
 // is stored in the input's dtype (f32 or bf16). Any head dim D <= 128
 // runs: the kernel is compiled for tile widths DP = 16, 32, 64 and 128,
@@ -16,8 +18,10 @@
 //   block owns one (batch, head, 64-query tile) and loops over 64-key
 //   tiles staged in shared memory, with an online softmax: a running row
 //   max and row sum, and the output accumulator rescaled in registers.
-// - Each head's D-column span is read straight from the (B, S, E) rows
-//   (row strides are arguments), so there are no head split/merge copies.
+// - q, k, v and out are addressed through (batch, head, row) strides with
+//   unit column stride: K1 passes (S*E, D, E) for its (B, S, E) rows, so
+//   each head's D-column span is read in place with no head split/merge
+//   copies; K3 passes its (B, H, L, D) tensors' own strides.
 // - 128 threads; thread t owns query rows 4*(t/8) .. +3 of the tile, the
 //   logit columns (t%8) + 8j and the output columns (t%8) + 8j. The 8
 //   threads that share a row are neighbouring lanes, so row max and row sum
@@ -27,23 +31,29 @@
 // What bounds it on the card: the decoder self-attention (676 x 676, 8 x 64)
 // is the largest site, 2*2*676*676*64 = 117 MFLOP per (batch, head); this
 // first version does its products with scalar f32 FMAs on the CUDA cores
-// (no tensor cores, no TMA), so it is bound by FMA issue and shared-memory
-// reads, not by device memory: each Q/K/V element is read from device
-// memory once per 64-query tile. Moving the two products to wgmma with
-// TMA-fed tiles is later work.
+// (no tensor cores, no TMA), and stages K and V one element per thread at
+// a time: the compiled loop keeps only a K and a V load in flight, so the
+// loads' latency, more than FMA issue, sets its pace (with the strides as
+// six scalars the compiler issued one load at a time, and the kernel took
+// twice as long). Each Q/K/V element is read from device memory once per
+// 64-query tile. Moving the two products to wgmma with TMA-fed tiles is
+// later work.
 //
 // Masking: a masked key gets the finite logit -1e30, as in the TPU kernel.
 // A row whose keys are all masked therefore has uniform weights and
 // returns mean(V) over the T keys (not NaN), as the JAX XLA path gives
-// with its finite mask value; the Pallas kernel instead averages over its
-// key count padded to a multiple of 128, with zero V in the padding. The
-// JAX package calls such rows undefined and the model never produces
-// them. Keys past T (the ragged last tile) get weight 0 exactly.
+// with its finite mask value; the Pallas kernels (K1 and K3 alike) instead
+// average over their key count padded to a multiple of 128, with zero V
+// in the padding. The JAX package calls such rows undefined and the model
+// never produces them. Keys past T (the ragged last tile) get weight 0
+// exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -52,6 +62,12 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr int kRows = 4;  // query rows per thread
 constexpr float kMaskedLogit = -1e30f;
+
+// (batch, head, row) strides of a (B, H, L, D) view, in elements; the
+// column stride is 1
+struct Strides {
+  long long b, h, s;
+};
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -77,8 +93,7 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
                      const scalar_t* __restrict__ v,
                      const uint8_t* __restrict__ kv_valid,
                      scalar_t* __restrict__ out, int S, int T, int D,
-                     long long q_sb, long long q_ss, long long k_sb,
-                     long long k_ss, long long v_sb, long long v_ss,
+                     Strides qs, Strides ks, Strides vs, Strides os,
                      float scale) {
   static_assert(DP % 8 == 0, "tile width must be a multiple of 8");
   constexpr int kCols = kBlockK / 8;  // logit columns per thread
@@ -97,17 +112,16 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int E = gridDim.y * D;
 
-  const scalar_t* qb = q + b * q_sb + h * D;
-  const scalar_t* kb = k + b * k_sb + h * D;
-  const scalar_t* vb = v + b * v_sb + h * D;
+  const scalar_t* qb = q + b * qs.b + h * qs.h;
+  const scalar_t* kb = k + b * ks.b + h * ks.h;
+  const scalar_t* vb = v + b * vs.b + h * vs.h;
 
   for (int idx = tid; idx < kBlockQ * DP; idx += kThreads) {
     const int r = idx / DP, d = idx % DP;
     const int row = q0 + r;
     Qs[r * (DP + 1) + d] =
-        (row < S && d < D) ? load_f32(qb + row * q_ss + d) : 0.f;
+        (row < S && d < D) ? load_f32(qb + row * qs.s + d) : 0.f;
   }
 
   float m_run[kRows], l_run[kRows], acc[kRows][kOut];
@@ -124,8 +138,8 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
     for (int idx = tid; idx < kBlockK * DP; idx += kThreads) {
       const int r = idx / DP, d = idx % DP;
       const bool in = r < kmax && d < D;
-      Ks[r * (DP + 1) + d] = in ? load_f32(kb + (k0 + r) * k_ss + d) : 0.f;
-      Vs[r * DP + d] = in ? load_f32(vb + (k0 + r) * v_ss + d) : 0.f;
+      Ks[r * (DP + 1) + d] = in ? load_f32(kb + (k0 + r) * ks.s + d) : 0.f;
+      Vs[r * DP + d] = in ? load_f32(vb + (k0 + r) * vs.s + d) : 0.f;
     }
     for (int r = tid; r < kBlockK; r += kThreads) {
       Vld[r] = (r < kmax && (kv_valid == nullptr ||
@@ -214,7 +228,7 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
     const int row = q0 + rg * kRows + i;
     if (row >= S) continue;
     const float inv = 1.f / l_run[i];
-    scalar_t* orow = out + ((long long)b * S + row) * E + h * D;
+    scalar_t* orow = out + b * os.b + h * os.h + row * os.s;
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {
       const int col = cg + 8 * j;
@@ -226,9 +240,8 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
 template <typename scalar_t, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_valid, void* out, int B, int S, int T,
-                   int H, int D, long long q_sb, long long q_ss,
-                   long long k_sb, long long k_ss, long long v_sb,
-                   long long v_ss, float scale, cudaStream_t stream) {
+                   int H, int D, Strides qs, Strides ks, Strides vs,
+                   Strides os, float scale, cudaStream_t stream) {
   auto kern = attention_bse_kernel<scalar_t, DP>;
   constexpr size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -239,37 +252,49 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
       static_cast<const scalar_t*>(v),
       static_cast<const uint8_t*>(kv_valid), static_cast<scalar_t*>(out), S,
-      T, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale);
+      T, D, qs, ks, vs, os, scale);
   return cudaGetLastError();
 }
 
 template <typename scalar_t>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
+cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const void* kv_valid, void* out, int B, int S, int T,
-                       int H, long long q_sb, long long q_ss, long long k_sb,
-                       long long k_ss, long long v_sb, long long v_ss,
-                       float scale, cudaStream_t stream) {
+                       int H, int D, Strides qs, Strides ks, Strides vs,
+                       Strides os, float scale, cudaStream_t stream) {
   // the smallest compiled tile width that holds the head dim
   if (D < 1 || D > 128) return cudaErrorInvalidValue;
-  if (D <= 16)
-    return launch<scalar_t, 16>(q, k, v, kv_valid, out, B, S, T, H, D, q_sb,
-                                q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
-  if (D <= 32)
-    return launch<scalar_t, 32>(q, k, v, kv_valid, out, B, S, T, H, D, q_sb,
-                                q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
-  if (D <= 64)
-    return launch<scalar_t, 64>(q, k, v, kv_valid, out, B, S, T, H, D, q_sb,
-                                q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
-  return launch<scalar_t, 128>(q, k, v, kv_valid, out, B, S, T, H, D, q_sb,
-                               q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
+  auto run = [&](auto width) {
+    return launch<scalar_t, decltype(width)::value>(
+        q, k, v, kv_valid, out, B, S, T, H, D, qs, ks, vs, os, scale, stream);
+  };
+  if (D <= 16) return run(std::integral_constant<int, 16>());
+  if (D <= 32) return run(std::integral_constant<int, 32>());
+  if (D <= 64) return run(std::integral_constant<int, 64>());
+  return run(std::integral_constant<int, 128>());
+}
+
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             const void* kv_valid, void* out, int B, int S, int T, int H,
+             int D, Strides qs, Strides ks, Strides vs, Strides os,
+             float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_d<float>(q, k, v, kv_valid, out, B, S, T, H, D, qs,
+                                  ks, vs, os, scale, st);
+  if (dtype == 1)
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, kv_valid, out, B, S, T, H,
+                                          D, qs, ks, vs, os, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Pointers are device pointers;
-// q/k/v rows are (batch stride, row stride) addressed with unit column
-// stride; out is contiguous (B, S, H*D); kv_valid is (B, T) uint8 or null.
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// Plain C entry points, bound with ctypes. Pointers are device pointers;
+// kv_valid is (B, T) uint8 or null; dtype: 0 = float32, 1 = bfloat16.
+// Each returns the cudaError_t of the launch.
+//
+// K1: q/k/v rows are (batch stride, row stride) addressed with unit column
+// stride, head h at column h*D; out is contiguous (B, S, H*D).
 extern "C" int cris_attention_bse(const void* q, const void* k, const void* v,
                                   const void* kv_valid, void* out, int B,
                                   int S, int T, int H, int D, int dtype,
@@ -277,15 +302,25 @@ extern "C" int cris_attention_bse(const void* q, const void* k, const void* v,
                                   long long k_sb, long long k_ss,
                                   long long v_sb, long long v_ss, float scale,
                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(D, q, k, v, kv_valid, out, B, S, T, H, q_sb,
-                                  q_ss, k_sb, k_ss, v_sb, v_ss, scale, st);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, kv_valid, out, B, S, T,
-                                          H, q_sb, q_ss, k_sb, k_ss, v_sb,
-                                          v_ss, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long E = (long long)H * D;
+  return dispatch(dtype, q, k, v, kv_valid, out, B, S, T, H, D,
+                  Strides{q_sb, D, q_ss}, Strides{k_sb, D, k_ss},
+                  Strides{v_sb, D, v_ss}, Strides{S * E, D, E}, scale, stream);
+}
+
+// K3: q (B, H, S, D), k/v (B, H, T, D) and out (B, H, S, D), each addressed
+// through its (batch, head, row) strides with unit column stride.
+extern "C" int cris_fused_attention(
+    const void* q, const void* k, const void* v, const void* kv_valid,
+    void* out, int B, int S, int T, int H, int D, int dtype, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale,
+    void* stream) {
+  return dispatch(dtype, q, k, v, kv_valid, out, B, S, T, H, D,
+                  Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
+                  Strides{v_sb, v_sh, v_ss}, Strides{o_sb, o_sh, o_ss}, scale,
+                  stream);
 }
 
 extern "C" const char* cris_cuda_error_string(int err) {

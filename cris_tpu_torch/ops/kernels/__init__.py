@@ -9,10 +9,18 @@ from .attention_dropout import (attention_dropout_backward,
                                 fused_attention_bse_dropout)
 from .bottleneck import bottleneck_plain, fused_bottleneck
 from .dropout_mask import keep_mask
+from .fused_attention import fused_attention, fused_attention_plain
+from .fused_matmul import conv1x1_fused, fused_matmul, fused_matmul_plain
+from .layernorm import (layer_norm, layer_norm_backward,
+                        layer_norm_backward_plain, layer_norm_plain)
 from .stem import fused_stem_pool, stem_pool_plain
 
 __all__ = ["attention_bse_backward_plain", "attention_dropout_backward",
            "attention_dropout_forward", "attention_dropout_plain",
-           "attention_plain", "bottleneck_plain", "fused_attention_bse",
-           "fused_attention_bse_dropout", "fused_bottleneck",
-           "fused_stem_pool", "keep_mask", "stem_pool_plain"]
+           "attention_plain", "bottleneck_plain", "conv1x1_fused",
+           "fused_attention", "fused_attention_bse",
+           "fused_attention_bse_dropout", "fused_attention_plain",
+           "fused_bottleneck", "fused_matmul", "fused_matmul_plain",
+           "fused_stem_pool", "keep_mask", "layer_norm",
+           "layer_norm_backward", "layer_norm_backward_plain",
+           "layer_norm_plain", "stem_pool_plain"]

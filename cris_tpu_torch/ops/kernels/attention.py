@@ -43,6 +43,34 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def attention_heads_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid: Optional[torch.Tensor] = None,
+    attn_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch softmax attention over (B, H, S, D) q and (B, H, T, D)
+    k/v, the math that K1 and K3 share.
+
+    The math of ``cris_tpu.ops.attention.dot_product_attention``'s XLA
+    path: f32 logits scaled by head_dim**-0.5, an optional additive
+    ``attn_mask`` (S, T), masked keys (``kv_valid`` (B, T) == 0) replaced
+    by NEG_INF, f32 softmax, weights cast to v's dtype, f32 accumulation,
+    output in q's dtype. Autocast is off inside, so a bf16 autocast region
+    around it changes nothing here."""
+    d = q.shape[-1]
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d ** -0.5)
+        if attn_mask is not None:
+            logits = logits + attn_mask.float()
+        if kv_valid is not None:
+            logits = logits.masked_fill(~kv_valid.bool()[:, None, None, :], NEG_INF)
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.matmul(weights.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
 def attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -51,27 +79,45 @@ def attention_plain(
     kv_valid: Optional[torch.Tensor] = None,
     attn_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch softmax attention over (B, S, E) q and (B, T, E) k/v.
+    """``attention_heads_plain`` over (B, S, E) q and (B, T, E) k/v: the
+    heads are views of the rows, the output is (B, S, E)."""
+    return merge_heads(attention_heads_plain(
+        split_heads(q, num_heads), split_heads(k, num_heads),
+        split_heads(v, num_heads), kv_valid, attn_mask))
 
-    The math of ``cris_tpu.ops.attention.dot_product_attention``'s XLA
-    path: f32 logits scaled by head_dim**-0.5, an optional additive
-    ``attn_mask`` (S, T), masked keys (``kv_valid`` == 0) replaced by
-    NEG_INF, f32 softmax, weights cast to v's dtype, f32 accumulation,
-    output in q's dtype. Autocast is off inside, so a bf16 autocast region
-    around it changes nothing here."""
-    d = q.shape[-1] // num_heads
+
+def attention_heads_backward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_valid: Optional[torch.Tensor],
+    g: torch.Tensor,
+):
+    """(dq, dk, dv) of softmax attention over (B, H, S, D) q and (B, H, T,
+    D) k/v for the output gradient g, the backward that K1 and K3 share.
+
+    The JAX package's XLA backward (``_fused_attention_bwd``,
+    cris_tpu/ops/pallas/attention.py:309-346) in torch: P recomputed in f32
+    from q and k, dV = P^T g, dP = g V^T, dS = P o (dP - rowsum(dP o P)),
+    dQ = dS K * scale, dK = dS^T Q * scale, all in f32 with autocast off,
+    each gradient cast to its input's dtype. A masked key has P = 0, so dS
+    = 0 there, except on a row whose keys are all masked (uniform P), where
+    this follows the JAX backward and not autograd through the plain
+    forward; the model never produces such rows."""
+    scale = q.shape[-1] ** -0.5
     with torch.autocast(q.device.type, enabled=False):
-        qh = split_heads(q, num_heads).float()
-        kh = split_heads(k, num_heads).float()
-        vh = split_heads(v, num_heads)
-        logits = torch.matmul(qh, kh.transpose(-1, -2)) * (d ** -0.5)
-        if attn_mask is not None:
-            logits = logits + attn_mask.float()
+        qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+        logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
         if kv_valid is not None:
-            logits = logits.masked_fill(~kv_valid.bool()[:, None, None, :], NEG_INF)
-        weights = torch.softmax(logits, dim=-1)
-        out = torch.matmul(weights.to(vh.dtype).float(), vh.float())
-    return merge_heads(out.to(q.dtype))
+            logits = logits.masked_fill(~kv_valid.bool()[:, None, None, :],
+                                        NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        dv = torch.matmul(p.transpose(-1, -2), gf)
+        dp = torch.matmul(gf, vf.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.matmul(ds, kf) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_bse_backward_plain(
@@ -82,36 +128,14 @@ def attention_bse_backward_plain(
     kv_valid: Optional[torch.Tensor],
     g: torch.Tensor,
 ):
-    """(dq, dk, dv) of ``fused_attention_bse`` for the output gradient g.
-
-    The JAX package's ``_fused_attention_bse_bwd`` in torch: P recomputed
-    in f32 from q and k, dV = P^T g, dP = g V^T, dS = P o (dP - rowsum(dP o
-    P)), dQ = dS K * scale, dK = dS^T Q * scale, all in f32 with autocast
-    off, each gradient cast to its input's dtype. A masked key has P = 0,
-    so dS = 0 there, except on a row whose keys are all masked (uniform P),
-    where this follows the JAX backward and not autograd through
-    ``attention_plain``; the model never produces such rows."""
-    b, s, e = q.shape
-    t = k.shape[1]
-    d = e // num_heads
-    scale = d ** -0.5
-    with torch.autocast(q.device.type, enabled=False):
-        qh = split_heads(q, num_heads).float()
-        kh = split_heads(k, num_heads).float()
-        vh = split_heads(v, num_heads).float()
-        gh = split_heads(g, num_heads).float()
-        logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-        if kv_valid is not None:
-            logits = logits.masked_fill(~kv_valid.bool()[:, None, None, :],
-                                        NEG_INF)
-        p = torch.softmax(logits, dim=-1)
-        dv = torch.matmul(p.transpose(-1, -2), gh)
-        dp = torch.matmul(gh, vh.transpose(-1, -2))
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-        dq = torch.matmul(ds, kh) * scale
-        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
-    return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
-            merge_heads(dv).to(v.dtype))
+    """(dq, dk, dv) of ``fused_attention_bse`` for the output gradient g:
+    ``attention_heads_backward_plain`` on head views of the (B, S, E) rows
+    (the JAX package's ``_fused_attention_bse_bwd``,
+    cris_tpu/ops/pallas/attention.py:259-298, is the same math)."""
+    grads = attention_heads_backward_plain(
+        *(split_heads(x, num_heads) for x in (q, k, v)), kv_valid,
+        split_heads(g, num_heads))
+    return tuple(merge_heads(x) for x in grads)
 
 
 def _rows(x: torch.Tensor, name: str):

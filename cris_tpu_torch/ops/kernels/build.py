@@ -116,6 +116,32 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_float, p,      # scale, stream
             ]
             lib.cris_attention_bse.restype = i
+            lib.cris_fused_attention.argtypes = [
+                p, p, p, p, p,          # q, k, v, kv_valid, out
+                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                *[ll] * 12,             # q/k/v/out batch, head, row strides
+                ctypes.c_float, p,      # scale, stream
+            ]
+            lib.cris_fused_attention.restype = i
+            lib.cris_fused_matmul.argtypes = [
+                p, p, p, p, p,          # x, w, bias, residual, out
+                i, i, i, i, i,          # M, N, K, dtype, relu
+                ll, ll, ll, ll, ll, ll,  # x, w, residual row/column strides
+                p,                      # stream
+            ]
+            lib.cris_fused_matmul.restype = i
+            lib.cris_layer_norm_fwd.argtypes = [
+                p, p, p, p,             # x, scale, bias, y
+                i, i, i,                # rows, C, dtype
+                ctypes.c_float, p,      # eps, stream
+            ]
+            lib.cris_layer_norm_fwd.restype = i
+            lib.cris_layer_norm_bwd.argtypes = [
+                p, p, p, p, p, p,       # x, scale, g, dx, dscale/dbias parts
+                i, i, i, i, i,          # rows, C, blocks, chunk, dtype
+                ctypes.c_float, p,      # eps, stream
+            ]
+            lib.cris_layer_norm_bwd.restype = i
             f, u = ctypes.c_float, ctypes.c_uint
             dropout_tail = [
                 ll, ll, ll, ll, ll, ll,  # q/k/v batch and row strides

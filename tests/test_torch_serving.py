@@ -160,6 +160,9 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.checkpoint.fold\n"
         "import cris_tpu_torch.ops.kernels.bottleneck\n"
         "import cris_tpu_torch.ops.kernels.stem\n"
+        "import cris_tpu_torch.ops.kernels.fused_attention\n"
+        "import cris_tpu_torch.ops.kernels.fused_matmul\n"
+        "import cris_tpu_torch.ops.kernels.layernorm\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
