@@ -6,15 +6,18 @@ Phases (any failure raises, and the script exits non-zero):
 1. card, versions, and the build of the CUDA kernels from cris_tpu_torch/csrc;
 2. K1 against its plain PyTorch version at B = 16 on the main path's
    shapes and at head dims 16, 48 and 128, f32 (rtol = atol = 1e-4) and
-   bf16 (rtol = atol = 2e-2, mean |err| < 2e-3), with CUDA-event times of
-   both;
+   bf16 (rtol = atol = 2e-2, mean |err| < 2e-3), each call on the route
+   its dtype must take (bf16: the tensor-core body, f32: the scalar one),
+   with CUDA-event times of kernel, plain version and SDPA, back to back
+   and on the device alone;
 3. CRIS-R50 at 416 px (word_len 17, 3 decoder layers, seeded random
    weights): one f32 batch of 2 on the card against the same model on the
    CPU (relative L2 of the logits <= 1e-4, mask agreement at 0.35 >= 0.999);
 4. three requests through PredictService.predict in bf16 autocast (1, 5
    and 16 sentences: buckets 1, 8 and 16); each mask has its image's
    shape, the probabilities are finite, and K1 launched exactly 7 times
-   per device batch (3 decoder layers x 2 sites + attnpool).
+   per device batch (3 decoder layers x 2 sites + attnpool), every time
+   on the tensor-core route.
 5. K1's gradient (kernel forward, plain recompute backward) against
    autograd through its plain version at the R50 sites, B 16, at the
    phase-2 tolerances (in units of a tensor's RMS where that exceeds 1;
@@ -40,7 +43,8 @@ Phases (any failure raises, and the script exits non-zero):
 8. R50 training in bf16 autocast at dropout 0.1, batch 32, 8 steps on
    seeded batches: finite losses and gradients, BN running statistics
    move, group learning rates 1e-5 / 1e-4, and per step K2 forward and
-   backward 6 launches each (3 layers x 2 sites) and K1 one (attnpool);
+   backward 6 launches each (3 layers x 2 sites) and K1 one (attnpool,
+   on the tensor-core route);
    the median step time of steps 3-8 and the peak memory.
 9. K5 (fused bottleneck) and K7 (fused stem + pool) against their plain
    versions at B 16, f32 (TF32 off) and bf16, at the phase-2 bars in
@@ -70,17 +74,24 @@ Phases (any failure raises, and the script exits non-zero):
    decoder's, the FFN's and the text encoder's LN widths; then K6 on the
    inputs of every decoder LayerNormF32 and K4 on every FFN fc1's, as one
    b16 bf16 folded R50 forward ran them (forward hooks), against the
-   modules' outputs. Each count equals the calls made. CUDA-event times
-   of kernel, plain version and library call (SDPA, the cuBLAS chain,
-   F.layer_norm and its backward), back to back and on the device alone
-   (device_ms: the host enqueues while the card sleeps).
+   modules' outputs. Each count equals the calls made. Each K3 and K4
+   call's route is asserted and printed: bf16 takes the tensor-core body
+   (K3) and the TMA-fed wgmma GEMM (K4: every bf16 site, the model's
+   fc1s with w as the K-major weight.t()), f32 and the ragged (300, 70)
+   the scalar body and the staged GEMM; the counts per route equal the
+   calls per route. CUDA-event times of kernel, plain version and library
+   call (SDPA, the cuBLAS chain, F.layer_norm and its backward), back to
+   back and on the device alone (device_ms: the host enqueues while the
+   card sleeps).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
-of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32; K3, K4 and K6 timed
-on the device alone), the card's name and power limit, and {"ok": true,
-"device": {...}}.
+of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32; K1, K3, K4 and K6
+timed on the device alone, with their back-to-back times beside; K1, K3
+and K4 with their launches per route), the card's name and power limit,
+and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
+    python3 chip_smoke.py --phases 2,11   # the routes of K1, K3 and K4
 """
 
 import argparse
@@ -180,8 +191,34 @@ def device_ms(fn, iters: int = 20) -> float:
     raise RuntimeError("device_ms: the host's enqueue outlasted the sleep")
 
 
+def reset_counts(*fns):
+    """Set each wrapper's launch count, and its count per route where it
+    has routes, to 0."""
+    for fn in fns:
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
+
+
+def route_taken(fn, call):
+    """(call's result, the one route whose count it raised)."""
+    before = dict(fn.launches_by_route)
+    result = call()
+    taken = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    assert len(taken) == 1, (fn.__name__, taken)
+    return result, taken[0]
+
+
+def expected_route(dtype) -> str:
+    """K1's and K3's route at every site of SHAPES and K3_SHAPES: their
+    head dims are multiples of 8 and their tensors contiguous."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "scalar"
+
+
 def phase_kernel(fused, plain):
-    """K1 vs its plain version; returns (rows, max_abs_err, ms, plain_ms)."""
+    """K1 vs its plain version, on the route its dtype must take; CUDA-event
+    times back to back and on the device alone. Returns (rows,
+    max_abs_err, the decoder self-attention's bf16 row)."""
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
     for site, s, t, h, d, masked in SHAPES:
@@ -195,7 +232,8 @@ def phase_kernel(fused, plain):
             valid[:, t - masked:] = False
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
-            got = fused(qd, kd, vd, h, valid)
+            got, route = route_taken(fused, lambda: fused(qd, kd, vd, h, valid))
+            assert route == expected_route(dtype), (site, dtype, route)
             ref = plain(qd, kd, vd, h, valid)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
@@ -215,22 +253,35 @@ def phase_kernel(fused, plain):
                                        .float(), ref.float(), rtol=2e-2,
                                        atol=2e-2)
             l1, l2 = cuda_ms(lib), cuda_ms(lib)
+            # the same turns on the device alone: the tensor-core body runs
+            # shorter than the wrapper's host time
+            dp1 = device_ms(lambda: plain(qd, kd, vd, h, valid), 10)
+            dk1 = device_ms(lambda: fused(qd, kd, vd, h, valid), 10)
+            dk2 = device_ms(lambda: fused(qd, kd, vd, h, valid), 10)
+            dp2 = device_ms(lambda: plain(qd, kd, vd, h, valid), 10)
+            dl1, dl2 = device_ms(lib, 10), device_ms(lib, 10)
             es = qd.element_size()
             b_ms, b_by = bound(es * B * (2 * s + 2 * t) * e,
                                4.0 * B * h * s * t * d, dtype)
             row = dict(site=site, B=B, S=s, T=t, H=h, D=d, masked=masked,
-                       dtype=str(dtype).replace("torch.", ""),
+                       dtype=str(dtype).replace("torch.", ""), route=route,
                        max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(),
                        ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       library_ms=(l1 + l2) / 2, bound_ms=b_ms, bound_by=b_by)
+                       library_ms=(l1 + l2) / 2, device_ms=(dk1 + dk2) / 2,
+                       plain_device_ms=(dp1 + dp2) / 2,
+                       library_device_ms=(dl1 + dl2) / 2, bound_ms=b_ms,
+                       bound_by=b_by)
             worst = max(worst, row["max_abs_err"])
             rows.append(row)
             print(f"K1 {site:30s} {row['dtype']:8s} S={s} T={t} H={h} D={d} "
-                  f"max|err|={row['max_abs_err']:.3e} "
+                  f"route {route} max|err|={row['max_abs_err']:.3e} "
                   f"mean|err|={row['mean_abs_err']:.3e} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms "
-                  f"sdpa {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                  f"sdpa {row['library_ms']:.4f} ms; on the device alone "
+                  f"kernel {row['device_ms']:.4f} ms plain "
+                  f"{row['plain_device_ms']:.4f} ms sdpa "
+                  f"{row['library_device_ms']:.4f} ms; bound {b_ms:.4f} ms "
                   f"({b_by})", flush=True)
     main = next(r for r in rows if r["site"] == "decoder self-attn"
                 and r["dtype"] == "bfloat16")
@@ -278,7 +329,8 @@ def phase_model(cfg, build_segmenter, tokenize):
 
 def phase_serving(cfg, PredictService, counters, **service_args):
     """Three requests; ``counters`` maps a kernel's name to (its wrapper,
-    launches per device batch). Returns ({name: launches}, latencies)."""
+    launches per device batch). Returns ({name: launches}, latencies,
+    {name: launches per route} for the wrappers that have routes)."""
     service = PredictService(cfg, device="cuda", max_batch=16, **service_args)
     batches = []
     inner = service.evaluator.predict_probs
@@ -294,8 +346,7 @@ def phase_serving(cfg, PredictService, counters, **service_args):
     requests = [((480, 640), 1), ((427, 640), 5), ((640, 480), 16)]
     words = ["the", "man", "left", "red", "shirt", "dog", "on", "a", "chair"]
     latencies = []
-    for fn, _ in counters.values():
-        fn.launches = 0
+    reset_counts(*(fn for fn, _ in counters.values()))
     for (h, w), n in requests:
         image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         sents = [" ".join(rng.choice(words, 1 + i % 6)) for i in range(n)]
@@ -306,6 +357,9 @@ def phase_serving(cfg, PredictService, counters, **service_args):
         for r in results:
             assert r["mask"].shape == (h, w) and r["mask"].dtype == bool
     launches = {name: fn.launches for name, (fn, _) in counters.items()}
+    routes = {name: dict(fn.launches_by_route)
+              for name, (fn, _) in counters.items()
+              if hasattr(fn, "launches_by_route")}
     for ((h, w), n), b, ms in zip(requests, batches, latencies):
         print(f"request {h}x{w} with {n} sentences: bucket {b}, "
               f"latency {ms:.2f} ms", flush=True)
@@ -313,10 +367,15 @@ def phase_serving(cfg, PredictService, counters, **service_args):
     for name, (_, per_batch) in counters.items():
         assert launches[name] == per_batch * len(batches), (name, launches)
         switches = sorted(k for k, v in service_args.items() if v is True)
+        by_route = f", by route {routes[name]}" if name in routes else ""
         print(f"{name} launches on the serving path {switches}: "
               f"{launches[name]} ({len(batches)} device batches x "
-              f"{per_batch})", flush=True)
-    return launches, latencies
+              f"{per_batch}){by_route}", flush=True)
+    # bf16 autocast: every K1 site of the model takes the tensor cores
+    for name, by_route in routes.items():
+        assert by_route == {"tensor_cores": launches[name], "scalar": 0}, \
+            (name, by_route)
+    return launches, latencies, routes
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -589,8 +648,7 @@ def phase_train_bf16(cfg, build_segmenter, engine, counters, steps=8, b=32):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses, per_step = [], [], []
-    for c in counters:
-        c.launches = 0
+    reset_counts(*counters)
     for i, batch in enumerate(batches):
         before = [c.launches for c in counters]
         t0 = time.perf_counter()
@@ -610,14 +668,17 @@ def phase_train_bf16(cfg, build_segmenter, engine, counters, steps=8, b=32):
     assert moved == len(bns), (moved, len(bns))
     sites = 2 * cfg.num_layers  # self- and cross-attention per layer
     assert all(s == [sites, sites, 1] for s in per_step), per_step
+    k1_routes = dict(counters[-1].launches_by_route)  # K1 at attnpool
+    assert k1_routes == {"tensor_cores": steps, "scalar": 0}, k1_routes
     median = float(np.median(times[2:]))
     print(f"R50 bf16 train b{b}: losses {['%.4f' % x for x in losses]}; "
           f"launches per step (K2 fwd, K2 bwd, K1) {per_step[0]} in every "
-          f"step; {moved} BN running means moved; group lrs {lrs}", flush=True)
+          f"step, K1 by route {k1_routes}; {moved} BN running means moved; "
+          f"group lrs {lrs}", flush=True)
     print(f"R50 bf16 train b{b} dropout 0.1: median step {median:.2f} ms "
           f"(steps 3-{steps}: {['%.2f' % x for x in times[2:]]}), peak memory "
           f"{peak:.2f} GiB, on {card_line()}", flush=True)
-    return launches, median, peak, times
+    return launches, median, peak, times, k1_routes
 
 
 def _cudnn_bottleneck(x, w1, b1, w2, b2, w3, b3):
@@ -1001,25 +1062,36 @@ def phase_kernel_api(api, cfg, build_segmenter):
 
     # the drive: each public function once per site and dtype, then on the
     # model's activations; the counts are read right after
-    for fn in (k3, k4, k6, k6_bwd):
-        fn.launches = 0
+    reset_counts(k3, k4, k6, k6_bwd)
     calls = {"K3": 0, "K4": 0, "K6 fwd": 0, "K6 bwd": 0}
-    got = {}
+    routes = {"K3": {r: 0 for r in k3.launches_by_route},
+              "K4": {r: 0 for r in k4.launches_by_route}}
+    got, route_of = {}, {}
     for key, (q, k, v, g, valid, h) in inputs["K3"].items():
-        got[key] = k3(*(split_heads(x, h).contiguous() for x in (q, k, v)),
-                      valid)
+        heads = [split_heads(x, h).contiguous() for x in (q, k, v)]
+        got[key], route_of[key] = route_taken(k3, lambda: k3(*heads, valid))
+        assert route_of[key] == expected_route(key[2]), (key, route_of[key])
         calls["K3"] += 1
+        routes["K3"][route_of[key]] += 1
         if key[1] == "decoder self-attn":  # kernel forward, plain backward
-            got[key + ("grad",)] = _fwd_bwd(
+            got[key + ("grad",)], r = route_taken(k3, lambda: _fwd_bwd(
                 lambda q, k, v: merge_heads(k3(*(split_heads(x, h) for x in (
-                    q, k, v)), valid)), q, k, v, g)
+                    q, k, v)), valid)), q, k, v, g))
+            assert r == expected_route(key[2]), (key, r)
             calls["K3"] += 1
+            routes["K3"][r] += 1
     for key, (x, w, b, r, relu) in inputs["K4"].items():
         if x.dim() == 4:
-            got[key] = api["conv1x1_fused"](x, w[None, None], b, r, relu)
+            call = lambda: api["conv1x1_fused"](x, w[None, None], b, r, relu)  # noqa: E731
         else:
-            got[key] = k4(x, w, b, r, relu)
+            call = lambda: k4(x, w, b, r, relu)  # noqa: E731
+        got[key], route_of[key] = route_taken(k4, call)
+        # TMA takes every bf16 site but the ragged one (140-byte rows)
+        want = ("wgmma" if key[2] == torch.bfloat16 and not
+                key[1].startswith("ragged") else "staged")
+        assert route_of[key] == want, (key, route_of[key])
         calls["K4"] += 1
+        routes["K4"][route_of[key]] += 1
     for key, (x, sc, bi, g) in inputs["K6"].items():
         xg, sg, bg = (t.detach().requires_grad_() for t in (x, sc, bi))
         out = k6(xg, sg, bg)
@@ -1034,16 +1106,23 @@ def phase_kernel_api(api, cfg, build_segmenter):
             calls["K6 fwd"] += 1
         for mod, x, y in fc1s:
             xb = x.to(torch.bfloat16)
-            model_got.append(("K4", k4(xb.reshape(-1, xb.shape[-1]),
-                                       mod.weight.t().to(torch.bfloat16),
-                                       mod.bias, None, True),
-                              torch.relu(y).reshape(-1, y.shape[-1])))
+            # w is the K-major weight.t(), as a model caller would pass it
+            a, r = route_taken(k4, lambda: k4(
+                xb.reshape(-1, xb.shape[-1]),
+                mod.weight.t().to(torch.bfloat16), mod.bias, None, True))
+            assert r == "wgmma", r
+            model_got.append(("K4", a, torch.relu(y).reshape(-1, y.shape[-1])))
             calls["K4"] += 1
+            routes["K4"][r] += 1
     torch.cuda.synchronize()
     launches = {"K3": k3.launches, "K4": k4.launches, "K6 fwd": k6.launches,
                 "K6 bwd": k6_bwd.launches}
-    print(f"kernel API launches {launches} for calls {calls}", flush=True)
+    by_route = {"K3": dict(k3.launches_by_route),
+                "K4": dict(k4.launches_by_route)}
+    print(f"kernel API launches {launches} for calls {calls}; by route "
+          f"{by_route} for {routes}", flush=True)
     assert launches == calls and all(launches.values()), (launches, calls)
+    assert by_route == routes, (by_route, routes)
 
     rows, worst = [], {name: 0.0 for name in calls}
 
@@ -1066,9 +1145,13 @@ def phase_kernel_api(api, cfg, build_segmenter):
                    dtype=str(key[2]).replace("torch.", ""),
                    max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times,
                    **extra)
+        if key in route_of:
+            row["route"] = route_of[key]
         worst[name] = max(worst[name], err)
         rows.append(row)
-        print(f"{name} {key[1]:30s} {row['dtype']:8s} max|err| {err:.3e}; "
+        print(f"{name} {key[1]:30s} {row['dtype']:8s} "
+              f"{'route ' + row['route'] + ' ' if 'route' in row else ''}"
+              f"max|err| {err:.3e}; "
               f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
               f"library {row['library_ms']:.4f} ms; on the device alone "
               f"kernel {row['device_ms']:.4f} ms plain "
@@ -1085,8 +1168,11 @@ def phase_kernel_api(api, cfg, build_segmenter):
         with torch.no_grad():
             # one CUDA body: K3 on head views of K1's rows, K1's bits
             views = [split_heads(x, h) for x in (q, k, v)]
-            assert torch.equal(merge_heads(k3(*views, valid)),
-                               api["fused_attention_bse"](q, k, v, h, valid)), \
+            k1 = api["fused_attention_bse"]
+            a3, r3 = route_taken(k3, lambda: merge_heads(k3(*views, valid)))
+            a1, r1 = route_taken(k1, lambda: k1(q, k, v, h, valid))
+            assert r3 == r1 == route_of[key], (key, r3, r1)
+            assert torch.equal(a3, a1), \
                 f"K3 on head views differs from K1 at {key[1]} {dt}"
             lib = _sdpa(q, k, v, h, valid)
             torch.testing.assert_close(lib().float(), got[key].float(),
@@ -1175,7 +1261,7 @@ def phase_kernel_api(api, cfg, build_segmenter):
         worst[key] = max(worst[key], model_err[name])
     seconds = time.perf_counter() - t0
     print(f"phase 11: {seconds:.1f} s", flush=True)
-    return dict(rows=rows, worst=worst, launches=launches,
+    return dict(rows=rows, worst=worst, launches=launches, by_route=by_route,
                 model_max_abs_err=model_err, seconds=seconds)
 
 
@@ -1232,8 +1318,8 @@ def main() -> int:
     if 3 in wanted:
         phase_model(cfg, build_segmenter, tokenize)
     if 4 in wanted:
-        out["serving"], _ = phase_serving(cfg, PredictService,
-                                          {"K1": (k1, 7)})
+        out["serving"], _, out["serving_routes"] = phase_serving(
+            cfg, PredictService, {"K1": (k1, 7)})
     if 5 in wanted:
         out["k1_grad_rows"], out["k1_grad_worst"] = phase_k1_backward(
             k1, attention_plain)
@@ -1255,7 +1341,7 @@ def main() -> int:
     if 10 in wanted:
         sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm,
                                    fused_bottleneck, fused_stem_pool, tokenize)
-        out["folded_serving"], _ = phase_serving(
+        out["folded_serving"], _, out["folded_routes"] = phase_serving(
             cfg, PredictService,
             {"K1": (k1, 7), "K5": (fused_bottleneck, 12),
              "K7": (fused_stem_pool, 1)},
@@ -1279,7 +1365,8 @@ def main() -> int:
 
 def summary(out) -> dict:
     """The kernels line, after printing the detail rows as one JSON line."""
-    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _ = out["train"]
+    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _, k1_train_routes = \
+        out["train"]
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
         "decoder self-attn") and r["B"] == 32 and r["dtype"] == "bfloat16")
@@ -1309,12 +1396,22 @@ def summary(out) -> dict:
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"]},
+        "launches_by_route": {
+            r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
+            + out["folded_routes"]["K1"][r] for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
-        "ms": k1_main["ms"],
-        "plain_ms": k1_main["plain_ms"],
+        # on the device alone: the tensor-core body runs shorter than the
+        # wrapper's host time, which back-to-back calls would time
+        "ms": k1_main["device_ms"],
+        "plain_ms": k1_main["plain_device_ms"],
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
-        "library_ms": k1_main["library_ms"],
+        "library_ms": k1_main["library_device_ms"],
+        "back_to_back_ms": k1_main["ms"],
+        "plain_back_to_back_ms": k1_main["plain_ms"],
+        "library_back_to_back_ms": k1_main["library_ms"],
+        "library": "scaled_dot_product_attention",
+        "site": "decoder self-attn, B 16 bf16, route " + k1_main["route"],
     }, {
         "name": "fused_attention_bse_dropout (forward)",
         "route": "cuda",
@@ -1379,7 +1476,7 @@ def summary(out) -> dict:
              "layernorm.py:123", "F.layer_norm's autograd backward")):
         row = next(r for r in api["rows"] if r["kernel"] == kernel and
                    r["site"] == site and r["dtype"] == "bfloat16")
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"cris_tpu_torch/csrc/{src}",
@@ -1399,7 +1496,11 @@ def summary(out) -> dict:
             "library_back_to_back_ms": row["library_ms"],
             "library": library,
             "site": f"{site}, B 16 bf16",
-        })
+        }
+        if kernel in api["by_route"]:
+            entry["launches_by_route"] = api["by_route"][kernel]
+            entry["site"] += ", route " + row["route"]
+        kernels.append(entry)
     print(json.dumps({"k1_shapes": out["k1_rows"],
                       "k1_grad": out["k1_grad_rows"],
                       "k2_shapes": out["k2_rows"],

@@ -2,14 +2,27 @@
 
 Replaces the TPU kernel ``fused_attention_bse``
 (cris_tpu/ops/pallas/attention.py:165, body ``_attn_bse_kernel`` at :132).
-The CUDA source is ``cris_tpu_torch/csrc/attention_bse.cu``; its header
-says how it is laid out and what bounds it on the card: this first
-version computes both products with f32 FMAs on the CUDA cores, so it is
-bound by FMA issue and shared-memory reads rather than by device memory.
+The CUDA source is ``cris_tpu_torch/csrc/attention_bse.cu``, two bodies
+that K1 and K3 share, picked before each launch by ``attention_route``:
+
+- ``"tensor_cores"``: bf16 q/k/v whose head dim is a multiple of 8 up to
+  128 and whose bases, head offsets and row strides are multiples of 8
+  elements, which every model site meets (contiguous (B, L, E)
+  projections). A flash-attention body on ``mma.sync`` m16n8k16 with
+  ``cp.async``-fed K/V tiles and the softmax in registers; P is rounded to
+  bf16 before P V, as the JAX kernels round it to v's dtype. Its bound is
+  the tensor cores' rate; what holds it from that is in PERF.md.
+- ``"scalar"``: float32 (its products stay f32 FMAs: TF32 would break the
+  f32 bars), and any bf16 layout the tensor-core body cannot take. The
+  latency of its one-element staging loads bounds it (PERF.md).
+
+The next step is wgmma for the two products, if the tensor-core body
+stays far from its bound.
 
 ``fused_attention_bse`` takes the plain version for a tensor on the CPU
-and launches the kernel for a CUDA tensor (or raises); it never falls
-back. ``fused_attention_bse.launches`` counts kernel launches.
+and launches a kernel for a CUDA tensor (or raises); it never falls back.
+``fused_attention_bse.launches`` counts kernel launches, and
+``fused_attention_bse.launches_by_route`` counts them per route.
 
 On CUDA it is a ``torch.autograd.Function``: the forward is the kernel,
 the backward is ``attention_bse_backward_plain``, a torch port of the JAX
@@ -138,6 +151,30 @@ def attention_bse_backward_plain(
     return tuple(merge_heads(x) for x in grads)
 
 
+ROUTES = ("tensor_cores", "scalar")
+BODY_CODES = {"scalar": 0, "tensor_cores": 1}  # the CUDA entries' body codes
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    head_dim: int) -> str:
+    """Which CUDA body K1 and K3 launch for these inputs: "tensor_cores"
+    for bf16 q, k and v with a head dim that is a multiple of 8 up to
+    MAX_HEAD_DIM, unit column stride, 16-byte aligned bases and every other
+    stride a multiple of 8 elements (so each head's rows are whole 16-byte
+    copies; K1's head offsets h * head_dim are then aligned too); else
+    "scalar". Pure: reads dtypes, strides and data pointers only."""
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        return "scalar"
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        return "scalar"
+    for x in (q, k, v):
+        if x.stride(-1) != 1 or x.data_ptr() % 16:
+            return "scalar"
+        if any(st % 8 for st in x.stride()[:-1]):
+            return "scalar"
+    return "tensor_cores"
+
+
 def _rows(x: torch.Tensor, name: str):
     if x.dim() != 3 or x.stride(2) != 1:
         raise ValueError(f"{name} must be (B, L, E) with unit column stride")
@@ -176,6 +213,7 @@ def _launch(q, k, v, num_heads, kv_valid):
     q_sb, q_ss = _rows(q, "q")
     k_sb, k_ss = _rows(k, "k")
     v_sb, v_ss = _rows(v, "v")
+    route = attention_route(q, k, v, d)
     lib = load_library()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -184,10 +222,12 @@ def _launch(q, k, v, num_heads, kv_valid):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_valid is None else kv_valid.data_ptr(),
             out.data_ptr(), b, s, t, num_heads, d, DTYPE_CODES[q.dtype],
-            q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, float(d ** -0.5), stream,
+            BODY_CODES[route], q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+            float(d ** -0.5), stream,
         )
     check(lib, err, "fused_attention_bse")
     fused_attention_bse.launches += 1
+    fused_attention_bse.launches_by_route[route] += 1
     return out
 
 
@@ -228,3 +268,4 @@ def fused_attention_bse(
 
 
 fused_attention_bse.launches = 0
+fused_attention_bse.launches_by_route = dict.fromkeys(ROUTES, 0)

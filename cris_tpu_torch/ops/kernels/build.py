@@ -111,14 +111,14 @@ def load_library() -> ctypes.CDLL:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.cris_attention_bse.argtypes = [
                 p, p, p, p, p,          # q, k, v, kv_valid, out
-                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                i, i, i, i, i, i, i,    # B, S, T, H, D, dtype, body
                 ll, ll, ll, ll, ll, ll,  # q/k/v batch and row strides
                 ctypes.c_float, p,      # scale, stream
             ]
             lib.cris_attention_bse.restype = i
             lib.cris_fused_attention.argtypes = [
                 p, p, p, p, p,          # q, k, v, kv_valid, out
-                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                i, i, i, i, i, i, i,    # B, S, T, H, D, dtype, body
                 *[ll] * 12,             # q/k/v/out batch, head, row strides
                 ctypes.c_float, p,      # scale, stream
             ]
@@ -130,6 +130,13 @@ def load_library() -> ctypes.CDLL:
                 p,                      # stream
             ]
             lib.cris_fused_matmul.restype = i
+            lib.cris_fused_matmul_wgmma.argtypes = [
+                p, p, p, p, p,          # x, w, bias, residual, out
+                i, i, i, i,             # M, N, K, relu
+                ll, i, ll,              # x row stride, w N-major?, w stride
+                ll, ll, p,              # residual strides, stream
+            ]
+            lib.cris_fused_matmul_wgmma.restype = i
             lib.cris_layer_norm_fwd.argtypes = [
                 p, p, p, p,             # x, scale, bias, y
                 i, i, i,                # rows, C, dtype

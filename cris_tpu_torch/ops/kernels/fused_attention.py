@@ -2,15 +2,18 @@
 
 Replaces the TPU kernel ``fused_attention`` (cris_tpu/ops/pallas/
 attention.py:57, ``pallas_call`` at :101, body ``_attn_kernel`` at :31).
-It is K1's math on another layout, so it runs K1's CUDA body
+It is K1's math on another layout, so it runs K1's CUDA bodies
 (``cris_tpu_torch/csrc/attention_bse.cu``, entry ``cris_fused_attention``),
-which addresses q, k, v and the output through (batch, head, row)
+which address q, k, v and the output through (batch, head, row)
 strides: a (B, H, S, D) view of any strides with unit column stride is
-read in place. The source's header says what bounds it on the card.
+read in place. K1's ``attention_route`` picks the body: the tensor-core
+one for bf16 with aligned strides and a head dim that is a multiple of 8,
+the scalar one otherwise; the source's header says what bounds each.
 
 ``fused_attention`` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor (or raises); it never falls back.
-``fused_attention.launches`` counts kernel launches. It is a
+launches a kernel for a CUDA tensor (or raises); it never falls back.
+``fused_attention.launches`` counts kernel launches and
+``fused_attention.launches_by_route`` counts them per route. It is a
 ``torch.autograd.Function`` on both: the backward is the plain recompute
 ``attention_heads_backward_plain``, as the JAX package's backward
 (``_fused_attention_bwd``, attention.py:309-346) is XLA.
@@ -27,8 +30,9 @@ from typing import Optional
 
 import torch
 
-from .attention import (DTYPE_CODES, MAX_HEAD_DIM, attention_heads_backward_plain,
-                        attention_heads_plain)
+from .attention import (BODY_CODES, DTYPE_CODES, MAX_HEAD_DIM, ROUTES,
+                        attention_heads_backward_plain, attention_heads_plain,
+                        attention_route)
 from .build import check, load_library
 
 
@@ -61,6 +65,7 @@ def _launch(q, k, v, kv_valid):
         if kv_valid.shape != (b, t):
             raise ValueError(f"kv_valid {tuple(kv_valid.shape)} != {(b, t)}")
         kv_valid = kv_valid.to(device=q.device, dtype=torch.uint8).contiguous()
+    route = attention_route(q, k, v, d)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -69,10 +74,11 @@ def _launch(q, k, v, kv_valid):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_valid is None else kv_valid.data_ptr(),
             out.data_ptr(), b, s, t, h, d, DTYPE_CODES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(d ** -0.5), stream)
+            BODY_CODES[route], *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], float(d ** -0.5), stream)
     check(lib, err, "fused_attention")
     fused_attention.launches += 1
+    fused_attention.launches_by_route[route] += 1
     return out
 
 
@@ -108,3 +114,4 @@ def fused_attention(
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
