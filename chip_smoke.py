@@ -5,11 +5,14 @@
 Phases (any failure raises, and the script exits non-zero):
 1. card, versions, and the build of the CUDA kernels from cris_tpu_torch/csrc;
 2. K1 against its plain PyTorch version at B = 16 on the main path's
-   shapes and at head dims 16, 48 and 128, f32 (rtol = atol = 1e-4) and
-   bf16 (rtol = atol = 2e-2, mean |err| < 2e-3), each call on the route
-   its dtype must take (bf16: the tensor-core body, f32: the scalar one),
-   with CUDA-event times of kernel, plain version and SDPA, back to back
-   and on the device alone;
+   shapes and at head dims 16, 48, 128 and 12, f32 (rtol = atol = 1e-4)
+   and bf16 (rtol = atol = 2e-2, mean |err| < 2e-3), each call on the
+   route its dtype and head dim must take (bf16 at a head dim that is a
+   multiple of 8: the tensor-core body; f32, and bf16 at head dim 12: the
+   scalar one; its bf16 error is also printed against P rounded where
+   the JAX kernel rounds it, before normalising, where the plain version
+   rounds after), with CUDA-event times of kernel, plain version and SDPA,
+   back to back and on the device alone;
 3. CRIS-R50 at 416 px (word_len 17, 3 decoder layers, seeded random
    weights): one f32 batch of 2 on the card against the same model on the
    CPU (relative L2 of the logits <= 1e-4, mask agreement at 0.35 >= 0.999);
@@ -27,12 +30,22 @@ Phases (any failure raises, and the script exits non-zero):
    version with the same seed, at the decoder's self- and
    cross-attention, rate 0.1, at B 16 and at the train path's B 32 (its
    cross-attention with each row's words drawn as the train batches draw
-   them, 3 to 17 valid): output and dq/dk/dv as in phase 5; rate 0
-   equals K1; one seed gives the same bits, another seed other bits; the
-   backward kernels alone give the autograd path's bits; the keep
-   fraction within 6 sigma of 0.9; the forward's row counts and the
-   backward's column counts of the mask equal the plain mask's (uniform
-   attention, V = 1, dO = 1); times of forward, backward alone and both;
+   them, 3 to 17 valid), and at head dim 12: output and dq/dk/dv as in
+   phase 5, each call on the route its dtype and head dim must take (bf16
+   at a head dim that is a multiple of 8: the tensor-core kernels; f32,
+   and bf16 at head dim 12: the scalar ones; the counts per route equal
+   the calls per route); rate 0 equals K1; one seed gives the same bits,
+   another seed other bits; the backward kernels alone give the autograd
+   path's bits; the tensor-core forward's packed keep mask equals
+   keep_bits_packed; the bf16 gradients' error against the JAX backward's
+   rounding points (attention_dropout_backward_plain) is printed; the
+   keep fraction within 6 sigma of 0.9, of the scalar forward and of the
+   packed mask; the
+   forward's row counts and the backward's column counts of the mask equal
+   the plain mask's (uniform attention, V = 1, dO = 1); times of forward,
+   backward alone and both (forward and backward also on the device
+   alone), and of SDPA with dropout (forward and backward, also on the
+   device alone, and both; its backend printed) at every site;
 7. the R50 f32 train step at dropout 0, batch 8: card against CPU (loss
    relative error <= 1e-4; the gradients' global relative L2, over all
    tensors and over the head, within 1e-3 plus 1.6 times the CPU's own
@@ -43,8 +56,8 @@ Phases (any failure raises, and the script exits non-zero):
 8. R50 training in bf16 autocast at dropout 0.1, batch 32, 8 steps on
    seeded batches: finite losses and gradients, BN running statistics
    move, group learning rates 1e-5 / 1e-4, and per step K2 forward and
-   backward 6 launches each (3 layers x 2 sites) and K1 one (attnpool,
-   on the tensor-core route);
+   backward 6 launches each (3 layers x 2 sites) and K1 one (attnpool),
+   every one on the tensor-core route;
    the median step time of steps 3-8 and the peak memory.
 9. K5 (fused bottleneck) and K7 (fused stem + pool) against their plain
    versions at B 16, f32 (TF32 off) and bf16, at the phase-2 bars in
@@ -85,13 +98,16 @@ Phases (any failure raises, and the script exits non-zero):
    card sleeps).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
-of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32; K1, K3, K4 and K6
-timed on the device alone, with their back-to-back times beside; K1, K3
+of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
+Philox work, 40 integer multiplies a call over 16.7 Tops/s; K1, K2, K3,
+K4 and K6 timed
+on the device alone, with their back-to-back times beside; K1, K2, K3
 and K4 with their launches per route), the card's name and power limit,
 and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
     python3 chip_smoke.py --phases 2,11   # the routes of K1, K3 and K4
+    python3 chip_smoke.py --phases 6,8    # K2 on both routes, the train step
 """
 
 import argparse
@@ -117,6 +133,8 @@ SHAPES = [
     ("head dim 16 (cris_tiny decoder)", 16, 17, 4, 16, 5),
     ("head dim 48", 100, 37, 4, 48, 6),
     ("head dim 128", 676, 676, 4, 128, 0),
+    # a head dim the tensor-core gate refuses: bf16 on the scalar body
+    ("head dim 12 (scalar body)", 100, 37, 4, 12, 6),
 ]
 # K2's sites, (site, B, S, T, H, D, masked keys): the decoder's at B 16
 # with the same mask in every row, and at the train path's B 32, where
@@ -124,6 +142,8 @@ SHAPES = [
 K2_SITES = [(site, B, s, t, h, d, m) for site, s, t, h, d, m in SHAPES[:3]] + [
     ("decoder self-attn, train batch", 32, 676, 676, 8, 64, 0),
     ("decoder cross-attn, train batch", 32, 676, 17, 8, 64, "rows"),
+    # a head dim the tensor-core gate refuses: bf16 on the scalar kernels
+    ("head dim 12 (scalar body)", B, 100, 37, 4, 12, 6),
 ]
 
 
@@ -209,10 +229,12 @@ def route_taken(fn, call):
     return result, taken[0]
 
 
-def expected_route(dtype) -> str:
-    """K1's and K3's route at every site of SHAPES and K3_SHAPES: their
-    head dims are multiples of 8 and their tensors contiguous."""
-    return "tensor_cores" if dtype == torch.bfloat16 else "scalar"
+def expected_route(dtype, head_dim: int) -> str:
+    """K1's, K2's and K3's route at every site of SHAPES, K2_SITES and
+    K3_SHAPES (contiguous tensors): the tensor cores for bf16 at a head dim
+    that is a multiple of 8, else the scalar body."""
+    return ("tensor_cores" if dtype == torch.bfloat16 and head_dim % 8 == 0
+            else "scalar")
 
 
 def phase_kernel(fused, plain):
@@ -233,7 +255,7 @@ def phase_kernel(fused, plain):
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
             got, route = route_taken(fused, lambda: fused(qd, kd, vd, h, valid))
-            assert route == expected_route(dtype), (site, dtype, route)
+            assert route == expected_route(dtype, d), (site, dtype, route)
             ref = plain(qd, kd, vd, h, valid)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
@@ -272,11 +294,19 @@ def phase_kernel(fused, plain):
                        plain_device_ms=(dp1 + dp2) / 2,
                        library_device_ms=(dl1 + dl2) / 2, bound_ms=b_ms,
                        bound_by=b_by)
+            pallas_point = ""
+            if route == "scalar" and dtype == torch.bfloat16:
+                e2 = (got.float() - _pallas_rounding_reference(
+                    qd, kd, vd, h, valid).float()).abs()
+                row["vs_pallas_rounding"] = [e2.max().item(), e2.mean().item()]
+                pallas_point = (f" (against P rounded where the JAX kernel "
+                                f"rounds it: max {e2.max().item():.3e} mean "
+                                f"{e2.mean().item():.3e})")
             worst = max(worst, row["max_abs_err"])
             rows.append(row)
             print(f"K1 {site:30s} {row['dtype']:8s} S={s} T={t} H={h} D={d} "
                   f"route {route} max|err|={row['max_abs_err']:.3e} "
-                  f"mean|err|={row['mean_abs_err']:.3e} "
+                  f"mean|err|={row['mean_abs_err']:.3e}{pallas_point} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms "
                   f"sdpa {row['library_ms']:.4f} ms; on the device alone "
                   f"kernel {row['device_ms']:.4f} ms plain "
@@ -286,6 +316,23 @@ def phase_kernel(fused, plain):
     main = next(r for r in rows if r["site"] == "decoder self-attn"
                 and r["dtype"] == "bfloat16")
     return rows, worst, main
+
+
+def _pallas_rounding_reference(q, k, v, h, valid):
+    """K1's math with P rounded where the JAX kernel rounds it
+    (`_attn_bse_kernel`, cris_tpu/ops/pallas/attention.py:148-157): the
+    unnormalised p = exp(logits - row max) to v's dtype before P V, the
+    row sum from the f32 p, out = (P V) / l. The plain version (the XLA
+    path) rounds the normalised weights instead."""
+    b, s, e = q.shape
+    heads = [x.float().view(b, x.shape[1], h, e // h).transpose(1, 2)
+             for x in (q, k, v)]
+    logits = heads[0] @ heads[1].transpose(-1, -2) * (e // h) ** -0.5
+    if valid is not None:
+        logits = logits.masked_fill(~valid.bool()[:, None, None, :], -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = (p.to(v.dtype).float() @ heads[2]) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2).reshape(b, s, e).to(q.dtype)
 
 
 def _sdpa(q, k, v, h, valid):
@@ -467,23 +514,70 @@ def phase_k1_backward(fused, plain):
     return rows, worst
 
 
-def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, k1, keep_mask, rate=0.1):
-    """K2 against its plain version with the same seed. The backward
-    kernels are also timed alone, on the output and log-sum-exp of one
-    forward, against torch.autograd.grad through the plain graph built by
-    one forward."""
+def _sdpa_dropout(q, k, v, g, h, valid, rate):
+    """F.scaled_dot_product_attention with dropout on K2's inputs: head
+    views of the (B, S, E) rows, the key mask as a boolean (B, 1, 1, T)
+    attn_mask, dropout_p = rate. The same work as K2, with PyTorch's own
+    Philox stream (other bits). Returns (forward, backward alone, forward
+    + backward, the backend PyTorch picks), timed beside K2 as its library
+    yardstick and used nowhere in the port."""
+    b, s, e = q.shape
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    heads = [x.view(b, x.shape[1], h, e // h).transpose(1, 2) for x in leaves]
+    gh = g.view(b, s, h, e // h).transpose(1, 2)
+    mask = None if valid is None else valid.bool()[:, None, None, :]
+    F = torch.nn.functional
+
+    def fwd():
+        return F.scaled_dot_product_attention(*heads, attn_mask=mask,
+                                              dropout_p=rate)
+
+    out = fwd()
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, gh, retain_graph=True)
+
+    def both():
+        return torch.autograd.grad(fwd(), leaves, gh)
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        backend = SDPBackend(torch._fused_sdp_choice(
+            *heads, attn_mask=mask, dropout_p=rate)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as err:
+        backend = f"unknown ({type(err).__name__})"
+    return fwd, bwd, both, backend
+
+
+def _by_route_delta(fn, before):
+    return {r: n - before[r] for r, n in fn.launches_by_route.items()}
+
+
+def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, plain_k2_bwd, k1, keep_mask,
+             keep_bits_packed, rate=0.1):
+    """K2 against its plain version with the same seed, each call on the
+    route its dtype must take (bf16: the tensor-core kernels, f32: the
+    scalar ones), the counts per route equal to the calls per route. The
+    tensor-core forward's packed keep mask equals keep_bits_packed; its
+    bf16 gradients are also held against attention_dropout_backward_plain
+    (the JAX backward's rounding points), printed. The backward kernels
+    are timed alone, on the output, log-sum-exp and bits of one forward,
+    against torch.autograd.grad through the plain graph built by one
+    forward; forward and backward also on the device alone; SDPA with
+    dropout beside them."""
     rows, worst_fwd, worst_bwd = [], 0.0, 0.0
     gen = torch.Generator(device="cuda").manual_seed(6)
+    frac_tc = None
     for site, b, s, t, h, d, masked in K2_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g, valid = _site_inputs(gen, b, s, t, h, d, masked, dtype)
             seed = 1234567 + b + s + t
+            route = expected_route(dtype, d)
             kern = lambda q, k, v: k2(q, k, v, h, valid, rate, seed)  # noqa: E731
             ref_fn = lambda q, k, v: plain_k2(q, k, v, h, valid, rate, seed)  # noqa: E731
-            before = (k2.launches, k2_bwd.launches)
+            before = (dict(k2.launches_by_route), dict(k2_bwd.launches_by_route))
             got = _fwd_bwd(kern, q, k, v, g)
-            assert (k2.launches, k2_bwd.launches) == (before[0] + 1,
-                                                      before[1] + 1)
             ref = _reference(ref_fn, q, k, v, g)
             torch.cuda.synchronize()
             what = f"K2 {site} {dtype}"
@@ -497,16 +591,41 @@ def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, k1, keep_mask, rate=0.1):
                 assert not torch.equal(other, got[0]), what + ": seed ignored"
                 _check(k2(q, k, v, h, valid, 0.0, seed), k1(q, k, v, h, valid),
                        dtype, what + ": rate 0 vs K1")
-                out, lse, valid_u8 = k2_fwd(q, k, v, h, valid, rate, seed)
+                out, lse, valid_u8, bits = k2_fwd(q, k, v, h, valid, rate, seed)
                 bwd = lambda: k2_bwd(q, k, v, h, valid_u8, rate, seed,  # noqa: E731
-                                     out, lse, g)
+                                     out, lse, bits, g)
                 assert all(torch.equal(a, b_) for a, b_ in zip(bwd(), got[1:])), \
                     what + ": backward alone differs"
+            # 5 forward calls (autograd, again, other seed, rate 0, alone)
+            # and 2 backward calls (autograd, alone), all on one route
+            fwd_routes = _by_route_delta(k2, before[0])
+            bwd_routes = _by_route_delta(k2_bwd, before[1])
+            assert fwd_routes == {r: 5 * (r == route) for r in fwd_routes}, \
+                (what, fwd_routes)
+            assert bwd_routes == {r: 2 * (r == route) for r in bwd_routes}, \
+                (what, bwd_routes)
+            extra = {}
+            if route == "tensor_cores":
+                want = keep_bits_packed(seed, b, h, s, t, rate, "cuda")
+                assert torch.equal(bits, want), what + ": packed mask differs"
+                del want
+            else:
+                assert bits is None, what
+            if dtype == torch.bfloat16:
+                # bf16 rows against the JAX backward's rounding points
+                pb = plain_k2_bwd(q, k, v, h, valid, rate, seed, g)
+                extra["bwd_max_abs_err_vs_bf16_plain"] = max(
+                    (a.float() - b_.float()).abs().max().item()
+                    for a, b_ in zip(got[1:], pb))
+                del pb
+            with torch.no_grad():
                 pf1 = cuda_ms(lambda: ref_fn(q, k, v))
                 kf1 = cuda_ms(lambda: kern(q, k, v))
                 kf2 = cuda_ms(lambda: kern(q, k, v))
                 pf2 = cuda_ms(lambda: ref_fn(q, k, v))
                 mask_ms = cuda_ms(lambda: keep_mask(seed, b, h, s, t, rate, "cuda"))
+                dkf1 = device_ms(lambda: kern(q, k, v), 10)
+                dkf2 = device_ms(lambda: kern(q, k, v), 10)
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
             out_p = ref_fn(qg, kg, vg)
             plain_bwd = lambda: torch.autograd.grad(  # noqa: E731
@@ -515,34 +634,73 @@ def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, k1, keep_mask, rate=0.1):
             kbo1 = cuda_ms(bwd, 5)
             kbo2 = cuda_ms(bwd, 5)
             pbo2 = cuda_ms(plain_bwd, 5)
+            dkb1, dkb2 = device_ms(bwd, 10), device_ms(bwd, 10)
             del out_p
             pb1 = cuda_ms(lambda: _fwd_bwd(ref_fn, q, k, v, g), 5)
             kb1 = cuda_ms(lambda: _fwd_bwd(kern, q, k, v, g), 5)
             kb2 = cuda_ms(lambda: _fwd_bwd(kern, q, k, v, g), 5)
             pb2 = cuda_ms(lambda: _fwd_bwd(ref_fn, q, k, v, g), 5)
+            lf, lb, lboth, backend = _sdpa_dropout(q, k, v, g, h, valid, rate)
+            with torch.no_grad():
+                lf1, lf2 = cuda_ms(lf), cuda_ms(lf)
+                dlf1, dlf2 = device_ms(lf, 10), device_ms(lf, 10)
+            lb1, lb2 = cuda_ms(lb, 5), cuda_ms(lb, 5)
+            dlb1, dlb2 = device_ms(lb, 10), device_ms(lb, 10)
+            lbb1, lbb2 = cuda_ms(lboth, 5), cuda_ms(lboth, 5)
+            del lf, lb, lboth
             lens = valid.sum(1).tolist() if valid is not None else [t]
             row = dict(site=site, B=b, S=s, T=t, H=h, D=d,
                        valid_keys=[min(lens), max(lens)],
                        dtype=str(dtype).replace("torch.", ""), rate=rate,
-                       fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd,
+                       route=route, fwd_max_abs_err=e_fwd,
+                       bwd_max_abs_err=e_bwd, **extra,
                        fwd_ms=(kf1 + kf2) / 2, plain_fwd_ms=(pf1 + pf2) / 2,
+                       fwd_device_ms=(dkf1 + dkf2) / 2,
                        plain_mask_ms=mask_ms,
                        bwd_ms=(kbo1 + kbo2) / 2,
                        plain_bwd_ms=(pbo1 + pbo2) / 2,
+                       bwd_device_ms=(dkb1 + dkb2) / 2,
                        fwd_bwd_ms=(kb1 + kb2) / 2,
-                       plain_fwd_bwd_ms=(pb1 + pb2) / 2)
+                       plain_fwd_bwd_ms=(pb1 + pb2) / 2,
+                       sdpa_backend=backend, sdpa_fwd_ms=(lf1 + lf2) / 2,
+                       sdpa_fwd_device_ms=(dlf1 + dlf2) / 2,
+                       sdpa_bwd_ms=(lb1 + lb2) / 2,
+                       sdpa_bwd_device_ms=(dlb1 + dlb2) / 2,
+                       sdpa_fwd_bwd_ms=(lbb1 + lbb2) / 2)
+            for part in ("fwd", "bwd"):
+                row[f"{part}_bound_ms"], row[f"{part}_bound_by"], \
+                    row[f"{part}_bound_term"] = _k2_bound(
+                        b, s, t, h, d, dtype, route, part == "bwd",
+                        valid_keys=sum(lens) * (b // len(lens)))
             worst_fwd, worst_bwd = max(worst_fwd, e_fwd), max(worst_bwd, e_bwd)
             rows.append(row)
+            vs_plain = ("" if "bwd_max_abs_err_vs_bf16_plain" not in row else
+                        f" (vs the bf16 plain backward "
+                        f"{row['bwd_max_abs_err_vs_bf16_plain']:.3e})")
             print(f"K2 {site:31s} B={b} T={t} valid keys {min(lens)}-"
-                  f"{max(lens)} {row['dtype']:8s} max|err| out {e_fwd:.3e} "
-                  f"grads {e_bwd:.3e}; fwd kernel {row['fwd_ms']:.4f} ms plain "
+                  f"{max(lens)} {row['dtype']:8s} route {route} max|err| out "
+                  f"{e_fwd:.3e} grads {e_bwd:.3e}{vs_plain}; fwd kernel "
+                  f"{row['fwd_ms']:.4f} ms (device alone "
+                  f"{row['fwd_device_ms']:.4f}) plain "
                   f"{row['plain_fwd_ms']:.4f} ms (its keep mask alone "
-                  f"{mask_ms:.4f} ms); bwd kernel {row['bwd_ms']:.4f} ms plain "
+                  f"{mask_ms:.4f} ms); bwd kernel {row['bwd_ms']:.4f} ms "
+                  f"(device alone {row['bwd_device_ms']:.4f}) plain "
                   f"{row['plain_bwd_ms']:.4f} ms; fwd+bwd kernel "
                   f"{row['fwd_bwd_ms']:.4f} ms plain "
-                  f"{row['plain_fwd_bwd_ms']:.4f} ms", flush=True)
+                  f"{row['plain_fwd_bwd_ms']:.4f} ms; SDPA with dropout "
+                  f"({backend}) fwd {row['sdpa_fwd_ms']:.4f} (device alone "
+                  f"{row['sdpa_fwd_device_ms']:.4f}) bwd "
+                  f"{row['sdpa_bwd_ms']:.4f} (device alone "
+                  f"{row['sdpa_bwd_device_ms']:.4f}) both "
+                  f"{row['sdpa_fwd_bwd_ms']:.4f} ms; bound fwd "
+                  f"{row['fwd_bound_ms']:.4f} ({row['fwd_bound_term']}) bwd "
+                  f"{row['bwd_bound_ms']:.4f} ({row['bwd_bound_term']})",
+                  flush=True)
             if masked == "rows":
                 assert min(lens) <= 5 and len(set(lens)) >= 8, lens
+            if route == "tensor_cores" and s == t and b == 32:
+                # the keep fraction of the packed mask (its bits past T are 0)
+                frac_tc = _popcount(bits) / (b * h * s * t)
 
     # uniform attention (q = k = 0), V = 1, dO = 1: out = row keep count
     # and dV = column keep count, each / (T (1 - rate)), per head
@@ -566,7 +724,21 @@ def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, k1, keep_mask, rate=0.1):
           f"row counts and backward column counts equal the plain mask's",
           flush=True)
     assert abs(frac - (1 - rate)) < 6 * sigma, frac
+    n_tc = 32 * 8 * 676 * 676
+    sigma_tc = ((1 - rate) * rate / n_tc) ** 0.5
+    print(f"K2 keep fraction of the tensor-core forward's packed mask at the "
+          f"B 32 self-attention: {frac_tc:.6f} "
+          f"({abs(frac_tc - (1 - rate)) / sigma_tc:.2f} sigma)", flush=True)
+    assert abs(frac_tc - (1 - rate)) < 6 * sigma_tc, frac_tc
     return rows, worst_fwd, worst_bwd, frac
+
+
+def _popcount(words: torch.Tensor) -> int:
+    """Set bits in an int32 tensor, by bytes through a 256-entry table."""
+    table = torch.tensor([bin(i).count("1") for i in range(256)],
+                         device=words.device)
+    by = words.contiguous().view(torch.uint8).long()
+    return int(table[by].sum().item())
 
 
 def phase_train_card_vs_cpu(cfg, build_segmenter):
@@ -668,17 +840,20 @@ def phase_train_bf16(cfg, build_segmenter, engine, counters, steps=8, b=32):
     assert moved == len(bns), (moved, len(bns))
     sites = 2 * cfg.num_layers  # self- and cross-attention per layer
     assert all(s == [sites, sites, 1] for s in per_step), per_step
-    k1_routes = dict(counters[-1].launches_by_route)  # K1 at attnpool
-    assert k1_routes == {"tensor_cores": steps, "scalar": 0}, k1_routes
+    # every K2 launch (both decoder sites of every layer, forward and
+    # backward) and K1 at attnpool on the tensor cores
+    routes = [dict(c.launches_by_route) for c in counters]
+    for n, by_route in zip((sites, sites, 1), routes):
+        assert by_route == {"tensor_cores": n * steps, "scalar": 0}, routes
     median = float(np.median(times[2:]))
     print(f"R50 bf16 train b{b}: losses {['%.4f' % x for x in losses]}; "
           f"launches per step (K2 fwd, K2 bwd, K1) {per_step[0]} in every "
-          f"step, K1 by route {k1_routes}; {moved} BN running means moved; "
-          f"group lrs {lrs}", flush=True)
+          f"step, by route (K2 fwd, K2 bwd, K1) {routes}; {moved} BN "
+          f"running means moved; group lrs {lrs}", flush=True)
     print(f"R50 bf16 train b{b} dropout 0.1: median step {median:.2f} ms "
           f"(steps 3-{steps}: {['%.2f' % x for x in times[2:]]}), peak memory "
           f"{peak:.2f} GiB, on {card_line()}", flush=True)
-    return launches, median, peak, times, k1_routes
+    return launches, median, peak, times, routes
 
 
 def _cudnn_bottleneck(x, w1, b1, w2, b2, w3, b3):
@@ -932,18 +1107,54 @@ def phase_ab(cfg, build_segmenter, fold_batchnorm, sd):
     return ab
 
 
-def _k2_bound(b, s, t, h, d, dtype, backward=False):
-    """K2's bound at a site: the forward reads q, k, v and writes the
-    output (plus the f32 log-sum-exp) with K1's two products; the
-    backward reads q, k, v, the output, dO and the log-sum-exp, writes dq,
-    dk, dv, and needs five products (S again, dV, dP, dQ, dK)."""
+# Philox4x32-10's integer work per call (4 keep bits), by the pipe it
+# issues to: 10 rounds of two 32 x 32 -> 64-bit multiplies, a low and a
+# high word each (40 multiply results: IMAD, on the FMA pipe), and of two
+# three-input XORs (20 LOP3, on the ALU pipe), plus 4 threshold compares
+# (ALU). The round keys depend on the seed alone and are not counted.
+PHILOX_OPS_BY_PIPE = {"multiply": 40, "logic": 24}
+# 32-bit integer multiply, and 32-bit bitwise and compare operations: 64
+# results per clock per SM each on compute capability 9.0 (CUDA C++
+# Programming Guide, "Arithmetic Instructions", throughput table); the
+# two pipes issue side by side, so the busier one binds. 132 SMs at the
+# top SM clock.
+PEAK_INT_OPS = 64 * 132 * SM_HZ
+
+
+def _k2_bound(b, s, t, h, d, dtype, route, backward, valid_keys):
+    """K2's bound at a site: (ms, 'bytes' or 'operations', the binding
+    term), the largest of three terms. Bytes: the forward reads q, k, v
+    and writes the output and the f32 log-sum-exp; the backward reads q,
+    k, v, the output, dO and the log-sum-exp and writes dq, dk, dv; on the
+    tensor-core route the forward also writes the packed keep mask
+    (ceil(T / 32) words a row) and the backward reads it. Tensor
+    operations: two products (S, P V) in the forward and five (S, dV, dP,
+    dQ, dK) in the backward, over the (query, valid key) pairs of this
+    run's mask (``valid_keys``: the valid keys summed over the batch).
+    Philox: one call per (row, 4-key group) in the forward, its 40
+    multiplies on the FMA pipe beside its 24 logic operations on the ALU
+    pipe (PHILOX_OPS_BY_PIPE); the scalar backward draws them again (at
+    least once), the tensor-core backward reads the bits instead."""
     es = torch.tensor([], dtype=dtype).element_size()
     e = h * d
+    words = 4 * b * h * s * ((t + 31) // 32) if route == "tensor_cores" else 0
+    pairs = float(valid_keys) * s * h
+    philox = float(b * h * s * ((t + 3) // 4)) * max(
+        PHILOX_OPS_BY_PIPE.values())
     if backward:
-        return bound(es * b * (4 * s + 4 * t) * e + 4 * b * h * s,
-                     10.0 * b * h * s * t * d, dtype)
-    return bound(es * b * (2 * s + 2 * t) * e + 4 * b * h * s,
-                 4.0 * b * h * s * t * d, dtype)
+        nbytes = es * b * (4 * s + 4 * t) * e + 4 * b * h * s + words
+        flops = 10.0 * pairs * d
+        philox *= route != "tensor_cores"
+    else:
+        nbytes = es * b * (2 * s + 2 * t) * e + 4 * b * h * s + words
+        flops = 4.0 * pairs * d
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "tensor-core operations": flops / PEAK_FLOPS[dtype],
+             "Philox integer operations": philox / PEAK_INT_OPS}
+    if dtype == torch.float32:  # f32 products run on the CUDA cores
+        terms["f32 operations"] = terms.pop("tensor-core operations")
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
 # Phase 11: the JAX package's public kernel API (K3, K4, K6) at R50 widths
@@ -1070,14 +1281,15 @@ def phase_kernel_api(api, cfg, build_segmenter):
     for key, (q, k, v, g, valid, h) in inputs["K3"].items():
         heads = [split_heads(x, h).contiguous() for x in (q, k, v)]
         got[key], route_of[key] = route_taken(k3, lambda: k3(*heads, valid))
-        assert route_of[key] == expected_route(key[2]), (key, route_of[key])
+        d = q.shape[-1] // h
+        assert route_of[key] == expected_route(key[2], d), (key, route_of[key])
         calls["K3"] += 1
         routes["K3"][route_of[key]] += 1
         if key[1] == "decoder self-attn":  # kernel forward, plain backward
             got[key + ("grad",)], r = route_taken(k3, lambda: _fwd_bwd(
                 lambda q, k, v: merge_heads(k3(*(split_heads(x, h) for x in (
                     q, k, v)), valid)), q, k, v, g))
-            assert r == expected_route(key[2]), (key, r)
+            assert r == expected_route(key[2], d), (key, r)
             calls["K3"] += 1
             routes["K3"][r] += 1
     for key, (x, w, b, r, relu) in inputs["K4"].items():
@@ -1283,14 +1495,7 @@ def main() -> int:
     from cris_tpu_torch.checkpoint import fold_batchnorm
     from cris_tpu_torch.models import build_segmenter
     from cris_tpu_torch.ops import kernels
-    from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
-                                            attention_dropout_forward,
-                                            attention_dropout_plain,
-                                            attention_plain, bottleneck_plain,
-                                            build, fused_attention_bse,
-                                            fused_attention_bse_dropout,
-                                            fused_bottleneck, fused_stem_pool,
-                                            keep_mask, stem_pool_plain)
+    from cris_tpu_torch.ops.kernels import build
     from cris_tpu_torch.serving import PredictService
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
 
@@ -1310,11 +1515,14 @@ def main() -> int:
         print(log.read_text(), flush=True)
 
     cfg = cris_r50_refcoco()
-    k1 = fused_attention_bse
+    k1 = kernels.fused_attention_bse
+    k2 = kernels.fused_attention_bse_dropout
+    k5, k7 = kernels.fused_bottleneck, kernels.fused_stem_pool
     out = {}
+    # each phase reads from `kernels` only what it drives
     if 2 in wanted:
         out["k1_rows"], out["k1_worst"], out["k1_main"] = phase_kernel(
-            k1, attention_plain)
+            k1, kernels.attention_plain)
     if 3 in wanted:
         phase_model(cfg, build_segmenter, tokenize)
     if 4 in wanted:
@@ -1322,29 +1530,29 @@ def main() -> int:
             cfg, PredictService, {"K1": (k1, 7)})
     if 5 in wanted:
         out["k1_grad_rows"], out["k1_grad_worst"] = phase_k1_backward(
-            k1, attention_plain)
+            k1, kernels.attention_plain)
     if 6 in wanted:
         (out["k2_rows"], out["k2_fwd_worst"], out["k2_bwd_worst"],
-         _) = phase_k2(fused_attention_bse_dropout, attention_dropout_forward,
-                       attention_dropout_backward, attention_dropout_plain,
-                       k1, keep_mask)
+         _) = phase_k2(k2, kernels.attention_dropout_forward,
+                       kernels.attention_dropout_backward,
+                       kernels.attention_dropout_plain,
+                       kernels.attention_dropout_backward_plain, k1,
+                       kernels.keep_mask, kernels.keep_bits_packed)
     if 7 in wanted:
         phase_train_card_vs_cpu(cfg, build_segmenter)
     if 8 in wanted:
-        counters = [fused_attention_bse_dropout, attention_dropout_backward,
-                    k1]
+        counters = [k2, kernels.attention_dropout_backward, k1]
         out["train"] = phase_train_bf16(cfg, build_segmenter, engine,
                                         counters)
     if 9 in wanted:
-        out["k5_rows"] = phase_k5(fused_bottleneck, bottleneck_plain)
-        out["k7_rows"] = phase_k7(fused_stem_pool, stem_pool_plain)
+        out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain)
+        out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain)
     if 10 in wanted:
-        sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm,
-                                   fused_bottleneck, fused_stem_pool, tokenize)
+        sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5,
+                                   k7, tokenize)
         out["folded_serving"], _, out["folded_routes"] = phase_serving(
             cfg, PredictService,
-            {"K1": (k1, 7), "K5": (fused_bottleneck, 12),
-             "K7": (fused_stem_pool, 1)},
+            {"K1": (k1, 7), "K5": (k5, 12), "K7": (k7, 1)},
             state_dict=sd, fused_bottleneck=True, fused_stem=True)
         out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
     if 11 in wanted:
@@ -1365,13 +1573,40 @@ def main() -> int:
 
 def summary(out) -> dict:
     """The kernels line, after printing the detail rows as one JSON line."""
-    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _, k1_train_routes = \
+    (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _, train_routes = \
         out["train"]
+    k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
         "decoder self-attn") and r["B"] == 32 and r["dtype"] == "bfloat16")
-    k2_site = (32, 676, 676, 8, 64, torch.bfloat16)
     k2_src = "cris_tpu_torch/csrc/attention_bse_dropout.cu"
+
+    def k2_entry(part, replaces, launches, by_route, worst):
+        """K2's forward or backward at its main site, on the device alone
+        (the tensor-core kernels run shorter than the wrapper's host time),
+        with SDPA with dropout as the library call."""
+        key = {"forward": "fwd", "backward": "bwd"}[part]
+        return {
+            "name": f"fused_attention_bse_dropout ({part})",
+            "route": "cuda",
+            "source": k2_src,
+            "replaces": f"cris_tpu/ops/pallas/attention_train.py:{replaces}",
+            "launches": launches,
+            "launches_by_route": by_route,
+            "max_abs_err": worst,
+            "ms": main_k2[f"{key}_device_ms"],
+            "plain_ms": main_k2[f"plain_{key}_ms"],
+            "bound_ms": main_k2[f"{key}_bound_ms"],
+            "bound_by": main_k2[f"{key}_bound_by"],
+            "bound_term": main_k2[f"{key}_bound_term"],
+            "library_ms": main_k2[f"sdpa_{key}_device_ms"],
+            "back_to_back_ms": main_k2[f"{key}_ms"],
+            "library_back_to_back_ms": main_k2[f"sdpa_{key}_ms"],
+            "library": "scaled_dot_product_attention with dropout_p (its "
+                       "own Philox stream: the same work, other bits), "
+                       "backend " + main_k2["sdpa_backend"],
+            "site": "decoder self-attn, B 32 bf16, route " + main_k2["route"],
+        }
     folded = out["folded_serving"]
     k1_main = out["k1_main"]
 
@@ -1412,31 +1647,9 @@ def summary(out) -> dict:
         "library_back_to_back_ms": k1_main["library_ms"],
         "library": "scaled_dot_product_attention",
         "site": "decoder self-attn, B 16 bf16, route " + k1_main["route"],
-    }, {
-        "name": "fused_attention_bse_dropout (forward)",
-        "route": "cuda",
-        "source": k2_src,
-        "replaces": "cris_tpu/ops/pallas/attention_train.py:218",
-        "launches": k2_fwd_n,
-        "max_abs_err": out["k2_fwd_worst"],
-        "ms": main_k2["fwd_ms"],
-        "plain_ms": main_k2["plain_fwd_ms"],
-        "bound_ms": _k2_bound(*k2_site)[0],
-        "bound_by": _k2_bound(*k2_site)[1],
-        "library_ms": None,
-    }, {
-        "name": "fused_attention_bse_dropout (backward)",
-        "route": "cuda",
-        "source": k2_src,
-        "replaces": "cris_tpu/ops/pallas/attention_train.py:248",
-        "launches": k2_bwd_n,
-        "max_abs_err": out["k2_bwd_worst"],
-        "ms": main_k2["bwd_ms"],
-        "plain_ms": main_k2["plain_bwd_ms"],
-        "bound_ms": _k2_bound(*k2_site, backward=True)[0],
-        "bound_by": _k2_bound(*k2_site, backward=True)[1],
-        "library_ms": None,
-    }, {
+    }, k2_entry("forward", 218, k2_fwd_n, k2_fwd_routes, out["k2_fwd_worst"]),
+        k2_entry("backward", 248, k2_bwd_n, k2_bwd_routes,
+                 out["k2_bwd_worst"]), {
         "name": "fused_bottleneck (12 launches of one b16 bf16 forward)",
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/bottleneck.cu",

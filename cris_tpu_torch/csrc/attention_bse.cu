@@ -20,12 +20,14 @@
 // - "tensor_cores" (attention_tc_kernel): bf16, head dims that are
 //   multiples of 8 up to 128, bases, head offsets and row strides that are
 //   multiples of 8 elements (16 bytes). A flash-attention body on
-//   mma.sync.m16n8k16 (bf16 x bf16 -> f32). One block of 4 warps per
-//   (batch, head, 64 query rows), 16 rows a warp. Q's fragments are loaded
-//   once with ldmatrix; K and V come in 64-key tiles by 16-byte cp.async
-//   into a double-buffered ring in shared memory (rows padded by 16 bytes,
-//   so that ldmatrix's 8 row addresses fall in distinct banks), the next
-//   tile in flight while this one computes. Per tile: S = Q K^T in f32
+//   mma.sync.m16n8k16 (bf16 x bf16 -> f32): mma_sm90.cuh's flash_fwd_body
+//   without dropout, the body K2's tensor-core forward runs with it (so K2
+//   at rate 0 gives K1's bits). One block of 4 warps
+//   per (batch, head, 64 query rows), 16 rows a warp. Q's fragments are
+//   loaded once with ldmatrix; K and V come in 64-key tiles by 16-byte
+//   cp.async into a double-buffered ring in shared memory (rows padded by
+//   16 bytes, so that ldmatrix's 8 row addresses fall in distinct banks),
+//   the next tile in flight while this one computes. Per tile: S = Q K^T in f32
 //   registers, scaled (in log2 units, for exp2); an online softmax whose
 //   row max runs over the 4 lanes of a quad (two shuffles), the row sum
 //   kept per thread and summed over the quad once at the end; P rounded to
@@ -43,10 +45,13 @@
 // - "scalar" (attention_bse_kernel): float32, and any bf16 layout the
 //   tensor-core body cannot take. f32 logits and products as scalar FMAs
 //   on the CUDA cores (f32 has no tensor-core form but TF32, which would
-//   break the f32 bars), P kept in f32. 128 threads per (batch, head, 64
-//   queries); thread t owns query rows 4*(t/8) .. +3 and the logit and
-//   output columns (t%8) + 8j; K and V staged one element per thread at a
-//   time, so the latency of those loads sets its pace (PERF.md).
+//   break the f32 bars); P is rounded to the input dtype before P V, as
+//   the JAX kernels round it (the identity in f32), and the row sum is
+//   taken from the f32 p, as in the tensor-core body. 128 threads per
+//   (batch, head, 64 queries); thread t owns query rows 4*(t/8) .. +3 and
+//   the logit and output columns (t%8) + 8j; K and V staged one element
+//   per thread at a time, so the latency of those loads sets its pace
+//   (PERF.md).
 //   Any head dim up to 128, at compiled tile widths 16, 32, 64, 128.
 //
 // What bounds it on the card: the decoder self-attention (676 x 676, 8 x
@@ -71,28 +76,14 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr int kRows = 4;  // query rows per thread
-constexpr float kMaskedLogit = -1e30f;
-
-// (batch, head, row) strides of a (B, H, L, D) view, in elements; the
-// column stride is 1
-struct Strides {
-  long long b, h, s;
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -210,8 +201,9 @@ attention_bse_kernel(const scalar_t* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(s[i][j] - m_new);
-        rowsum += p;
-        Ps[(rg * kRows + i) * (kBlockK + 1) + cg + 8 * j] = p;
+        rowsum += p;  // f32 p: the row sum before rounding
+        Ps[(rg * kRows + i) * (kBlockK + 1) + cg + 8 * j] =
+            round_to<scalar_t>(p);
       }
       rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
       rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 2);
@@ -275,94 +267,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------- the
 // tensor-core body (bf16)
 
-constexpr int kTcThreads = 128;  // 4 warps x 16 query rows
-
-template <int DP>
-struct TcSmem {
-  static constexpr int kLd = DP + 8;  // padded row, in bf16
-  static constexpr int kTileElems = 64 * kLd;
-  // Q, K[2], V[2], then the key flags [2][64]
-  static constexpr size_t kBytes = 5 * kTileElems * 2 + 2 * 64;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special function unit (2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows r0 .. r0 + 63 of a head's (rows, D) view into a padded 64-row tile,
-// 16 bytes a copy, neighbouring threads on neighbouring chunks of a row;
-// rows past `rows` and columns past D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int r0,
-                                          int rows, int D) {
-  constexpr int kChunks = DP / 8;
-#pragma unroll
-  for (int i = 0; i < 64 * kChunks / kTcThreads; ++i) {
-    const int c = threadIdx.x + i * kTcThreads;
-    const int r = c / kChunks, ch = c % kChunks;
-    const bool in = r0 + r < rows && ch * 8 < D;
-    const __nv_bfloat16* src =
-        in ? base + (long long)(r0 + r) * row_stride + ch * 8 : base;
-    cp_async16(dst + (r * TcSmem<DP>::kLd + ch * 8) * 2, src, in);
-  }
-}
-
-// One block per (64 query rows, head, batch); warp w owns rows 16 w .. +15.
-// mma fragments: lane l holds rows l / 4 and l / 4 + 8 of its warp's 16,
-// columns 8 j + 2 (l % 4) and + 1 of each 8-column tile j.
+// The flash-attention forward of mma_sm90.cuh without dropout.
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads)
 attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -372,178 +277,8 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int S, int T, int D,
                     Strides qs, Strides ks, Strides vs, Strides os,
                     float scale_log2) {
-  using Sm = TcSmem<DP>;
-  constexpr int kLd = Sm::kLd;
-  constexpr int KS = DP / 16;  // k16 steps over the head dim
-  constexpr int ND = DP / 8;   // 8-column tiles over the head dim
-  constexpr uint32_t kTileBytes = Sm::kTileElems * 2;
-  extern __shared__ __align__(16) __nv_bfloat16 tc_smem[];
-  __nv_bfloat16* Qs = tc_smem;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(tc_smem + 5 * Sm::kTileElems);
-  const uint32_t q_addr = smem_u32(Qs);
-  const uint32_t k_addr = q_addr + kTileBytes;
-  const uint32_t v_addr = k_addr + 2 * kTileBytes;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const uint8_t* valid = kv_valid == nullptr ? nullptr : kv_valid + (long long)b * T;
-  // 0: past T (weight 0), 1: masked (logit -1e30), 2: valid
-  auto key_flag = [&](int key) -> uint8_t {
-    if (key >= T) return 0;
-    return (valid != nullptr && valid[key] == 0) ? 1 : 2;
-  };
-
-  load_tile<DP>(q_addr, qb, qs.s, q0, S, D);
-  load_tile<DP>(k_addr, kb, ks.s, 0, T, D);
-  load_tile<DP>(v_addr, vb, vs.s, 0, T, D);
-  cp_async_commit();
-  if (threadIdx.x < 64) flags[threadIdx.x] = key_flag(threadIdx.x);
-
-  uint32_t qf[KS][4];
-  float o[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  const int nt = (T + 63) / 64;
-  for (int it = 0; it < nt; ++it) {
-    const int buf = it & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile it landed; every warp is done with tile it - 1
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], q_addr + ((warp * 16 + (lane & 15)) * kLd +
-                                  (2 * kk + (lane >> 4)) * 8) * 2);
-    }
-    uint8_t next_flag = 0;
-    if (it + 1 < nt) {  // the next tile flies while this one computes
-      const int k1 = (it + 1) * 64;
-      load_tile<DP>(k_addr + (buf ^ 1) * kTileBytes, kb, ks.s, k1, T, D);
-      load_tile<DP>(v_addr + (buf ^ 1) * kTileBytes, vb, vs.s, k1, T, D);
-      cp_async_commit();
-      if (threadIdx.x < 64) next_flag = key_flag(k1 + threadIdx.x);
-    }
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    const uint32_t kt = k_addr + buf * kTileBytes;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t r[4];
-        ldsm_x4(r, kt + ((16 * p + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                         (2 * kk + ((lane >> 3) & 1)) * 8) * 2);
-        mma_bf16(sc[2 * p], qf[kk], r[0], r[1]);
-        mma_bf16(sc[2 * p + 1], qf[kk], r[2], r[3]);
-      }
-    }
-
-    // scale and mask (log2 units), then the online softmax; a tile of 64
-    // in-range keys with no mask skips the key flags
-    const uint8_t* fl = flags + buf * 64;
-    const bool plain_tile = valid == nullptr && it * 64 + 64 <= T;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[j][e] * scale_log2;
-        if (!plain_tile) {
-          const uint8_t f = fl[8 * j + 2 * (lane & 3) + (e & 1)];
-          x = f == 2 ? x : (f == 1 ? kMaskedLogit : -INFINITY);
-        }
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key k0 is always in range, so the new max is finite
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = fast_exp2(m_run[r] - m_new);  // 0 on the first tile
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(sc[j][e] - m_run[e >> 1]);
-        l_run[e >> 1] += p;  // f32 p: the row sum before rounding
-        sc[j][e] = p;
-      }
-    }
-
-    // O += P V: P rounded to bf16 as the A operand, 16 keys a step
-    const uint32_t vt = v_addr + buf * kTileBytes;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                             pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                             pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                             pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < KS; ++jj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, vt + ((16 * kk + (lane & 15)) * kLd +
-                               (2 * jj + (lane >> 4)) * 8) * 2);
-        mma_bf16(o[2 * jj], a, r[0], r[1]);
-        mma_bf16(o[2 * jj + 1], a, r[2], r[3]);
-      }
-    }
-    if (it + 1 < nt && threadIdx.x < 64)
-      flags[(buf ^ 1) * 64 + threadIdx.x] = next_flag;
-  }
-
-  // out = O / l, rounded once, staged in this warp's own rows of Q's tile
-  // (no other warp reads them), then stored 16 bytes a thread
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  __nv_bfloat16* st = Qs + warp * 16 * kLd;
-  const int g = lane >> 2, c2 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    *reinterpret_cast<uint32_t*>(&st[g * kLd + 8 * j + c2]) =
-        pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-    *reinterpret_cast<uint32_t*>(&st[(g + 8) * kLd + 8 * j + c2]) =
-        pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
-  }
-  __syncwarp();
-  __nv_bfloat16* ob = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int i = 0; i < 16 * ND / 32; ++i) {
-    const int c = lane + 32 * i;
-    const int r = c / ND, ch = c % ND;
-    const int row = q0 + warp * 16 + r;
-    if (row < S && ch * 8 < D)
-      *reinterpret_cast<uint4*>(ob + row * os.s + ch * 8) =
-          *reinterpret_cast<const uint4*>(&st[r * kLd + ch * 8]);
-  }
+  flash_fwd_body<DP, false>(q, k, v, kv_valid, out, S, T, D, qs, ks, vs, os,
+                            scale_log2, FlashDropout{});
 }
 
 template <int DP>
@@ -552,7 +287,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       int H, int D, Strides qs, Strides ks, Strides vs,
                       Strides os, float scale, cudaStream_t stream) {
   auto kern = attention_tc_kernel<DP>;
-  constexpr size_t smem = TcSmem<DP>::kBytes;
+  constexpr size_t smem = TcFlashSmem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -563,7 +298,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const uint8_t*>(kv_valid),
       static_cast<__nv_bfloat16*>(out), S, T, D, qs, ks, vs, os,
-      scale * 1.4426950408889634f);
+      scale * kLog2e);
   return cudaGetLastError();
 }
 

@@ -156,15 +156,15 @@ def load_library() -> ctypes.CDLL:
                 u, u, u, p,             # keep threshold, seed words, stream
             ]
             lib.cris_attention_dropout_fwd.argtypes = [
-                p, p, p, p, p, p,       # q, k, v, kv_valid, out, lse
-                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, bits
+                i, i, i, i, i, i, i,    # B, S, T, H, D, dtype, body
                 *dropout_tail,
             ]
             lib.cris_attention_dropout_fwd.restype = i
             lib.cris_attention_dropout_bwd.argtypes = [
-                p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, dout
-                p, p, p, p,             # delta (scratch), dq, dk, dv
-                i, i, i, i, i, i,       # B, S, T, H, D, dtype
+                p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, bits
+                p, p, p, p, p,          # dout, delta (scratch), dq, dk, dv
+                i, i, i, i, i, i, i,    # B, S, T, H, D, dtype, body
                 *dropout_tail,
             ]
             lib.cris_attention_dropout_bwd.restype = i

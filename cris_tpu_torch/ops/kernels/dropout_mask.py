@@ -18,7 +18,9 @@ head ``h`` in batch row ``b``:
 
 so four neighbouring key columns share one Philox call. The CUDA kernel
 (``cris_tpu_torch/csrc/attention_bse_dropout.cu``) computes the same bits
-with the same definition; the two must agree bit for bit. Here uint32
+with the same definition; the two must agree bit for bit. Its tensor-core
+forward also stores the mask packed to bits for its backward
+(``keep_bits_packed`` is that tensor's plain version). Here uint32
 arithmetic is carried in int64 tensors, with the 32 x 32 -> 64-bit
 products split into 16-bit halves so that nothing overflows.
 """
@@ -91,3 +93,22 @@ def keep_mask(seed: int, batch: int, heads: int, rows: int, cols: int,
     """(batch, heads, rows, cols) bool: True = the weight is kept."""
     threshold = keep_threshold(rate)
     return keep_bits(seed, batch, heads, rows, cols, device) >= threshold
+
+
+def mask_words(cols: int) -> int:
+    """32-bit words per row of the packed keep mask."""
+    return (cols + 31) // 32
+
+
+def keep_bits_packed(seed: int, batch: int, heads: int, rows: int, cols: int,
+                     rate: float, device=None) -> torch.Tensor:
+    """The keep mask packed to bits, as the tensor-core kernels write it:
+    (batch, heads, rows, mask_words(cols)) int32 holding the uint32 words,
+    bit ``j % 32`` of word ``j // 32`` set iff key column j is kept; the
+    bits past ``cols`` are 0."""
+    keep = keep_mask(seed, batch, heads, rows, cols, rate, device)
+    nw = mask_words(cols)
+    keep = torch.nn.functional.pad(keep, (0, 32 * nw - cols))
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=keep.device)
+    words = (keep.reshape(batch, heads, rows, nw, 32).long() * weights).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

@@ -26,9 +26,11 @@ from .profile_serving import NVSMI, profile
 from .utils import cris_r50_refcoco
 
 BATCH = 32
-# name fragments of the port's kernels in a profile
-OWN_KERNELS = {"K1": "attention_bse_kernel", "K2 forward": "dropout_fwd_kernel",
-               "K2 backward": "dropout_bwd_"}
+# name fragments of the port's kernels in a profile: K1's two bodies, and
+# K2's scalar and tensor-core kernels
+OWN_KERNELS = {"K1": ("attention_tc_kernel", "attention_bse_kernel"),
+               "K2 forward": ("dropout_fwd_kernel", "dropout_tc_fwd_kernel"),
+               "K2 backward": ("dropout_bwd_", "dropout_tc_bwd_")}
 
 
 def make_batches(n, b, size, word_len, device, seed=0):
@@ -50,8 +52,9 @@ def make_batches(n, b, size, word_len, device, seed=0):
 def own_shares(kernels, device_ms):
     """{kernel: (device ms, share of device_ms)} over profile rows."""
     out = {}
-    for label, fragment in OWN_KERNELS.items():
-        ms = sum(r["device_ms"] for r in kernels if fragment in r["name"])
+    for label, fragments in OWN_KERNELS.items():
+        ms = sum(r["device_ms"] for r in kernels
+                 if any(f in r["name"] for f in fragments))
         out[label] = (ms, ms / device_ms if device_ms else 0.0)
     return out
 

@@ -12,17 +12,19 @@ on K5 and K7 on that folded model. The HTTP front comes later.
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .checkpoint import fold_batchnorm
+from .checkpoint import BEST_NAME, fold_batchnorm, load_cris_checkpoint
 from .data.transforms import (get_transform_mats, inverse_warp_prediction,
                               normalize_image, warp_image)
 from .engine import EVAL_THRESHOLD, Evaluator
 from .models import build_segmenter, resolve_dtype
+from .utils.logging import logger
 from .utils.tokenizer import tokenize
 
 
@@ -38,7 +40,12 @@ class PredictService:
     """Single-model predictor with bucketed batch shapes.
 
     ``state_dict``: unfolded weights under the port's names (e.g. from
-    ``checkpoint.from_jax``); None serves the random init of seed 0. With
+    ``checkpoint.from_jax``). Without it, the weights come from
+    ``best_model.pth`` under ``model_dir`` (default
+    ``cfg.output_folder/cfg.exp_name``, as ``cris_tpu.serving``), a
+    trained CRIS checkpoint read by ``checkpoint.load_cris_checkpoint``;
+    when there is none, a warning says so and the random init of seed 0
+    is served. (The JAX package's orbax directories are JAX-only.) With
     ``fold_bn`` (the default, as ``cris_tpu.serving``) they are folded
     once (``checkpoint.fold_batchnorm`` with the input resolution) and
     served by the folded model with ``pos_grid = input_size // 32``; the
@@ -46,7 +53,8 @@ class PredictService:
     need it and stay off by default. The forward runs under bf16 autocast
     when ``cfg.precision`` is bf16."""
 
-    def __init__(self, cfg, device="cuda", max_batch: int = 16,
+    def __init__(self, cfg, model_dir: Optional[str] = None,
+                 device="cuda", max_batch: int = 16,
                  fold_bn: bool = True, state_dict=None,
                  fused_bottleneck: bool = False, fused_stem: bool = False):
         self.cfg = cfg
@@ -56,7 +64,16 @@ class PredictService:
         self.max_batch = int(max_batch)
         self._lock = threading.Lock()  # one device batch at a time
         if state_dict is None:
-            state_dict = build_segmenter(cfg, device="cpu", seed=0).state_dict()
+            model_dir = model_dir or os.path.join(cfg.output_folder,
+                                                  cfg.exp_name)
+            path = os.path.join(model_dir, BEST_NAME)
+            if os.path.isfile(path):
+                state_dict = load_cris_checkpoint(path)
+            else:
+                logger.warning(f"no checkpoint under '{model_dir}' -- "
+                               "serving random weights")
+                state_dict = build_segmenter(cfg, device="cpu",
+                                             seed=0).state_dict()
         pos_grid = None
         if fold_bn:
             pos_grid = self.input_size // 32

@@ -1,9 +1,12 @@
 """The port's attention on the train path, on the CPU, against the JAX
 package: K1's plain backward against ``jax.vjp`` of the JAX kernel
-(interpret mode), the Philox keep mask, and K2's plain version against
-the JAX XLA dropout path fed the same mask. f32 at rtol = atol = 1e-5.
-The CUDA kernels are held against these plain versions on the card by
-chip_smoke.py (phases 5 and 6)."""
+(interpret mode), the Philox keep mask and its packed form, and K2's
+plain forward and backward against the JAX XLA dropout path fed the same
+mask. f32 at rtol = atol = 1e-5. The Pallas dropout kernel itself cannot
+run here (interpret mode has no TPU PRNG; test_pallas.py skips it), so
+K2's plain backward is held to the JAX backward kernel's rounding points
+directly. The CUDA kernels are held against these plain versions on the
+card by chip_smoke.py (phases 5 and 6)."""
 
 import math
 
@@ -19,8 +22,10 @@ from cris_tpu.ops.pallas.attention import fused_attention_bse as jax_fused
 
 from cris_tpu_torch.ops import attention as port_ops
 from cris_tpu_torch.ops.kernels import (attention_bse_backward_plain,
+                                        attention_dropout_backward_plain,
                                         attention_dropout_plain, attention_plain,
-                                        fused_attention_bse_dropout, keep_mask)
+                                        fused_attention_bse_dropout,
+                                        keep_bits_packed, keep_mask)
 from cris_tpu_torch.ops.kernels import dropout_mask
 # the module-scoped autouse fixture that runs torch on one thread
 from test_torch_train import _one_torch_thread  # noqa: F401
@@ -153,6 +158,139 @@ def test_dropout_plain_matches_jax_xla_path(monkeypatch, padded):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
     for x, r in zip((qt, kt, vt), ref_grads):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(r), **TOL)
+
+
+def _jax_dropout_grads(monkeypatch, q, k, v, g, valid, h, rate, mask,
+                       padded):
+    """(dq, dk, dv) of cris_tpu's XLA dropout path by jax.vjp on the JAX
+    arrays q, k, v, g, with jax.random.bernoulli returning ``mask``."""
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p, shape: jnp.asarray(mask))
+    kpm = jnp.asarray(~valid) if padded else None
+
+    def jax_fn(q, k, v):
+        return jax_attention(q, k, v, h, key_padding_mask=kpm,
+                             dropout_rate=rate,
+                             dropout_rng=jax.random.PRNGKey(0),
+                             deterministic=False)
+
+    return jax.vjp(jax_fn, q, k, v)[1](g)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["no_mask", "key_mask"])
+def test_dropout_backward_plain_matches_jax_vjp(monkeypatch, padded):
+    """K2's plain backward (the JAX backward kernel's rounding points) in
+    f32, where every rounding is the identity, against jax.vjp of the XLA
+    dropout path fed the port's mask, at rate 0.25."""
+    b, h, s, t, d, rate, seed = 2, 4, 24, 19, 16, 0.25, 31
+    q, k, v, g, valid = _inputs(b, h, s, t, d, padded, seed=6)
+    mask = keep_mask(seed, b, h, s, t, rate).numpy()
+    ref = _jax_dropout_grads(monkeypatch, *(jnp.asarray(x) for x in (q, k, v, g)),
+                             valid, h, rate, mask, padded)
+    got = attention_dropout_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), h,
+        torch.from_numpy(valid) if padded else None, rate, seed,
+        torch.from_numpy(g))
+    for name, x, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(x.numpy(), np.asarray(r), err_msg=name, **TOL)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["no_mask", "key_mask"])
+def test_dropout_backward_plain_bf16_matches_jax_vjp(monkeypatch, padded):
+    """The same in bf16: q, k, v and g rounded to bf16 and fed to both.
+    The JAX XLA path's autodiff rounds dW to bf16 where the cast of the
+    weights to v's dtype sits, the JAX kernel (and so the plain backward)
+    does not, so the two agree to bf16 rounding: the phase-2 bf16 bars in
+    units of the reference's RMS, rtol = atol = 2e-2 and a mean |err| below
+    2e-3."""
+    b, h, s, t, d, rate, seed = 2, 4, 24, 19, 16, 0.25, 32
+    q, k, v, g, valid = _inputs(b, h, s, t, d, padded, seed=7)
+    q, k, v, g = (_bf16(x) for x in (q, k, v, g))
+    mask = keep_mask(seed, b, h, s, t, rate).numpy()
+    ref = _jax_dropout_grads(
+        monkeypatch, *(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v, g)), valid, h, rate, mask, padded)
+    got = attention_dropout_backward_plain(
+        q, k, v, h, torch.from_numpy(valid) if padded else None, rate, seed, g)
+    for name, x, r in zip("qkv", got, ref):
+        assert x.dtype == torch.bfloat16, name
+        r = np.asarray(r.astype(jnp.float32))
+        x = x.float().numpy()
+        scale = max(1.0, float(np.sqrt(np.mean(r ** 2))))
+        np.testing.assert_allclose(x, r, rtol=2e-2, atol=2e-2 * scale,
+                                   err_msg=name)
+        assert np.abs(x - r).mean() < 2e-3 * scale, name
+
+
+def test_dropout_backward_plain_rounds_where_jax_rounds():
+    """On bf16 inputs the plain backward differs from the f32 computation
+    exactly by rounding wd, g and dS to bf16 (attention_train.py:112-133):
+    a reference written out here that rounds those three tensors by hand
+    gives its bits, and without the rounding the result moves. In f32 it
+    is autograd through attention_dropout_plain."""
+    b, h, s, t, d, rate, seed = 2, 4, 20, 17, 16, 0.3, 8
+    q, k, v, g, valid = _inputs(b, h, s, t, d, True, seed=8)
+    qb, kb, vb, gb = (_bf16(x) for x in (q, k, v, g))
+    vt = torch.from_numpy(valid)
+    got = attention_dropout_backward_plain(qb, kb, vb, h, vt, rate, seed, gb)
+
+    def by_hand(round_them):
+        rnd = ((lambda x: x.to(torch.bfloat16).float()) if round_them
+               else (lambda x: x))
+        qh, kh, vh, gh = (x.float().reshape(b, -1, h, d).transpose(1, 2)
+                          for x in (qb, kb, vb, gb))
+        logits = qh @ kh.transpose(-1, -2) * d ** -0.5
+        logits = logits.masked_fill(~vt[:, None, None, :], -1e30)
+        w = torch.softmax(logits, -1)
+        keep = keep_mask(seed, b, h, s, t, rate)
+        wd = rnd(torch.where(keep, w, 0.0) / (1 - rate))
+        gr = rnd(gh)
+        dv = wd.transpose(-1, -2) @ gr
+        dw = torch.where(keep, gr @ vh.transpose(-1, -2), 0.0) / (1 - rate)
+        ds = rnd(w * (dw - (dw * w).sum(-1, keepdim=True)))
+        dq = ds @ kh * d ** -0.5
+        dk = ds.transpose(-1, -2) @ qh * d ** -0.5
+        return [x.transpose(1, 2).reshape(b, -1, h * d).to(torch.bfloat16)
+                for x in (dq, dk, dv)]
+
+    for name, x, r in zip("qkv", got, by_hand(True)):
+        torch.testing.assert_close(x, r, rtol=0, atol=0, msg=name)
+    assert any(not torch.equal(x, r) for x, r in zip(got, by_hand(False)))
+
+    qt, kt, vt32 = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    attention_dropout_plain(qt, kt, vt32, h, vt, rate, seed).backward(
+        torch.from_numpy(g))
+    got32 = attention_dropout_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), h, vt, rate, seed,
+        torch.from_numpy(g))
+    for x, r in zip(got32, (qt.grad, kt.grad, vt32.grad)):
+        np.testing.assert_allclose(x.numpy(), r.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("t", [17, 32, 37, 100])
+def test_packed_keep_bits_match_keep_mask(t):
+    """keep_bits_packed, the plain version of the tensor-core forward's
+    bitmask: bit j % 32 of word j // 32 is keep_mask's column j, bit for
+    bit, and the bits past T are 0."""
+    b, h, s, seed = 2, 3, 5, (5 << 32) | 77
+
+    def unpacked(rate):
+        words = keep_bits_packed(seed, b, h, s, t, rate)
+        assert words.dtype == torch.int32
+        assert words.shape == (b, h, s, (t + 31) // 32)
+        bits = (words.long()[..., None] >> torch.arange(32)) & 1
+        return bits.reshape(b, h, s, -1).bool()
+
+    bits = unpacked(0.3)
+    np.testing.assert_array_equal(bits[..., :t].numpy(),
+                                  keep_mask(seed, b, h, s, t, 0.3).numpy())
+    assert not bits[..., t:].any()
+    everything = unpacked(0.0)  # rate 0 keeps every weight
+    assert everything[..., :t].all() and not everything[..., t:].any()
 
 
 def test_dropout_rate0_equals_k1_plain():

@@ -1,10 +1,11 @@
 """The route functions that pick a CUDA kernel before each launch, on the
 CPU: ``fused_matmul_route`` (K4: the TMA-fed wgmma GEMM or the staged
-block_gemm tile) and ``attention_route`` (K1 and K3: the tensor-core body
-or the scalar one). Both read only dtypes, shapes, strides and data
-pointers, so CPU tensors stand in for the card's; the kernels themselves
-run on the card in chip_smoke.py phases 2 and 11, which assert the same
-routes there."""
+block_gemm tile), ``attention_route`` (K1 and K3: the tensor-core body
+or the scalar one) and ``attention_dropout_route`` (K2: the tensor-core
+kernels or the scalar ones). All read only dtypes, shapes, strides and
+data pointers, so CPU tensors stand in for the card's; the kernels
+themselves run on the card in chip_smoke.py phases 2, 6, 8 and 11, which
+assert the same routes there."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,11 @@ import torch
 
 from cris_tpu_torch.models import CLIPConfig, CRIS, init_weights
 from cris_tpu_torch.ops import attention as port_ops
-from cris_tpu_torch.ops.kernels import fused_attention_bse, fused_matmul
+from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
+                                        attention_dropout_route,
+                                        fused_attention_bse,
+                                        fused_attention_bse_dropout,
+                                        fused_matmul)
 from cris_tpu_torch.ops.kernels.attention import attention_route, split_heads
 from cris_tpu_torch.ops.kernels.fused_matmul import fused_matmul_route
 
@@ -156,3 +161,83 @@ def test_tiny_cris_attention_sites_take_tensor_cores(monkeypatch):
         assert attention_route(*cast, q.shape[-1] // heads) == "tensor_cores"
     assert fused_attention_bse.launches_by_route == dict.fromkeys(
         fused_attention_bse.launches_by_route, 0)
+
+
+# ------------------------------------------------------------------ K2
+
+# (site, B, S, T, E, heads): the decoder's self- and cross-attention at
+# the train path's B 32 (R50: 8 heads x 64), and cris_tiny's decoder (64
+# wide, 4 heads: head dim 16)
+K2_SITES = [
+    ("decoder self-attn", 32, 676, 676, 512, 8),
+    ("decoder cross-attn", 32, 676, 17, 512, 8),
+    ("cris_tiny decoder", 2, 16, 17, 64, 4),
+]
+
+
+@pytest.mark.parametrize("site,b,s,t,e,h", K2_SITES,
+                         ids=[x[0] for x in K2_SITES])
+def test_k2_bf16_sites_take_tensor_cores(site, b, s, t, e, h):
+    """(B, L, E) projections in bf16, as autocast hands them to K2."""
+    q, kv = _mat(b, s, e), _mat(b, t, e)
+    assert attention_dropout_route(q, kv, kv, h) == "tensor_cores"
+
+
+@pytest.mark.parametrize("case", ["float32", "unaligned row stride",
+                                  "head dim 12"])
+def test_k2_scalar_route(case):
+    """f32, rows 8 bytes off a multiple of 16 (a slice of wider rows) and
+    a 12-wide head keep the scalar kernels."""
+    h, e = 8, 512
+    q = _mat(2, 30, e)
+    if case == "float32":
+        q = q.float()
+    elif case == "unaligned row stride":
+        q = _mat(2, 30, e + 4)[..., :e]
+        assert q.stride(1) * 2 % 16 == 8
+    else:
+        h, q = 4, _mat(2, 30, 48)
+    assert attention_dropout_route(q, q, q, h) == "scalar"
+
+
+def test_k2_route_reads_no_values():
+    """Two tensors of one layout and different values take one route; a
+    CPU call takes the plain version and launches nothing on either
+    route, forward or backward."""
+    q = torch.randn(2, 30, 64).to(BF16)
+    assert attention_dropout_route(q, q, q, 4) == attention_dropout_route(
+        q * 0, q * 0, q * 0, 4)
+    before = (dict(fused_attention_bse_dropout.launches_by_route),
+              dict(attention_dropout_backward.launches_by_route))
+    qg = q.float().requires_grad_()
+    fused_attention_bse_dropout(qg, qg, qg, 4, None, 0.1, 3).sum().backward()
+    assert (fused_attention_bse_dropout.launches_by_route,
+            attention_dropout_backward.launches_by_route) == before
+
+
+def test_tiny_cris_train_sites_take_tensor_cores(monkeypatch):
+    """Every K2 call of a tiny CRIS train forward (the decoder's self- and
+    cross-attention of each layer) is admitted by the tensor-core kernels
+    once its inputs are cast to bf16 as autocast casts the projections."""
+    calls = []
+    kernel = port_ops.fused_attention_bse_dropout
+
+    def spy(q, k, v, num_heads, kv_valid, rate, seed):
+        calls.append((q, k, v, num_heads))
+        return kernel(q, k, v, num_heads, kv_valid, rate, seed)
+
+    monkeypatch.setattr(port_ops, "fused_attention_bse_dropout", spy)
+    ccfg = CLIPConfig(64, 64, (1, 1, 1, 1), 16, None, 77, 49408, 64, 4, 2)
+    model = init_weights(CRIS(ccfg, fpn_in=(128, 256, 64),
+                              fpn_out=(32, 64, 128), vis_dim=64, num_layers=2,
+                              num_head=4, dim_ffn=128, dropout=0.1), 0).train()
+    rng = np.random.RandomState(1)
+    img = torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32))
+    word = torch.from_numpy(rng.randint(1, 49407, (2, 17)))
+    word[1, 9:] = 0
+    with torch.no_grad():
+        model(img, word, dropout_seed=3)
+    assert len(calls) == 4  # 2 decoder layers x (self, cross)
+    for q, k, v, heads in calls:
+        cast = [x.to(BF16) for x in (q, k, v)]
+        assert attention_dropout_route(*cast, heads) == "tensor_cores"

@@ -126,6 +126,94 @@ def test_predict_service_matches_jax_chain():
             assert (r["mask"] == ref).mean() >= 0.999
 
 
+def _tiny_cfg():
+    cfg = load_cfg_from_cfg_file(
+        os.path.join(REPO, "config", "synthetic", "cris_tiny.yaml"))
+    cfg.precision = "fp32"
+    return cfg
+
+
+def test_predict_service_loads_best_model_pth(tmp_path):
+    """PredictService(model_dir=...) reads best_model.pth, a trained CRIS
+    checkpoint as CRIS.pytorch's train.py saves it under data parallel
+    ({"state_dict": {"module." + key: tensor}}), and serves the same
+    probabilities as the same weights given by state_dict=; the JAX
+    package's load_cris_checkpoint reads the same file to the same
+    weights (through from_jax)."""
+    import torch
+
+    from cris_tpu.checkpoint.torch_convert import \
+        load_cris_checkpoint as jax_load
+    from cris_tpu_torch.checkpoint import load_cris_checkpoint
+
+    from cris_tpu_torch.models import build_segmenter
+
+    cfg = _tiny_cfg()
+    sd = build_segmenter(cfg, device="cpu", seed=3).state_dict()
+    path = tmp_path / "best_model.pth"
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()},
+                "epoch": 7}, path)
+    loaded = load_cris_checkpoint(str(path))
+    assert sorted(loaded) == sorted(sd)
+    for key, value in sd.items():
+        assert torch.equal(loaded[key], value), key
+    jax_variables, _ = jax_load(str(path), cfg.num_layers)
+    back = from_jax(jax_variables)
+    assert set(back) == set(sd)
+    for key, value in back.items():
+        np.testing.assert_array_equal(np.asarray(value), sd[key].numpy(),
+                                      err_msg=key)
+
+    served = PredictService(cfg, model_dir=str(tmp_path), device="cpu",
+                            max_batch=2)
+    given = PredictService(cfg, device="cpu", max_batch=2, state_dict=sd)
+    rng = np.random.RandomState(4)
+    img = rng.randn(2, 3, 64, 64).astype(np.float32)
+    word = rng.randint(1, 400, (2, 17))
+    np.testing.assert_array_equal(served.evaluator.predict_probs(img, word),
+                                  given.evaluator.predict_probs(img, word))
+
+
+@pytest.mark.parametrize("prefix", ["", "module."])
+def test_load_cris_checkpoint_takes_a_bare_state_dict(tmp_path, prefix):
+    """A file holding the state_dict itself (no "state_dict" key), with or
+    without the data-parallel prefix, loads to the unprefixed keys."""
+    import torch
+
+    from cris_tpu_torch.checkpoint import load_cris_checkpoint
+
+    sd = {"neck.txt_proj.0.weight": torch.arange(6.0).reshape(2, 3),
+          "decoder.norm.bias": torch.ones(4)}
+    torch.save({prefix + k: v for k, v in sd.items()}, tmp_path / "m.pth")
+    loaded = load_cris_checkpoint(str(tmp_path / "m.pth"))
+    assert sorted(loaded) == sorted(sd)
+    assert all(torch.equal(loaded[k], v) for k, v in sd.items())
+
+
+def test_predict_service_warns_without_a_checkpoint(tmp_path, caplog):
+    """An empty model_dir serves the seed-0 random init and says so, as
+    cris_tpu.serving does."""
+    import logging
+
+    from cris_tpu_torch.checkpoint import fold_batchnorm
+    from cris_tpu_torch.models import build_segmenter
+
+    cfg = _tiny_cfg()
+    with caplog.at_level(logging.WARNING, logger="cris_tpu_torch"):
+        served = PredictService(cfg, model_dir=str(tmp_path), device="cpu",
+                                max_batch=1)
+    assert f"no checkpoint under '{tmp_path}' -- serving random weights" \
+        in caplog.text
+    want = fold_batchnorm(build_segmenter(cfg, device="cpu", seed=0)
+                          .state_dict(), cfg.input_size)
+    got = served.model.state_dict()
+    assert sorted(got) == sorted(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(value, np.float32),
+                                      err_msg=key)
+
+
 def test_profile_stage_breakdown_times_every_stage():
     """The serving profiler times each stage of real predict calls and
     puts the service's functions back afterwards."""

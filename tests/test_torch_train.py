@@ -498,10 +498,15 @@ def test_profile_train_helpers():
             {"name": "void ns::dropout_bwd_dq_kernel<float, 64>", "device_ms": 3.0},
             {"name": "void ns::dropout_bwd_delta_kernel<float>", "device_ms": 1.0},
             {"name": "void ns::attention_bse_kernel<float, 64>", "device_ms": 4.0},
+            {"name": "void ns::attention_tc_kernel<64>", "device_ms": 1.0},
+            {"name": "void ns::dropout_tc_fwd_kernel<64>", "device_ms": 2.0},
+            {"name": "void ns::dropout_tc_bwd_dq_kernel<64>", "device_ms": 1.0},
+            {"name": "void ns::dropout_tc_bwd_dkdv_kernel<64>",
+             "device_ms": 3.0},
             {"name": "cutlass gemm", "device_ms": 10.0}]
-    shares = own_shares(rows, 20.0)
-    assert shares == {"K1": (4.0, 0.2), "K2 forward": (2.0, 0.1),
-                      "K2 backward": (4.0, 0.2)}
+    shares = own_shares(rows, 40.0)
+    assert shares == {"K1": (5.0, 0.125), "K2 forward": (4.0, 0.1),
+                      "K2 backward": (8.0, 0.2)}
 
 
 def test_grad_spread_bars_and_step():
