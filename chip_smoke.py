@@ -64,17 +64,24 @@ Phases (any failure raises, and the script exits non-zero):
    units of the reference's RMS: K5 at each R50 tail shape (104^2 x
    256/64, 52^2 x 512/128, 26^2 x 1024/256, 13^2 x 2048/512) on the whole
    image, so the bands at both image edges and a short last band (13 and
-   26 rows) are covered, once more on a contiguous NHWC input; K7 on
-   416^2 images and on a 100 x 76 one (partial tiles). CUDA-event times of
-   kernel, plain version, and the cuDNN chain that the folded model runs
-   with the switch off (library_ms);
+   26 rows) are covered, once more on a contiguous NHWC input (the same
+   bits); each K5 call on the route bottleneck_route gives and counted
+   on it (bf16: the tensor-core body, with its plan of tiles and band;
+   f32: the staged body); K7 on 416^2 images and on a 100 x 76 one
+   (partial tiles). The card's L2 rate on a copy that stays in L2, and
+   the tensor-core body's L2 weight traffic at its plan over that rate.
+   CUDA-event times of kernel, plain version, and the cuDNN chain that
+   the folded model runs with the switch off (library_ms), K5's kernel
+   and cuDNN chain also on the device alone, and the sum of a b16 bf16
+   forward's 12 K5 launches;
 10. the BN-folded serving path, with BN statistics and affines made
    non-trivial from a seed: (a) the R50 f32 folded forward with K5 and K7
    on the card against the unfolded eval forward on the CPU (relative L2
    <= 1e-4), 12 K5 and 1 K7 launches; (b) three requests through
    PredictService(fold_bn, fused_bottleneck, fused_stem) in bf16, with 12
-   K5, 1 K7 and 7 K1 launches per device batch; (c) the b16 bf16 forward
-   on CUDA events, unfolded / folded / folded + K5 + K7.
+   K5 (every one on the tensor-core body), 1 K7 and 7 K1 launches per
+   device batch; (c) the b16 bf16 forward on CUDA events, unfolded /
+   folded / folded + K5 / folded + K5 + K7, in turns.
 11. the JAX package's public kernel API, K3 (fused_attention on (B, H, S,
    D)), K4 (fused_matmul, conv1x1_fused) and K6 (layer_norm forward and
    backward), at B 16, f32 (TF32 off) and bf16, against their plain
@@ -99,11 +106,10 @@ Phases (any failure raises, and the script exits non-zero):
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
-Philox work, 40 integer multiplies a call over 16.7 Tops/s; K1, K2, K3,
-K4 and K6 timed
-on the device alone, with their back-to-back times beside; K1, K2, K3
-and K4 with their launches per route), the card's name and power limit,
-and {"ok": true, "device": {...}}.
+Philox work, 40 integer multiplies a call over 16.7 Tops/s; K5 with its
+L2 weight-traffic term beside; K1-K6 timed on the device alone, with
+their back-to-back times beside; K1-K5 with their launches per route),
+the card's name and power limit, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
     python3 chip_smoke.py --phases 2,11   # the routes of K1, K3 and K4
@@ -418,10 +424,11 @@ def phase_serving(cfg, PredictService, counters, **service_args):
         print(f"{name} launches on the serving path {switches}: "
               f"{launches[name]} ({len(batches)} device batches x "
               f"{per_batch}){by_route}", flush=True)
-    # bf16 autocast: every K1 site of the model takes the tensor cores
+    # bf16 autocast: every K1 and K5 site of the model takes the tensor
+    # cores
     for name, by_route in routes.items():
-        assert by_route == {"tensor_cores": launches[name], "scalar": 0}, \
-            (name, by_route)
+        assert by_route["tensor_cores"] == launches[name], (name, by_route)
+        assert sum(by_route.values()) == launches[name], (name, by_route)
     return launches, latencies, routes
 
 
@@ -887,11 +894,37 @@ def _timed_rows(fused, plain, library, args):
                 library_ms=(l1 + l2) / 2)
 
 
-def phase_k5(fused, plain):
+def l2_bytes_per_s() -> float:
+    """The card's L2 rate on a plain copy that stays in L2: 8 MiB to 8 MiB
+    (16 MiB of the 50 MB L2), on the device alone; bytes read + written
+    per second."""
+    src = torch.ones(2 ** 22, dtype=torch.float16, device="cuda")
+    dst = torch.empty_like(src)
+    ms = device_ms(lambda: dst.copy_(src), 50)
+    return 2 * src.numel() * src.element_size() / (ms * 1e-3)
+
+
+def _k5_l2_weight_ms(plan, b, h, c, mid, l2_rate) -> float:
+    """The tensor-core body's L2 weight traffic at its plan, over the
+    measured L2 rate: every block reads each weight once per M tile."""
+    blocks = b * -(-h // plan["R"])
+    per_block = 2 * (-(-plan["M1"] // plan["BM1"]) * c * mid + plan["M2"]
+                     // plan["BM23"] * (9 * mid * mid + mid * c))
+    return blocks * per_block / l2_rate * 1e3
+
+
+def phase_k5(fused, plain, route_of, plan_of):
     """K5 at every R50 tail shape, B 16, f32 and bf16, against its plain
-    version; x is an NHWC view of NCHW memory, as the model hands it."""
+    version; x is an NHWC view of NCHW memory, as the model hands it. Each
+    call's route is bottleneck_route's and counted on it: bf16 on the
+    tensor cores, f32 on the staged body. Times back to back and on the
+    device alone, beside the bound and, for the tensor-core body, its
+    plan's L2 weight traffic over the card's measured L2 rate."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(9)
+    l2_rate = l2_bytes_per_s()
+    print(f"L2 copy (8 MiB -> 8 MiB, device alone): {l2_rate / 1e12:.3f} "
+          f"TB/s read + written, on {card_line()}", flush=True)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -903,9 +936,12 @@ def phase_k5(fused, plain):
                     (randn(9, mid, mid) * (9 * mid) ** -0.5).to(dtype),
                     randn(mid) * 0.1, (randn(mid, c) * mid ** -0.5).to(dtype),
                     randn(c) * 0.1)
+            route = route_of(x, args[1], args[3], args[5])
+            want = "tensor_cores" if dtype == torch.bfloat16 else "staged"
+            assert route == want, (site, dtype, route)
             before = fused.launches
-            got = fused(*args)
-            assert fused.launches == before + 1
+            got, taken = route_taken(fused, lambda: fused(*args))
+            assert fused.launches == before + 1 and taken == route, taken
             ref = plain(*args)
             library = _cudnn_bottleneck(*args)
             torch.cuda.synchronize()
@@ -916,25 +952,43 @@ def phase_k5(fused, plain):
                 _check(library().permute(0, 2, 3, 1), ref, dtype,
                        what + ": the cuDNN chain")
             # strides only address: a contiguous NHWC input, the same bits
-            assert torch.equal(fused(x.contiguous(), *args[1:]), got), what
+            xc = x.contiguous()
+            same, taken = route_taken(fused, lambda: fused(xc, *args[1:]))
+            assert taken == route and torch.equal(same, got), what
             times = _timed_rows(fused, plain, library, args)
+            times["device_ms"] = device_ms(lambda: fused(*args))
+            times["library_device_ms"] = device_ms(library)
             es = x.element_size()
             nbytes = (2 * x.numel() + 2 * c * mid + 9 * mid * mid) * es \
                 + 4 * (2 * mid + c)
             flops = 2.0 * B * h * w * (2 * c * mid + 9 * mid * mid)
             b_ms, b_by = bound(nbytes, flops, dtype)
             row = dict(site=site, B=B, H=h, W=w, C=c, mid=mid,
-                       launches_per_forward=per_forward,
+                       launches_per_forward=per_forward, route=route,
                        dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
                        gflop=flops / 1e9, mbytes=nbytes / 1e6, **times)
+            plan = ""
+            if route == "tensor_cores":
+                row["plan"] = plan_of(x, mid)
+                row["l2_weight_ms"] = _k5_l2_weight_ms(row["plan"], B, h, c,
+                                                       mid, l2_rate)
+                pl = row["plan"]
+                plan = (f"; plan BM {pl['BM1']}/{pl['BM23']} R {pl['R']}, "
+                        f"L2 weight traffic {row['l2_weight_ms']:.4f} ms")
             rows.append(row)
-            print(f"K5 {site} {h}x{w}x{c}/{mid} {row['dtype']:8s} max|err| "
-                  f"{err:.3e}; kernel {row['ms']:.4f} ms plain "
-                  f"{row['plain_ms']:.4f} ms cuDNN chain "
-                  f"{row['library_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-                  f"{row['gflop']:.1f} GFLOP, {row['mbytes']:.1f} MB)",
+            print(f"K5 {site} {h}x{w}x{c}/{mid} {row['dtype']:8s} {route} "
+                  f"max|err| {err:.3e}; kernel {row['device_ms']:.4f} ms "
+                  f"device alone ({row['ms']:.4f} back to back), plain "
+                  f"{row['plain_ms']:.4f} ms, cuDNN chain "
+                  f"{row['library_device_ms']:.4f} ms device alone "
+                  f"({row['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}, "
+                  f"{row['gflop']:.1f} GFLOP, {row['mbytes']:.1f} MB){plan}",
                   flush=True)
+    k5_sum = sum(r["device_ms"] * r["launches_per_forward"] for r in rows
+                 if r["dtype"] == "bfloat16")
+    print(f"K5: one b16 bf16 forward's 12 launches {k5_sum:.4f} ms on the "
+          f"device alone, on {card_line()}", flush=True)
     return rows
 
 
@@ -1068,13 +1122,14 @@ def phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5, k7, tokenize):
 
 
 def phase_ab(cfg, build_segmenter, fold_batchnorm, sd):
-    """10(c): the b16 bf16 forward, unfolded / folded / folded + K5 + K7,
-    on CUDA events in turns (u, f, k, k, f, u)."""
+    """10(c): the b16 bf16 forward, unfolded / folded / folded + K5 /
+    folded + K5 + K7, on CUDA events in turns (u, f, 5, k, k, 5, f, u)."""
     unfolded = build_segmenter(cfg, device="meta")
     unfolded.load_state_dict(sd, assign=True)
     unfolded.cuda()
     folded_sd = fold_batchnorm(sd, cfg.input_size)
     folded = _folded(cfg, build_segmenter, folded_sd)
+    k5_only = _folded(cfg, build_segmenter, folded_sd, fused_bottleneck=True)
     kernels = _folded(cfg, build_segmenter, folded_sd, fused_bottleneck=True,
                       fused_stem=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1090,19 +1145,24 @@ def phase_ab(cfg, build_segmenter, fold_batchnorm, sd):
                 return model(img, word)
         return run
 
-    outs = [forward(m)().float() for m in (unfolded, folded, kernels)]
+    models = (unfolded, folded, k5_only, kernels)
+    outs = [forward(m)().float() for m in models]
     rel = [_rel(o, outs[0]) for o in outs[1:]]
-    u1, f1 = cuda_ms(forward(unfolded), 10), cuda_ms(forward(folded), 10)
-    k1, k2 = cuda_ms(forward(kernels), 10), cuda_ms(forward(kernels), 10)
-    f2, u2 = cuda_ms(forward(folded), 10), cuda_ms(forward(unfolded), 10)
-    ab = {"unfolded_ms": (u1 + u2) / 2, "folded_ms": (f1 + f2) / 2,
-          "folded_k5_k7_ms": (k1 + k2) / 2,
-          "rel_l2_vs_unfolded": {"folded": rel[0], "folded_k5_k7": rel[1]}}
-    print(f"R50 b16 bf16 forward (CUDA events, mean of 10, u f k k f u): "
-          f"unfolded {u1:.3f}/{u2:.3f} ms, folded {f1:.3f}/{f2:.3f} ms, "
-          f"folded + K5 + K7 {k1:.3f}/{k2:.3f} ms; logits rel L2 against "
-          f"the unfolded bf16 forward: folded {rel[0]:.3e}, + K5 + K7 "
-          f"{rel[1]:.3e}; on {card_line()}", flush=True)
+    order = (0, 1, 2, 3, 3, 2, 1, 0)
+    times = [cuda_ms(forward(models[i]), 10) for i in order]
+    mean = [(times[j] + times[7 - j]) / 2 for j in range(4)]
+    ab = {"unfolded_ms": mean[0], "folded_ms": mean[1],
+          "folded_k5_ms": mean[2], "folded_k5_k7_ms": mean[3],
+          "rel_l2_vs_unfolded": {"folded": rel[0], "folded_k5": rel[1],
+                                 "folded_k5_k7": rel[2]}}
+    pairs = ", ".join(f"{name} {times[j]:.3f}/{times[7 - j]:.3f} ms"
+                      for j, name in enumerate(
+                          ("unfolded", "folded", "folded + K5",
+                           "folded + K5 + K7")))
+    print(f"R50 b16 bf16 forward (CUDA events, mean of 10, u f 5 k k 5 f u): "
+          f"{pairs}; logits rel L2 against the unfolded bf16 forward: folded "
+          f"{rel[0]:.3e}, + K5 {rel[1]:.3e}, + K5 + K7 {rel[2]:.3e}; on "
+          f"{card_line()}", flush=True)
     assert all(np.isfinite(r) for r in rel), rel
     return ab
 
@@ -1545,7 +1605,9 @@ def main() -> int:
         out["train"] = phase_train_bf16(cfg, build_segmenter, engine,
                                         counters)
     if 9 in wanted:
-        out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain)
+        out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain,
+                                  kernels.bottleneck_route,
+                                  kernels.bottleneck_plan)
         out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain)
     if 10 in wanted:
         sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5,
@@ -1655,13 +1717,24 @@ def summary(out) -> dict:
         "source": "cris_tpu_torch/csrc/bottleneck.cu",
         "replaces": "cris_tpu/ops/pallas/bottleneck.py:208",
         "launches": folded["K5"],
+        "launches_by_route": out["folded_routes"]["K5"],
         "max_abs_err": max(r["max_abs_err"] for r in out["k5_rows"]),
-        "ms": per_forward(out["k5_rows"], "ms"),
+        # on the device alone, as K1-K4 and K6
+        "ms": per_forward(out["k5_rows"], "device_ms"),
         "plain_ms": per_forward(out["k5_rows"], "plain_ms"),
         "bound_ms": per_forward(out["k5_rows"], "bound_ms"),
         "bound_by": k5_bound_by,
-        "library_ms": per_forward(out["k5_rows"], "library_ms"),
+        "library_ms": per_forward(out["k5_rows"], "library_device_ms"),
+        "back_to_back_ms": per_forward(out["k5_rows"], "ms"),
+        "library_back_to_back_ms": per_forward(out["k5_rows"], "library_ms"),
+        "l2_weight_ms": per_forward(out["k5_rows"], "l2_weight_ms"),
         "library": "cuDNN chain: 3 convs + biases, ReLUs, residual add",
+        "site": "the four R50 tails at B 16 bf16, route tensor_cores",
+        "shapes": [{k: r[k] for k in ("site", "route", "device_ms", "ms",
+                                      "library_device_ms", "bound_ms",
+                                      "bound_by", "l2_weight_ms",
+                                      "launches_per_forward")}
+                   for r in out["k5_rows"] if r["dtype"] == "bfloat16"],
     }, {
         "name": "fused_stem_pool",
         "route": "cuda",

@@ -6,10 +6,12 @@
 //   a1 = dt(relu(b1 + conv1_3x3_s2(dt(img))))    3 -> C1, H/2 x W/2
 //   a2 = dt(relu(b2 + conv2_3x3(a1)))            C1 -> C2
 //   a3 = dt(relu(b3 + conv3_3x3(a2)))            C2 -> C3
-//   y  = dt(mean of each 2x2 of a3, in f32)      H/4 x W/4
+//   r  = dt((a3[2i][c] + a3[2i+1][c]) * 0.25)     the row pairs, f32 sums
+//   y  = dt(r[i][2j] + r[i][2j+1])               the column pairs, H/4 x W/4
 // all convs with zero padding 1, f32 sums, f32 biases; dt is the kernels'
-// dtype (f32 or bf16). The TPU kernel casts the row-pair mean to dt and
-// adds the column pair in dt; here the pool rounds once.
+// dtype (f32 or bf16). The pool rounds where the TPU kernel does: its
+// row-pair mean is cast to dt in the kernel (stem.py:142) and the column
+// pair is added in dt after it (:203).
 //
 // Design for Hopper (the TPU kernel's space-to-depth embedding of conv1
 // and its 210-wide flat frames are there for the TPU's matrix unit and
@@ -143,7 +145,9 @@ stem_kernel(const float* __restrict__ img, const T* __restrict__ k1,
       stage);
   __syncthreads();
 
-  // 2x2 average pool in f32; neighbouring threads take neighbouring columns
+  // 2x2 average pool, rounded as the TPU kernel rounds: each column's
+  // row-pair mean to dt, then the two columns added (in f32, rounded to
+  // dt); neighbouring threads take neighbouring columns
   for (int idx = threadIdx.x; idx < C3 * kTile * kTile;
        idx += kGemmThreads) {
     const int c = idx / (kTile * kTile), pp = idx - c * kTile * kTile;
@@ -151,9 +155,9 @@ stem_kernel(const float* __restrict__ img, const T* __restrict__ k1,
     const int q = q0 + pi, w = v0 + pj;
     if (q >= H4 || w >= W4) continue;
     const T* a = a3 + (size_t)c * kE3 * kE3 + (2 * pi) * kE3 + 2 * pj;
-    const float s = (to_f32(a[0]) + to_f32(a[1])) +
-                    (to_f32(a[kE3]) + to_f32(a[kE3 + 1]));
-    ob[q * osh + w * osw + c * osc] = from_f32<T>(0.25f * s);
+    const T r0 = from_f32<T>((to_f32(a[0]) + to_f32(a[kE3])) * 0.25f);
+    const T r1 = from_f32<T>((to_f32(a[1]) + to_f32(a[kE3 + 1])) * 0.25f);
+    ob[q * osh + w * osw + c * osc] = from_f32<T>(to_f32(r0) + to_f32(r1));
   }
 }
 

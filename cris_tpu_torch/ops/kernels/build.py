@@ -176,9 +176,15 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.cris_bottleneck.argtypes = [
                 p, p, p, p, p, p, p, p,  # x, w1, b1, w2, b2, w3, b3, out
-                *conv_tail,             # B, H, W, C, mid, dtype, ...
+                i, i, i, i, i, i, i,    # B, H, W, C, mid, dtype, body
+                *conv_tail[6:],         # strides, stream
             ]
             lib.cris_bottleneck.restype = i
+            lib.cris_bottleneck_plan.argtypes = [
+                i, i, i, i, i, i,       # B, H, W, C, mid, pixel pairs
+                ctypes.POINTER(ll), ctypes.POINTER(ctypes.c_double),
+            ]
+            lib.cris_bottleneck_plan.restype = i
             lib.cris_stem_pool.argtypes = [
                 p, p, p, p, p, p, p, p,  # img, k1, b1, k2, b2, k3, b3, out
                 i, *conv_tail,          # B, H, W, C1, C2, C3, dtype, ...

@@ -25,14 +25,24 @@ from .attention import DTYPE_CODES
 from .build import check, load_library
 
 
+def pool2x2_as_jax(a: torch.Tensor) -> torch.Tensor:
+    """The 2x2 average pool of (B, H, W, C) ``a`` rounded as the TPU kernel
+    rounds it: the row pairs summed in f32, times 0.25, cast to a's dtype
+    (stem.py:142), then the column pairs added in f32 and cast to a's dtype
+    (stem.py:203, an add in the dtype). In f32 the casts are the identity
+    and the sum order is the kernel's."""
+    dt = a.dtype
+    f = a.float()
+    rows = ((f[:, 0::2] + f[:, 1::2]) * 0.25).to(dt).float()
+    return (rows[:, :, 0::2] + rows[:, :, 1::2]).to(dt)
+
+
 def stem_pool_plain(img, k1, b1, k2, b2, k3, b3):
     """The kernel's function in plain PyTorch, at the JAX kernel's rounding
     points (``_conv_stage``, stem.py:86-111): the image is cast to the
     compute dtype (k1's), each conv accumulates in f32, adds its f32 bias,
-    applies the ReLU and is cast to the compute dtype; the pool averages
-    those values in f32 and is cast once. (The TPU kernel casts the
-    row-pair mean to the dtype and adds the column pair in it, one more
-    rounding in bf16 and none in f32.)
+    applies the ReLU and is cast to the compute dtype; the pool is
+    ``pool2x2_as_jax``.
 
     img (B, H, W, 3) NHWC; k1 (3, 3, 3, C1), k2 (3, 3, C1, C2), k3 (3, 3,
     C2, C3) HWIO; biases f32. Returns (B, H/4, W/4, C3)."""
@@ -42,8 +52,7 @@ def stem_pool_plain(img, k1, b1, k2, b2, k3, b3):
         for k, b, s in ((k1, b1, 2), (k2, b2, 1), (k3, b3, 1)):
             w = k.float().permute(3, 2, 0, 1)
             x = F.relu(F.conv2d(x.float(), w, b.float(), s, 1)).to(dt)
-        x = F.avg_pool2d(x.float(), 2).to(dt)
-    return x.permute(0, 2, 3, 1)
+        return pool2x2_as_jax(x.permute(0, 2, 3, 1))
 
 
 def _launch(img, k1, b1, k2, b2, k3, b3):

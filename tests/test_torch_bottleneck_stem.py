@@ -22,6 +22,8 @@ import jax.numpy as jnp
 
 from cris_tpu_torch.ops.kernels import (bottleneck_plain, fused_bottleneck,
                                         fused_stem_pool, stem_pool_plain)
+from cris_tpu_torch.ops.kernels.bottleneck import _tc_rows
+from cris_tpu_torch.ops.kernels.stem import pool2x2_as_jax
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -90,6 +92,71 @@ def test_bottleneck_plain_matches_jax_kernel(h, w, c, mid, row_splits, dtype):
     assert fused_bottleneck.launches == before
 
 
+def _tc_body_emulation(x, w1, b1, w2, b2, w3, b3, r_band, bm1, bm23,
+                       shift):
+    """bottleneck_tc_kernel's decomposition in plain torch: bands of
+    r_band rows (the last one short where H % r_band != 0); conv1 into y1,
+    whose row m holds position m - shift of the band's flat padded grid
+    ((r_band + 2) rows of W + 2), over conv1's M tiles of bm1 rows, 0
+    outside the image; conv2 as nine products of y1 rows shifted by
+    dy (W + 2) + dx + shift over the flat index of M2 rows; conv3 plus b3
+    and x, the junk columns and the rows past the band dropped."""
+    dt = x.dtype
+    n, h, w, c = x.shape
+    wp = w + 2
+    m1, m2 = _tc_rows(r_band, w, bm23, shift)
+    tiles1 = -(-m1 // bm1) * bm1  # conv1's last M tile may pass y1
+    xf = x.float()
+    out = torch.full_like(x, float("nan"))
+    for r0 in range(0, h, r_band):
+        rows = min(r_band, h - r0)
+        p = torch.arange(tiles1) - shift
+        i, j = torch.div(p, wp, rounding_mode="floor"), p % wp
+        r, col = r0 - 1 + i, j - 1
+        inside = (i < r_band + 2) & (r >= 0) & (r < h) & (col >= 0) & (col < w)
+        inside &= i >= 0
+        a = torch.zeros(n, tiles1, c)
+        a[:, inside] = xf[:, r[inside], col[inside]]
+        y1 = (torch.relu(a @ w1.float() + b1) * inside[:, None]).to(dt).float()
+        y1 = y1[:, :m1]
+        q = torch.arange(m2)
+        acc = sum(y1[:, q + dy * wp + dx + shift] @ w2[3 * dy + dx].float()
+                  for dy in range(3) for dx in range(3))
+        y2 = torch.relu(acc + b2).to(dt).float()
+        i, j = q // wp, q % wp
+        keep = (i < rows) & (j < w)
+        ri, cj = r0 + i[keep], j[keep]
+        y = (y2 @ w3.float() + b3)[:, keep] + xf[:, ri, cj]
+        out[:, ri, cj] = torch.relu(y).to(dt)
+    return out
+
+
+@pytest.mark.parametrize("h,w,c,mid,r_band,bm1,bm23,shift", [
+    (11, 9, 128, 64, 4, 32, 32, 0),    # H % R = 3: a short last band
+    (13, 13, 128, 64, 2, 64, 32, 0),   # layer4's width and tiles
+    (7, 20, 64, 64, 8, 64, 128, 1),    # one band taller than the image
+    (10, 12, 64, 64, 4, 128, 32, 1),   # pixel pairs, a short last band
+])
+def test_tc_body_decomposition_matches_plain_and_jax(h, w, c, mid, r_band,
+                                                     bm1, bm23, shift):
+    """The tensor-core body's bands, halo, padded grid, nine row offsets
+    and junk columns, emulated on the CPU in f32, against the plain
+    version and the JAX kernel in interpret mode at 1e-4: a halo, padding
+    or junk-column error shows here before it reaches the card."""
+    from cris_tpu.ops.pallas.bottleneck import fused_bottleneck as jax_k5
+
+    args = _bottleneck_inputs(h, w, c, mid, seed=5)
+    targs = [_torch(a) for a in args]
+    got = _tc_body_emulation(*targs, r_band, bm1, bm23, shift)
+    assert torch.isfinite(got).all()  # every output position written
+    np.testing.assert_allclose(_numpy(got), _numpy(bottleneck_plain(*targs)),
+                               rtol=1e-4, atol=1e-4)
+    ref = jax_k5(*[jnp.asarray(a) for a in args], row_splits=1,
+                 interpret=True)
+    np.testing.assert_allclose(_numpy(got), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_bottleneck_wrapper_takes_the_autocast_dtype():
     """Under autocast the compute dtype is the autocast dtype, as the JAX
     module's ``dtype`` is: f32 inputs go in and bf16 comes out, equal to
@@ -112,6 +179,24 @@ def _stem_inputs(seed=0, c=(8, 8, 16)):
             rs.randn(c2).astype(np.float32) * 0.1,
             rs.randn(3, 3, c2, c3).astype(np.float32) * 0.2,
             rs.randn(c3).astype(np.float32) * 0.1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool2x2_as_jax_equals_the_jax_kernels_pool_bitwise(dtype):
+    """K7's pool, bit for bit against the JAX kernel's own expressions on
+    one seeded map: the row pairs' mean cast to the dtype in the kernel
+    (cris_tpu/ops/pallas/stem.py:142), the column pairs added in the dtype
+    after it (:203)."""
+    jdt = jnp.dtype(dtype)
+    y = np.random.RandomState(4).rand(2, 12, 10, 24).astype(np.float32) * 3
+    yj = jnp.asarray(y, jdt)
+    y3 = yj.astype(jnp.float32)
+    rows = ((y3[:, 0::2] + y3[:, 1::2]) * 0.25).astype(jdt)
+    ref = np.asarray((rows[:, :, 0::2] + rows[:, :, 1::2]).astype(jnp.float32))
+    got = pool2x2_as_jax(_torch(np.asarray(yj.astype(jnp.float32)),
+                                getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 6, 5, 24)
+    np.testing.assert_array_equal(_numpy(got), ref)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,11 +1,12 @@
 """The route functions that pick a CUDA kernel before each launch, on the
 CPU: ``fused_matmul_route`` (K4: the TMA-fed wgmma GEMM or the staged
 block_gemm tile), ``attention_route`` (K1 and K3: the tensor-core body
-or the scalar one) and ``attention_dropout_route`` (K2: the tensor-core
-kernels or the scalar ones). All read only dtypes, shapes, strides and
-data pointers, so CPU tensors stand in for the card's; the kernels
-themselves run on the card in chip_smoke.py phases 2, 6, 8 and 11, which
-assert the same routes there."""
+or the scalar one), ``attention_dropout_route`` (K2: the tensor-core
+kernels or the scalar ones) and ``bottleneck_route`` (K5: the
+tensor-core body or the staged one). All read only dtypes, shapes,
+strides and data pointers, so CPU tensors stand in for the card's; the
+kernels themselves run on the card in chip_smoke.py phases 2, 6, 8, 9,
+10 and 11, which assert the same routes there."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,10 @@ from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
                                         attention_dropout_route,
                                         fused_attention_bse,
                                         fused_attention_bse_dropout,
-                                        fused_matmul)
+                                        fused_bottleneck, fused_matmul)
 from cris_tpu_torch.ops.kernels.attention import attention_route, split_heads
+from cris_tpu_torch.ops.kernels.bottleneck import (_tc_rows, _tc_smem_bytes,
+                                                   bottleneck_route)
 from cris_tpu_torch.ops.kernels.fused_matmul import fused_matmul_route
 
 BF16 = torch.bfloat16
@@ -241,3 +244,89 @@ def test_tiny_cris_train_sites_take_tensor_cores(monkeypatch):
     for q, k, v, heads in calls:
         cast = [x.to(BF16) for x in (q, k, v)]
         assert attention_dropout_route(*cast, heads) == "tensor_cores"
+
+
+# ---------------------------------------------------------------- K5
+
+# the R50 tails at 416 px: (site, H = W, C, mid)
+K5_SITES = [
+    ("layer1 tail", 104, 256, 64),
+    ("layer2 tail", 52, 512, 128),
+    ("layer3 tail", 26, 1024, 256),
+    ("layer4 tail", 13, 2048, 512),
+]
+
+
+def _k5_operands(h, c, mid, dtype=BF16, nchw=True):
+    """x as the model hands it (an NHWC view of NCHW memory) or contiguous
+    NHWC, and contiguous weights, as the wrapper passes them."""
+    x = _mat(2, c, h, h, dtype=dtype).permute(0, 2, 3, 1) if nchw else \
+        _mat(2, h, h, c, dtype=dtype)
+    return x, _mat(c, mid, dtype=dtype), _mat(9, mid, mid, dtype=dtype), \
+        _mat(mid, c, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nchw", [True, False], ids=["NCHW view", "NHWC"])
+@pytest.mark.parametrize("site,h,c,mid", K5_SITES,
+                         ids=[s[0] for s in K5_SITES])
+def test_k5_r50_tails_route(site, h, c, mid, nchw, dtype):
+    """Every R50 tail takes the tensor cores in bf16, layer1's mid 64
+    included, whatever x's layout; f32 takes the staged body."""
+    operands = _k5_operands(h, c, mid, getattr(torch, dtype), nchw)
+    want = "tensor_cores" if dtype == "bfloat16" else "staged"
+    assert bottleneck_route(*operands) == want
+
+
+@pytest.mark.parametrize("case", ["odd channels", "mid 48", "mid 2048",
+                                  "width 400", "weight offset",
+                                  "mixed dtypes"])
+def test_k5_staged_route(case):
+    """Shapes the tensor-core body refuses: channels or mid that are not
+    multiples of 64, a mid or a width whose one-row band does not fit
+    shared memory, a weight 8 bytes off a 16-byte boundary, and weights in
+    another dtype than x."""
+    h, c, mid = 13, 256, 64
+    if case == "odd channels":
+        c = 250
+    elif case == "mid 48":
+        mid = 48
+    elif case == "mid 2048":
+        mid = 2048
+    elif case == "width 400":
+        h, c, mid = 400, 64, 256
+    x, w1, w2, w3 = _k5_operands(h, c, mid)
+    if case == "weight offset":
+        w1 = _mat(c * mid + 4)[4:].view(c, mid)
+        assert w1.data_ptr() % 16 == 8
+    elif case == "mixed dtypes":
+        w3 = w3.float()
+    assert bottleneck_route(x, w1, w2, w3) == "staged"
+
+
+def test_k5_tc_shared_memory_of_the_r50_tails():
+    """The route's fit test is the C side's formula: the smallest band
+    (one row, M tiles of 32) fits every R50 tail, and layer4's rows are
+    what the body's flat padded grid needs."""
+    for _, h, _, mid in K5_SITES:
+        assert _tc_smem_bytes(1, h, mid, 32, 32, 1) <= 232448
+    for shift, want in ((0, (64, 32)), (1, (80, 32))):
+        m1, m2 = _tc_rows(2, 13, 32, shift)
+        assert (m1, m2) == want
+        assert m2 >= 2 * 15 and m1 >= m2 + 2 * 15 + 2 + shift
+        assert m1 >= 4 * 15 + shift
+
+
+def test_k5_route_reads_no_values():
+    """Two operand sets of one layout and different values take one route;
+    a CPU call launches nothing on either route."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 64, 6, 6, generator=gen).to(BF16).permute(0, 2, 3, 1)
+    ws = [torch.randn(*s, generator=gen).to(BF16)
+          for s in ((64, 64), (9, 64, 64), (64, 64))]
+    assert bottleneck_route(x, *ws) == bottleneck_route(
+        x * 0, *(w * 0 for w in ws)) == "tensor_cores"
+    before = dict(fused_bottleneck.launches_by_route)
+    bias = torch.zeros(64)
+    fused_bottleneck(x, ws[0], bias, ws[1], bias, ws[2], bias)
+    assert fused_bottleneck.launches_by_route == before
