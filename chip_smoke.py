@@ -67,19 +67,25 @@ Phases (any failure raises, and the script exits non-zero):
    26 rows) are covered, once more on a contiguous NHWC input (the same
    bits); each K5 call on the route bottleneck_route gives and counted
    on it (bf16: the tensor-core body, with its plan of tiles and band;
-   f32: the staged body); K7 on 416^2 images and on a 100 x 76 one
-   (partial tiles). The card's L2 rate on a copy that stays in L2, and
-   the tensor-core body's L2 weight traffic at its plan over that rate.
+   f32: the staged body); K7 on 416^2 images (once more contiguous
+   NHWC: the same bits), each call on the route
+   stem_route gives and counted on it (bf16: the tensor-core body, with
+   its plan of tile and grid, and every candidate tile giving the plan's
+   bits, each timed; f32: the staged body), on a 100 x 76 one (partial
+   tiles) on both routes in bf16, and at bf16 widths 24/24/40 (the
+   staged body) and 16/48/32 (the tensor-core body's generic form). The
+   card's L2 rate on a copy that stays in L2, and K5's tensor-core body's
+   L2 weight traffic at its plan over that rate.
    CUDA-event times of kernel, plain version, and the cuDNN chain that
-   the folded model runs with the switch off (library_ms), K5's kernel
-   and cuDNN chain also on the device alone, and the sum of a b16 bf16
+   the folded model runs with the switch off (library_ms), kernel and
+   cuDNN chain also on the device alone, and the sum of a b16 bf16
    forward's 12 K5 launches;
 10. the BN-folded serving path, with BN statistics and affines made
    non-trivial from a seed: (a) the R50 f32 folded forward with K5 and K7
    on the card against the unfolded eval forward on the CPU (relative L2
    <= 1e-4), 12 K5 and 1 K7 launches; (b) three requests through
    PredictService(fold_bn, fused_bottleneck, fused_stem) in bf16, with 12
-   K5 (every one on the tensor-core body), 1 K7 and 7 K1 launches per
+   K5 and 1 K7 (every one on its tensor-core body) and 7 K1 launches per
    device batch; (c) the b16 bf16 forward on CUDA events, unfolded /
    folded / folded + K5 / folded + K5 + K7, in turns.
 11. the JAX package's public kernel API, K3 (fused_attention on (B, H, S,
@@ -107,13 +113,15 @@ The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
 Philox work, 40 integer multiplies a call over 16.7 Tops/s; K5 with its
-L2 weight-traffic term beside; K1-K6 timed on the device alone, with
-their back-to-back times beside; K1-K5 with their launches per route),
+L2 weight-traffic term beside; K1-K7 timed on the device alone, with
+their back-to-back times beside; K1-K5 and K7 with their launches per
+route, K7 with its plan),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
     python3 chip_smoke.py --phases 2,11   # the routes of K1, K3 and K4
     python3 chip_smoke.py --phases 6,8    # K2 on both routes, the train step
+    python3 chip_smoke.py --phases 9      # K5 and K7: routes, plans, times
 """
 
 import argparse
@@ -424,8 +432,8 @@ def phase_serving(cfg, PredictService, counters, **service_args):
         print(f"{name} launches on the serving path {switches}: "
               f"{launches[name]} ({len(batches)} device batches x "
               f"{per_batch}){by_route}", flush=True)
-    # bf16 autocast: every K1 and K5 site of the model takes the tensor
-    # cores
+    # bf16 autocast: every K1, K5 and K7 site of the model takes the
+    # tensor cores
     for name, by_route in routes.items():
         assert by_route["tensor_cores"] == launches[name], (name, by_route)
         assert sum(by_route.values()) == launches[name], (name, by_route)
@@ -1009,32 +1017,63 @@ def _cudnn_stem(img, k1, b1, k2, b2, k3, b3):
     return run
 
 
-def phase_k7(fused, plain, size=416, widths=(32, 32, 64)):
+def phase_k7(fused, plain, route_of, plan_of, size=416, widths=(32, 32, 64)):
     """K7 on B 16 images at 416^2, f32 and bf16, against its plain version
-    (the image an NHWC view of f32 NCHW memory, as the model hands it); and
-    once on a 100 x 76 image, whose 25 x 19 pooled map ends in partial
-    tiles."""
+    (the image an NHWC view of f32 NCHW memory, as the model hands it, and
+    once more contiguous NHWC: the same bits), on the route stem_route
+    gives and counted on it (bf16: the tensor-core body with its plan; f32:
+    the staged body). At the bf16 416^2 site every
+    candidate tile that fits gives the chosen plan's bits, each timed on
+    the device alone beside its modelled cost. A 100 x 76 image, whose 25 x
+    19 pooled map ends in partial tiles, runs on both routes in bf16; bf16
+    widths 24/24/40 keep the staged body's bf16 path under test, and
+    16/48/32 the tensor-core body's generic instantiation (R50's widths
+    take the one whose k steps are unrolled). Times back to back and on
+    the device alone, beside the cuDNN chain's and the bound."""
+    from cris_tpu_torch.ops.kernels.stem import (TC_TILES, _launch,
+                                                 _tc_smem_bytes)
+
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(10)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    def kernels(dtype, c1, c2, c3):
+        return ((randn(3, 3, 3, c1) * 27 ** -0.5).to(dtype), randn(c1) * 0.1,
+                (randn(3, 3, c1, c2) * (9 * c1) ** -0.5).to(dtype),
+                randn(c2) * 0.1,
+                (randn(3, 3, c2, c3) * (9 * c2) ** -0.5).to(dtype),
+                randn(c3) * 0.1)
+
+    def on_route(args, route, tile=None):
+        got, taken = route_taken(fused, lambda: _launch(*args, route=route,
+                                                        tile=tile))
+        assert taken == route, (route, taken)
+        return got
+
+    small = randn(2, 3, 100, 76).permute(0, 2, 3, 1)
+    for c in ((24, 24, 40), (16, 48, 32)):
+        other = (small, *kernels(torch.bfloat16, *c))
+        route = route_of(other[0], other[1], other[3], other[5])
+        assert route == ("staged" if c[0] % 16 else "tensor_cores"), route
+        _check(on_route(other, route), plain(*other), torch.bfloat16,
+               f"K7 100 x 76 bf16 {c} ({route})")
     c1, c2, c3 = widths
     for dtype in (torch.float32, torch.bfloat16):
-        ks = ((randn(3, 3, 3, c1) * 27 ** -0.5).to(dtype), randn(c1) * 0.1,
-              (randn(3, 3, c1, c2) * (9 * c1) ** -0.5).to(dtype),
-              randn(c2) * 0.1,
-              (randn(3, 3, c2, c3) * (9 * c2) ** -0.5).to(dtype),
-              randn(c3) * 0.1)
-        small = randn(2, 3, 100, 76).permute(0, 2, 3, 1)
-        _check(fused(small, *ks), plain(small, *ks), dtype,
-               f"K7 100 x 76 {dtype}")
+        ks = kernels(dtype, c1, c2, c3)
+        want = "tensor_cores" if dtype == torch.bfloat16 else "staged"
+        assert route_of(small, ks[0], ks[2], ks[4]) == want
+        for route in dict.fromkeys((want, "staged")):
+            _check(on_route((small, *ks), route), plain(small, *ks), dtype,
+                   f"K7 100 x 76 {dtype} ({route})")
         img = randn(B, 3, size, size).permute(0, 2, 3, 1)
         args = (img, *ks)
+        route = route_of(img, ks[0], ks[2], ks[4])
+        assert route == want, (dtype, route)
         before = fused.launches
-        got = fused(*args)
-        assert fused.launches == before + 1
+        got, taken = route_taken(fused, lambda: fused(*args))
+        assert fused.launches == before + 1 and taken == route, taken
         ref = plain(*args)
         library = _cudnn_stem(*args)
         torch.cuda.synchronize()
@@ -1043,22 +1082,57 @@ def phase_k7(fused, plain, size=416, widths=(32, 32, 64)):
         if dtype == torch.float32:
             _check(library().permute(0, 2, 3, 1), ref, dtype,
                    what + ": the cuDNN chain")
+        # strides only address: a contiguous NHWC image (one value a copy
+        # on the tensor cores), the same bits
+        same = on_route((img.contiguous(), *ks), route)
+        assert torch.equal(same, got), what + ": contiguous NHWC image"
         times = _timed_rows(fused, plain, library, args)
+        times["device_ms"] = device_ms(lambda: fused(*args))
+        times["library_device_ms"] = device_ms(library)
         es = torch.tensor([], dtype=dtype).element_size()
         h2 = size // 2
         nbytes = img.numel() * 4 + got.numel() * es + 4 * (c1 + c2 + c3) \
             + es * 9 * (3 * c1 + c1 * c2 + c2 * c3)
         flops = 2.0 * B * h2 * h2 * 9 * (3 * c1 + c1 * c2 + c2 * c3)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        row = dict(site=f"stem {size}^2", B=B, dtype=str(dtype).replace(
-            "torch.", ""), max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            gflop=flops / 1e9, mbytes=nbytes / 1e6, **times)
+        row = dict(site=f"stem {size}^2", B=B, route=route, dtype=str(
+            dtype).replace("torch.", ""), max_abs_err=err, bound_ms=b_ms,
+            bound_by=b_by, gflop=flops / 1e9, mbytes=nbytes / 1e6, **times)
+        plan = ""
+        if route == "tensor_cores":
+            row["plan"] = plan_of(img, ks[0], ks[2], ks[4])
+            pl = row["plan"]
+            assert (pl["Th"], pl["Tw"]) in TC_TILES, pl
+            tiles = []
+            for tile in TC_TILES:
+                if _tc_smem_bytes(*tile, *widths) > 232448:
+                    continue
+                same = on_route(args, route, tile)
+                assert torch.equal(same, got), (what, tile)
+                tiles.append(dict(
+                    tile=list(tile), cost=plan_of(img, ks[0], ks[2], ks[4],
+                                                  tile)["cost"],
+                    device_ms=device_ms(lambda: _launch(*args, route=route,
+                                                        tile=tile))))
+            row["tiles"] = tiles
+            print("K7 tiles, device alone: " + ", ".join(
+                f"{t['tile'][0]}x{t['tile'][1]} {t['device_ms']:.4f} ms"
+                for t in sorted(tiles, key=lambda t: t["device_ms"])),
+                flush=True)
+            best = min(tiles, key=lambda t: t["device_ms"])
+            plan = (f"; plan Th {pl['Th']} x Tw {pl['Tw']}, {pl['tiles']} "
+                    f"tiles on {pl['blocks']} blocks, {pl['smem_bytes']} B "
+                    f"shared; {len(tiles)} tiles bit-equal, fastest "
+                    f"{best['tile']} {best['device_ms']:.4f} ms")
         rows.append(row)
-        print(f"K7 {size}^2 -> {size // 4}^2 x {c3} {row['dtype']:8s} max|err| "
-              f"{err:.3e}; kernel {row['ms']:.4f} ms plain "
-              f"{row['plain_ms']:.4f} ms cuDNN chain {row['library_ms']:.4f} "
-              f"ms bound {b_ms:.4f} ms ({b_by}, {row['gflop']:.1f} GFLOP, "
-              f"{row['mbytes']:.1f} MB)", flush=True)
+        print(f"K7 {size}^2 -> {size // 4}^2 x {c3} {row['dtype']:8s} {route} "
+              f"max|err| {err:.3e}; kernel {row['device_ms']:.4f} ms device "
+              f"alone ({row['ms']:.4f} back to back), plain "
+              f"{row['plain_ms']:.4f} ms, cuDNN chain "
+              f"{row['library_device_ms']:.4f} ms device alone "
+              f"({row['library_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}, "
+              f"{row['gflop']:.1f} GFLOP, {row['mbytes']:.1f} MB){plan}",
+              flush=True)
     return rows
 
 
@@ -1608,7 +1682,8 @@ def main() -> int:
         out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain,
                                   kernels.bottleneck_route,
                                   kernels.bottleneck_plan)
-        out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain)
+        out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain,
+                                  kernels.stem_route, kernels.stem_plan)
     if 10 in wanted:
         sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5,
                                    k7, tokenize)
@@ -1741,12 +1816,18 @@ def summary(out) -> dict:
         "source": "cris_tpu_torch/csrc/stem.cu",
         "replaces": "cris_tpu/ops/pallas/stem.py:177",
         "launches": folded["K7"],
+        "launches_by_route": out["folded_routes"]["K7"],
         "max_abs_err": max(r["max_abs_err"] for r in out["k7_rows"]),
-        "ms": k7_main["ms"],
+        # on the device alone, as K1-K6
+        "ms": k7_main["device_ms"],
         "plain_ms": k7_main["plain_ms"],
         "bound_ms": k7_main["bound_ms"],
         "bound_by": k7_main["bound_by"],
-        "library_ms": k7_main["library_ms"],
+        "library_ms": k7_main["library_device_ms"],
+        "back_to_back_ms": k7_main["ms"],
+        "library_back_to_back_ms": k7_main["library_ms"],
+        "plan": k7_main.get("plan"),
+        "site": f"R50 stem 416^2, B 16 bf16, route {k7_main['route']}",
         "library": "cuDNN chain: 3 convs + biases, ReLUs, 2x2 avg pool",
     }]
     api = out["api"]

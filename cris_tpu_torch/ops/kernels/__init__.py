@@ -16,7 +16,7 @@ from .fused_attention import fused_attention, fused_attention_plain
 from .fused_matmul import conv1x1_fused, fused_matmul, fused_matmul_plain
 from .layernorm import (layer_norm, layer_norm_backward,
                         layer_norm_backward_plain, layer_norm_plain)
-from .stem import fused_stem_pool, stem_pool_plain
+from .stem import fused_stem_pool, stem_plan, stem_pool_plain, stem_route
 
 __all__ = ["attention_bse_backward_plain", "attention_dropout_backward",
            "attention_dropout_backward_plain", "attention_dropout_forward",
@@ -28,4 +28,4 @@ __all__ = ["attention_bse_backward_plain", "attention_dropout_backward",
            "fused_bottleneck", "fused_matmul", "fused_matmul_plain",
            "fused_stem_pool", "keep_bits_packed", "keep_mask", "layer_norm",
            "layer_norm_backward", "layer_norm_backward_plain",
-           "layer_norm_plain", "stem_pool_plain"]
+           "layer_norm_plain", "stem_plan", "stem_pool_plain", "stem_route"]

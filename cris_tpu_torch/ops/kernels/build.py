@@ -187,9 +187,16 @@ def load_library() -> ctypes.CDLL:
             lib.cris_bottleneck_plan.restype = i
             lib.cris_stem_pool.argtypes = [
                 p, p, p, p, p, p, p, p,  # img, k1, b1, k2, b2, k3, b3, out
-                i, *conv_tail,          # B, H, W, C1, C2, C3, dtype, ...
+                i, *conv_tail[:6],      # B, H, W, C1, C2, C3, dtype
+                i, i, i,                # body, requested tile Th, Tw
+                *conv_tail[6:],         # strides, stream
             ]
             lib.cris_stem_pool.restype = i
+            lib.cris_stem_plan.argtypes = [
+                i, i, i, i, i, i, i, i,  # B, H, W, C1, C2, C3, Th, Tw
+                ctypes.POINTER(ll), ctypes.POINTER(ctypes.c_double),
+            ]
+            lib.cris_stem_plan.restype = i
             lib.cris_cuda_error_string.argtypes = [i]
             lib.cris_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -222,6 +222,124 @@ def test_stem_pool_plain_matches_jax_kernel(dtype):
     assert fused_stem_pool.launches == before
 
 
+def _tc_stem_emulation(img, k1, b1, k2, b2, k3, b3, th, tw):
+    """stem_tc_kernel's decomposition in plain torch, at k1's dtype's
+    rounding points: tiles of th x tw conv3 outputs (the last band and
+    column short where the map ends); a channel-major image patch of
+    (2 th + 9) x (2 tw + 12) from image row 2 (u3 - 2) - 1 and column
+    2 (x3 - 2) - 4, 0 outside the image, rounded to the dtype; conv1 over
+    the flat a1 grid ((the + 4) rows of twe + 4, from conv-grid (u3 - 2,
+    x3 - 2)) in M units of 32 rows, its A rows gathered from the patch at
+    2 i pc + 2 j + 3 plus each depth k = (3 ky + kx) 3 + ci's offset
+    ci pr pc + ky pc + kx (k >= 27: offset 0, zero weights), 0 outside the
+    image; conv2 over the flat index
+    of (the + 2) rows of twe + 2, each lane's a1 row i (twe + 4) + j plus
+    the nine row offsets dy (twe + 4) + dx, units' rows past the grid
+    reading row 0; conv3 over row pairs x 16-column chunks, columns past
+    twe reading column twe - 1, plus dy (twe + 2) + dx; the pool's two
+    roundings. torch raises if any read leaves the kernel's buffers."""
+    dt = k1.dtype
+    n, h, w, _ = img.shape
+    h2, w2 = h // 2, w // 2
+    c1, c3 = k1.shape[-1], k3.shape[-1]
+    pr, pc = 2 * th + 9, 2 * tw + 12
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    k = torch.arange(32)
+    tap, ci = k // 3, k % 3
+    koff = torch.where(k < 27, ci * pr * pc + (tap // 3) * pc + tap % 3, 0)
+    w1 = torch.zeros(32, c1)
+    w1[:27] = k1.float().reshape(27, c1)
+    k2f, k3f = k2.float(), k3.float()
+    img_r = rnd(img.float())
+    out = torch.full((n, h // 4, w // 4, c3), float("nan"))
+    for u3 in range(0, h2, th):
+        the = min(th, h2 - u3)
+        for x3 in range(0, w2, tw):
+            twe = min(tw, w2 - x3)
+            ir = 2 * (u3 - 2) - 1 + torch.arange(pr)
+            ic = 2 * (x3 - 2) - 4 + torch.arange(pc)
+            inside = (((ir >= 0) & (ir < h))[:, None]
+                      & ((ic >= 0) & (ic < w))[None, :])
+            sub = img_r[:, ir.clamp(0, h - 1)][:, :, ic.clamp(0, w - 1)]
+            patch = (sub * inside[..., None]).permute(0, 3, 1, 2)
+            flat = patch.reshape(n, -1)
+
+            def keep(i, j, halo):
+                u, v = u3 - halo + i, x3 - halo + j
+                return ((u >= 0) & (u < h2) & (v >= 0) & (v < w2))[:, None]
+
+            wg1, m1 = twe + 4, (the + 4) * (twe + 4)
+            m = torch.arange(-(-m1 // 32) * 32)
+            i, j = m // wg1, m % wg1
+            pbase = torch.where(m < m1, 2 * i * pc + 2 * j + 3, 0)
+            acc = flat[:, pbase[:, None] + koff[None, :]] @ w1
+            a1 = rnd(torch.where(keep(i, j, 2), torch.relu(acc + b1), 0.0))
+            a1 = a1[:, :m1]
+
+            wg2, m2 = twe + 2, (the + 2) * (twe + 2)
+            q = torch.arange(-(-m2 // 32) * 32)
+            i, j = q // wg2, q % wg2
+            base = torch.where(q < m2, i * wg1 + j, 0)
+            acc = sum(a1[:, base + dy * wg1 + dx] @ k2f[dy, dx]
+                      for dy in range(3) for dx in range(3))
+            a2 = rnd(torch.where(keep(i, j, 1), torch.relu(acc + b2), 0.0))
+            a2 = a2[:, :m2]
+
+            cols = 16 * -(-twe // 16)
+            base = (torch.arange(the)[:, None] * wg2
+                    + torch.arange(cols).clamp(max=twe - 1)[None, :])
+            base = base.reshape(-1)
+            acc = sum(a2[:, base + dy * wg2 + dx] @ k3f[dy, dx]
+                      for dy in range(3) for dx in range(3))
+            a3 = rnd(torch.relu(acc + b3)).reshape(n, the, cols, c3)
+            r = rnd((a3[:, 0::2] + a3[:, 1::2]) * 0.25)
+            y = rnd(r[:, :, 0::2] + r[:, :, 1::2])[:, :, :twe // 2]
+            out[:, u3 // 2:(u3 + the) // 2, x3 // 2:(x3 + twe) // 2] = y
+    return out.to(dt)
+
+
+@pytest.mark.parametrize("h,w,th,tw,dtype,jax_takes", [
+    (32, 48, 16, 32, "float32", True),    # a tile wider than the map
+    (48, 40, 8, 16, "float32", True),     # a partial column tile
+    (64, 64, 2, 64, "float32", True),     # the thinnest band, 2x the map
+    (100, 76, 16, 32, "float32", False),  # partial bands and column tiles
+    (36, 68, 64, 16, "float32", False),   # a tile taller than the map
+    (100, 76, 16, 32, "bfloat16", False),
+])
+def test_tc_stem_decomposition_matches_plain_and_jax(h, w, th, tw, dtype,
+                                                     jax_takes):
+    """The tensor-core stem's tiles, halo, flat grids with their edge
+    widths, nine row offsets, conv1's patch gather and the pool, emulated
+    on the CPU, against the plain version at 1e-4 (bf16: the bf16 bar) and,
+    where the JAX kernel takes the shape (H/2 a multiple of 8, W/2 + 2 <=
+    210), against it in interpret mode at 1e-4: an indexing error shows
+    here before it reaches the card."""
+    from cris_tpu.ops.pallas.stem import fused_stem_pool as jax_k7
+
+    rs = np.random.RandomState(h + w + th)
+    args = [rs.randn(2, h, w, 3).astype(np.float32)] + _stem_inputs(
+        seed=h + tw, c=(16, 16, 16))[1:]
+    tdt = getattr(torch, dtype)
+    targs = [_torch(a, tdt if i in (1, 3, 5) else torch.float32)
+             for i, a in enumerate(args)]
+    got = _tc_stem_emulation(*targs, th, tw)
+    assert got.dtype == tdt and tuple(got.shape) == (2, h // 4, w // 4, 16)
+    assert torch.isfinite(got).all()  # every pooled output written
+    plain = stem_pool_plain(*targs)
+    if dtype == "bfloat16":
+        _bf16_close(_numpy(got), _numpy(plain))
+        return
+    np.testing.assert_allclose(_numpy(got), _numpy(plain), rtol=1e-4,
+                               atol=1e-4)
+    if jax_takes:
+        ref = jax_k7(*[jnp.asarray(a) for a in args], interpret=True)
+        np.testing.assert_allclose(_numpy(got), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x, *wts = [_torch(a) for a in _bottleneck_inputs(8, 8, 64, 16, seed=3)]
     with pytest.raises(ValueError):

@@ -2,11 +2,15 @@
 CPU: ``fused_matmul_route`` (K4: the TMA-fed wgmma GEMM or the staged
 block_gemm tile), ``attention_route`` (K1 and K3: the tensor-core body
 or the scalar one), ``attention_dropout_route`` (K2: the tensor-core
-kernels or the scalar ones) and ``bottleneck_route`` (K5: the
+kernels or the scalar ones), ``bottleneck_route`` (K5: the
+tensor-core body or the staged one) and ``stem_route`` (K7: the
 tensor-core body or the staged one). All read only dtypes, shapes,
 strides and data pointers, so CPU tensors stand in for the card's; the
 kernels themselves run on the card in chip_smoke.py phases 2, 6, 8, 9,
 10 and 11, which assert the same routes there."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,11 +22,14 @@ from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
                                         attention_dropout_route,
                                         fused_attention_bse,
                                         fused_attention_bse_dropout,
-                                        fused_bottleneck, fused_matmul)
+                                        fused_bottleneck, fused_matmul,
+                                        fused_stem_pool, stem_route)
 from cris_tpu_torch.ops.kernels.attention import attention_route, split_heads
 from cris_tpu_torch.ops.kernels.bottleneck import (_tc_rows, _tc_smem_bytes,
                                                    bottleneck_route)
 from cris_tpu_torch.ops.kernels.fused_matmul import fused_matmul_route
+from cris_tpu_torch.ops.kernels.stem import TC_TILES
+from cris_tpu_torch.ops.kernels.stem import _tc_smem_bytes as _stem_smem_bytes
 
 BF16 = torch.bfloat16
 
@@ -330,3 +337,105 @@ def test_k5_route_reads_no_values():
     bias = torch.zeros(64)
     fused_bottleneck(x, ws[0], bias, ws[1], bias, ws[2], bias)
     assert fused_bottleneck.launches_by_route == before
+
+
+# ---------------------------------------------------------------- K7
+
+# the R50 stem at 416 px: (H = W, C1, C2, C3)
+K7_R50 = (416, 32, 32, 64)
+
+
+def _k7_operands(h, c1, c2, c3, dtype=BF16, nchw=True):
+    """The image as the model hands it (an NHWC view of f32 NCHW memory)
+    or contiguous NHWC, and contiguous HWIO kernels."""
+    img = _mat(2, 3, h, h, dtype=torch.float32).permute(0, 2, 3, 1) if nchw \
+        else _mat(2, h, h, 3, dtype=torch.float32)
+    return img, _mat(3, 3, 3, c1, dtype=dtype), \
+        _mat(3, 3, c1, c2, dtype=dtype), _mat(3, 3, c2, c3, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nchw", [True, False], ids=["NCHW view", "NHWC"])
+def test_k7_r50_stem_route(nchw, dtype):
+    """The R50 stem takes the tensor cores in bf16 whatever the image's
+    layout; f32 takes the staged body."""
+    operands = _k7_operands(*K7_R50, getattr(torch, dtype), nchw)
+    want = "tensor_cores" if dtype == "bfloat16" else "staged"
+    assert stem_route(*operands) == want
+
+
+@pytest.mark.parametrize("case", ["C1 24", "C3 40", "weight offset",
+                                  "mixed dtypes", "RN50x64 64/64/128"])
+def test_k7_staged_route(case):
+    """Shapes the tensor-core body refuses: widths that are not multiples
+    of 16, a weight 8 bytes off a 16-byte boundary, kernels in two dtypes,
+    and widths whose weights leave no room for the smallest tile."""
+    widths = {"C1 24": (24, 32, 64), "C3 40": (32, 32, 40),
+              "RN50x64 64/64/128": (64, 64, 128)}.get(case, (32, 32, 64))
+    img, k1, k2, k3 = _k7_operands(64, *widths)
+    if case == "weight offset":
+        k2 = _mat(9 * 32 * 32 + 4)[4:].view(3, 3, 32, 32)
+        assert k2.data_ptr() % 16 == 8
+    elif case == "mixed dtypes":
+        k3 = k3.float()
+    assert stem_route(img, k1, k2, k3) == "staged"
+
+
+def _c_stem_smem_bytes():
+    """stem.cu's ``stem_tc_smem_bytes``, its body evaluated as Python: the
+    C side's own formula, read from the source."""
+    src = (Path(__file__).resolve().parents[1] / "cris_tpu_torch" / "csrc"
+           / "stem.cu").read_text()
+    k_k1 = int(re.search(r"constexpr int kK1 = (\d+);", src).group(1))
+    body = re.search(r"inline size_t stem_tc_smem_bytes\(int th, int tw, "
+                     r"int c1, int c2, int c3\) \{(.*?)\n\}", src, re.S)
+    code = body.group(1).replace("(size_t)", "").replace("const size_t ", "")
+    code = code.replace("std::max", "max")
+    code = code.replace("return", "result =").replace(";", "\n")
+    code = "\n".join(line.strip() for line in code.splitlines())
+
+    def smem(th, tw, c1, c2, c3):
+        scope = dict(th=th, tw=tw, c1=c1, c2=c2, c3=c3, kK1=k_k1)
+        exec(code, {}, scope)
+        return scope["result"]
+    return smem
+
+
+def test_k7_tc_shared_memory_is_the_c_sides():
+    """The route's fit test is the C side's formula on every candidate
+    tile at the R50 and the refused widths; the C side's candidates are
+    TC_TILES; the R50 stem's tiles fit (the two reference tiles at about
+    224 and 198 KB), RN50x64's smallest does not."""
+    c_smem = _c_stem_smem_bytes()
+    for widths in ((32, 32, 64), (16, 16, 16), (48, 48, 96), (64, 64, 128)):
+        for th, tw in TC_TILES:
+            assert _stem_smem_bytes(th, tw, *widths) == c_smem(th, tw,
+                                                               *widths)
+    src = (Path(__file__).resolve().parents[1] / "cris_tpu_torch" / "csrc"
+           / "stem.cu").read_text()
+    th_max = int(re.search(r"constexpr int kThMax = (\d+);", src).group(1))
+    tws = re.search(r"constexpr int kTws\[\d\] = \{([^}]*)\};", src).group(1)
+    assert TC_TILES == tuple((th, int(tw)) for tw in tws.split(",")
+                             for th in range(2, th_max + 1, 2))
+    assert _stem_smem_bytes(16, 32, 32, 32, 64) == 228944
+    assert _stem_smem_bytes(8, 48, 32, 32, 64) == 203216
+    fits = [t for t in TC_TILES if _stem_smem_bytes(*t, 32, 32, 64) <= 232448]
+    assert (16, 32) in fits and (10, 48) in fits and len(fits) == 32
+    assert _stem_smem_bytes(2, 16, 64, 64, 128) > 232448
+
+
+def test_k7_route_reads_no_values():
+    """Two operand sets of one layout and different values take one route;
+    a CPU call launches nothing on either route."""
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randn(1, 3, 16, 16, generator=gen).permute(0, 2, 3, 1)
+    ks = [(torch.randn(*s, generator=gen) * 0.2).to(BF16)
+          for s in ((3, 3, 3, 16), (3, 3, 16, 16), (3, 3, 16, 32))]
+    assert stem_route(img, *ks) == stem_route(
+        img * 0, *(k * 0 for k in ks)) == "tensor_cores"
+    before = dict(fused_stem_pool.launches_by_route)
+    bias = torch.zeros(32)
+    out = fused_stem_pool(img, ks[0], bias[:16], ks[1], bias[:16], ks[2],
+                          bias)
+    assert out.shape == (1, 4, 4, 32)
+    assert fused_stem_pool.launches_by_route == before
