@@ -83,11 +83,13 @@ Phases (any failure raises, and the script exits non-zero):
 10. the BN-folded serving path, with BN statistics and affines made
    non-trivial from a seed: (a) the R50 f32 folded forward with K5 and K7
    on the card against the unfolded eval forward on the CPU (relative L2
-   <= 1e-4), 12 K5 and 1 K7 launches; (b) three requests through
-   PredictService(fold_bn, fused_bottleneck, fused_stem) in bf16, with 12
-   K5 and 1 K7 (every one on its tensor-core body) and 7 K1 launches per
-   device batch; (c) the b16 bf16 forward on CUDA events, unfolded /
-   folded / folded + K5 / folded + K5 + K7, in turns.
+   <= 1e-4), 12 K5 (f32 takes every tail) and 1 K7 launches; (b) three
+   requests through PredictService(fold_bn, fused_bottleneck, fused_stem)
+   in bf16, with as many K5 launches per device batch as K5's tail gate
+   takes tails at its default rule (5: the 104^2 and 52^2 tails), 1 K7
+   (every one on its tensor-core body) and 7 K1; (c) the b16 bf16 forward
+   on CUDA events, unfolded / folded / folded + K5 / folded + K5 + K7, in
+   turns.
 11. the JAX package's public kernel API, K3 (fused_attention on (B, H, S,
    D)), K4 (fused_matmul, conv1x1_fused) and K6 (layer_norm forward and
    backward), at B 16, f32 (TF32 off) and bf16, against their plain
@@ -109,6 +111,15 @@ Phases (any failure raises, and the script exits non-zero):
    call (SDPA, the cuBLAS chain, F.layer_norm and its backward), back to
    back and on the device alone (device_ms: the host enqueues while the
    card sleeps).
+12. the bench (cris_tpu_torch.bench): its three metrics at short lengths
+   (n1 2, n2 4, 2 trials), each value finite and positive, with K1's
+   launches per eval batch (7, R50 and R101) and K2's forward and
+   backward (6 each) and K1's (1) per train step, every one on the
+   tensor cores; its K5/K7 A/B at one round, each arm's K5 and K7
+   launches per batch as K5's tail gate gives them (K7 on arm d only),
+   all on the tensor cores; and R101's first check on the card, its f32
+   folded forward at B 1 against the unfolded CPU forward (relative L2
+   <= 1e-4, mask agreement >= 0.999).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -122,6 +133,7 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 2,11   # the routes of K1, K3 and K4
     python3 chip_smoke.py --phases 6,8    # K2 on both routes, the train step
     python3 chip_smoke.py --phases 9      # K5 and K7: routes, plans, times
+    python3 chip_smoke.py --phases 12     # the bench at short lengths, R101
 """
 
 import argparse
@@ -1159,34 +1171,49 @@ def _folded(cfg, build_segmenter, folded_sd, **switches):
     return model.cuda()
 
 
-def phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5, k7, tokenize):
-    """10(a): the R50 f32 folded forward with K5 and K7 on the card
-    against the unfolded eval forward on the CPU. Returns the unfolded
-    state dict with its non-trivial BN."""
+def folded_card_vs_cpu(cfg, build_segmenter, fold_batchnorm, tokenize,
+                       sentences, counters=(), **switches):
+    """The f32 folded forward (with K5/K7 ``switches``) on the card
+    against the unfolded eval forward on the CPU, with BN made
+    non-trivial, on one seeded image per sentence. Returns the unfolded
+    state dict, the logits' relative L2, the mask agreement at 0.35, the
+    ``counters``' launches in the card's forward, the logits' shape and
+    the CPU forward's seconds."""
     base = randomize_bn(build_segmenter(cfg, device="cpu", seed=0), 3)
     sd = base.state_dict()
     gen = torch.Generator().manual_seed(1)
-    img = torch.randn(2, 3, cfg.input_size, cfg.input_size, generator=gen)
-    word = torch.from_numpy(tokenize(
-        ["the man in the red shirt on the left", "a dog"], cfg.word_len,
-        True)).long()
+    img = torch.randn(len(sentences), 3, cfg.input_size, cfg.input_size,
+                      generator=gen)
+    word = torch.from_numpy(tokenize(sentences, cfg.word_len, True)).long()
     model = _folded(cfg, build_segmenter, fold_batchnorm(sd, cfg.input_size),
-                    fused_bottleneck=True, fused_stem=True)
+                    **switches)
     with torch.no_grad():
         t0 = time.perf_counter()
         ref = base(img, word)
         cpu_s = time.perf_counter() - t0
-        k5.launches = k7.launches = 0
+        for fn in counters:
+            fn.launches = 0
         got = model(img.cuda(), word.cuda())
         torch.cuda.synchronize()
-        launches = (k5.launches, k7.launches)
+        launches = tuple(fn.launches for fn in counters)
     got = got.cpu()
     assert torch.isfinite(got).all() and got.shape == ref.shape
     rel = ((got - ref).norm() / ref.norm()).item()
     agree = ((torch.sigmoid(got) > 0.35) == (torch.sigmoid(ref) > 0.35)
              ).float().mean().item()
+    return sd, rel, agree, launches, tuple(got.shape), cpu_s
+
+
+def phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5, k7, tokenize):
+    """10(a): the R50 f32 folded forward with K5 and K7 on the card
+    against the unfolded eval forward on the CPU. Returns the unfolded
+    state dict with its non-trivial BN."""
+    sd, rel, agree, launches, shape, cpu_s = folded_card_vs_cpu(
+        cfg, build_segmenter, fold_batchnorm, tokenize,
+        ["the man in the red shirt on the left", "a dog"], (k5, k7),
+        fused_bottleneck=True, fused_stem=True)
     print(f"R50 f32 folded + K5 + K7 on the card vs unfolded on the CPU: "
-          f"logits {tuple(got.shape)} rel L2 {rel:.3e} mask agreement "
+          f"logits {shape} rel L2 {rel:.3e} mask agreement "
           f"{agree:.6f}; K5, K7 launches {launches} (CPU forward "
           f"{cpu_s:.1f} s)", flush=True)
     assert launches == (12, 1), launches
@@ -1239,6 +1266,86 @@ def phase_ab(cfg, build_segmenter, fold_batchnorm, sd):
           f"{card_line()}", flush=True)
     assert all(np.isfinite(r) for r in rel), rel
     return ab
+
+
+def k5_tails_taken(cfg, preset_from_name, takes, rule) -> int:
+    """The stage tails of cfg's visual encoder at its input size that
+    K5's gate takes in bf16 under ``rule``: K5's launches per batch."""
+    clip = preset_from_name(cfg.clip_pretrain)
+    n = 0
+    for i, blocks in enumerate(clip.vision_layers):
+        hw, mid = cfg.input_size // 4 // 2 ** i, clip.vision_width * 2 ** i
+        n += (blocks - 1) * takes(hw, hw, 4 * mid, mid, torch.bfloat16, rule)
+    return n
+
+
+def phase_bench(bench, build_segmenter, fold_batchnorm, tokenize,
+                preset_from_name, takes, k1, k2, k2_bwd, k5, k7):
+    """12: the bench's three metrics at short lengths (n1 2, n2 4, 2
+    trials) with their launches per batch and route, its A/B at one
+    round with each arm's K5 and K7 launches per batch as the gate gives
+    them, and R101's folded f32 forward on the card against the CPU."""
+    device = torch.device("cuda")
+    n1, n2, trials = 2, 4, 2
+    out, launches = {"metrics": []}, {}
+    for name, step, path in bench.METRICS:
+        cfg = bench.config_for(path)
+        # (wrapper, label, launches per batch)
+        counts = ([(k2, "K2 fwd", 2 * cfg.num_layers),
+                   (k2_bwd, "K2 bwd", 2 * cfg.num_layers), (k1, "K1", 1)]
+                  if step == "train" else [(k1, "K1", 2 * cfg.num_layers + 1)])
+        reset_counts(*(fn for fn, _, _ in counts))
+        t0 = time.perf_counter()
+        r = bench.run_metric(name, step, cfg, device, bench.BATCH, n1, n2,
+                             trials)
+        seconds = time.perf_counter() - t0
+        bench.free(device)
+        assert np.isfinite(r["value"]) and r["value"] > 0, (name, r)
+        got = {label: dict(fn.launches_by_route) for fn, label, _ in counts}
+        for fn, label, per_batch in counts:
+            want = per_batch * r["batches"]
+            assert fn.launches == want, (name, label, fn.launches, want)
+            assert got[label] == {"tensor_cores": want, "scalar": 0}, got
+            launches[label] = launches.get(label, 0) + want
+        print(f"bench {name}: {r['value']:.2f} img/s (trials "
+              f"{['%.2f' % x for x in r['trials']]}, spread "
+              f"{r['spread']:.4f}), {r['batches']} batches of "
+              f"{bench.BATCH}, launches by route {got} "
+              f"({', '.join(f'{l} {p} a batch' for _, l, p in counts)}); "
+              f"{seconds:.1f} s", flush=True)
+        out["metrics"].append({"metric": name, **r, "by_route": got})
+
+    cfg = bench.config_for(bench.R50)
+    reset_counts(k5, k7)
+    ab = bench.ab(cfg, device, bench.BATCH, n1, n2, rounds=1)
+    bench.free(device)
+    rules = {arm: sw.get("fused_bottleneck") for arm, sw in bench.ARMS.items()}
+    rules["d"] = rules[ab["ab"]["d_k5_arm"]]
+    for t in ab["turns"]:
+        rule = rules[t["arm"]]
+        want = (k5_tails_taken(cfg, preset_from_name, takes, rule)
+                if rule else 0, int(t["arm"] == "d"))
+        assert (t["k5_per_batch"], t["k7_per_batch"]) == want, (t, want)
+    for fn, label in ((k5, "K5"), (k7, "K7")):
+        assert fn.launches_by_route["tensor_cores"] == fn.launches > 0, (
+            label, fn.launches_by_route)
+        launches[label] = fn.launches
+    print(f"bench --ab at one round: K5 per batch by arm "
+          f"{ {a: t['k5_per_batch'] for a, t in zip('abcd', ab['turns'])} }, "
+          f"K7 on arm d only; K5, K7 launches {k5.launches}, {k7.launches}, "
+          f"all on tensor_cores", flush=True)
+    out["ab"] = ab
+
+    r101 = bench.config_for(bench.R101)
+    _, rel, agree, _, shape, cpu_s = folded_card_vs_cpu(
+        r101, build_segmenter, fold_batchnorm, tokenize, ["the dog on the left"])
+    print(f"R101 f32 folded on the card vs unfolded on the CPU: logits "
+          f"{shape} rel L2 {rel:.3e} mask agreement {agree:.6f} (CPU "
+          f"forward {cpu_s:.1f} s)", flush=True)
+    assert rel <= 1e-4, rel
+    assert agree >= 0.999, agree
+    out["r101_rel_l2"], out["launches"] = rel, launches
+    return out
 
 
 # Philox4x32-10's integer work per call (4 keep bits), by the pipe it
@@ -1622,14 +1729,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 12)) if run_all else {
+    wanted = set(range(2, 13)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
-    from cris_tpu_torch import engine
+    from cris_tpu_torch import bench, engine
     from cris_tpu_torch.checkpoint import fold_batchnorm
-    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.models import build_segmenter, preset_from_name
     from cris_tpu_torch.ops import kernels
     from cris_tpu_torch.ops.kernels import build
+    from cris_tpu_torch.ops.kernels.bottleneck import K5_TAILS
     from cris_tpu_torch.serving import PredictService
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
 
@@ -1689,13 +1797,20 @@ def main() -> int:
                                    k7, tokenize)
         out["folded_serving"], _, out["folded_routes"] = phase_serving(
             cfg, PredictService,
-            {"K1": (k1, 7), "K5": (k5, 12), "K7": (k7, 1)},
+            {"K1": (k1, 7), "K7": (k7, 1),
+             "K5": (k5, k5_tails_taken(cfg, preset_from_name,
+                                       kernels.bottleneck_takes, K5_TAILS))},
             state_dict=sd, fused_bottleneck=True, fused_stem=True)
         out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
     if 11 in wanted:
         out["api"] = phase_kernel_api(
             {n: getattr(kernels, n) for n in kernels.__all__}, cfg,
             build_segmenter)
+    if 12 in wanted:
+        out["bench"] = phase_bench(
+            bench, build_segmenter, fold_batchnorm, tokenize,
+            preset_from_name, kernels.bottleneck_takes, k1, k2,
+            kernels.attention_dropout_backward, k5, k7)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -1712,13 +1827,14 @@ def summary(out) -> dict:
     """The kernels line, after printing the detail rows as one JSON line."""
     (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _, train_routes = \
         out["train"]
+    bench = out["bench"]["launches"]  # phase 12, all on tensor_cores
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
         "decoder self-attn") and r["B"] == 32 and r["dtype"] == "bfloat16")
     k2_src = "cris_tpu_torch/csrc/attention_bse_dropout.cu"
 
-    def k2_entry(part, replaces, launches, by_route, worst):
+    def k2_entry(part, replaces, train_n, bench_n, by_route, worst):
         """K2's forward or backward at its main site, on the device alone
         (the tensor-core kernels run shorter than the wrapper's host time),
         with SDPA with dropout as the library call."""
@@ -1728,8 +1844,10 @@ def summary(out) -> dict:
             "route": "cuda",
             "source": k2_src,
             "replaces": f"cris_tpu/ops/pallas/attention_train.py:{replaces}",
-            "launches": launches,
-            "launches_by_route": by_route,
+            "launches": train_n + bench_n,
+            "launches_by_path": {"train": train_n, "bench": bench_n},
+            "launches_by_route": {r: n + (bench_n if r == "tensor_cores"
+                                          else 0) for r, n in by_route.items()},
             "max_abs_err": worst,
             "ms": main_k2[f"{key}_device_ms"],
             "plain_ms": main_k2[f"plain_{key}_ms"],
@@ -1764,13 +1882,17 @@ def summary(out) -> dict:
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/attention_bse.cu",
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
-        "launches": out["serving"]["K1"] + k1_train_n + folded["K1"],
+        "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
+                     + bench["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
-                             "folded serving": folded["K1"]},
+                             "folded serving": folded["K1"],
+                             "bench": bench["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
-            + out["folded_routes"]["K1"][r] for r in k1_train_routes},
+            + out["folded_routes"]["K1"][r]
+            + (bench["K1"] if r == "tensor_cores" else 0)
+            for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
         # on the device alone: the tensor-core body runs shorter than the
         # wrapper's host time, which back-to-back calls would time
@@ -1784,15 +1906,20 @@ def summary(out) -> dict:
         "library_back_to_back_ms": k1_main["library_ms"],
         "library": "scaled_dot_product_attention",
         "site": "decoder self-attn, B 16 bf16, route " + k1_main["route"],
-    }, k2_entry("forward", 218, k2_fwd_n, k2_fwd_routes, out["k2_fwd_worst"]),
-        k2_entry("backward", 248, k2_bwd_n, k2_bwd_routes,
+    }, k2_entry("forward", 218, k2_fwd_n, bench["K2 fwd"], k2_fwd_routes,
+                out["k2_fwd_worst"]),
+        k2_entry("backward", 248, k2_bwd_n, bench["K2 bwd"], k2_bwd_routes,
                  out["k2_bwd_worst"]), {
         "name": "fused_bottleneck (12 launches of one b16 bf16 forward)",
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/bottleneck.cu",
         "replaces": "cris_tpu/ops/pallas/bottleneck.py:208",
-        "launches": folded["K5"],
-        "launches_by_route": out["folded_routes"]["K5"],
+        "launches": folded["K5"] + bench["K5"],
+        "launches_by_path": {"folded serving": folded["K5"],
+                             "bench --ab": bench["K5"]},
+        "launches_by_route": {
+            r: n + (bench["K5"] if r == "tensor_cores" else 0)
+            for r, n in out["folded_routes"]["K5"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in out["k5_rows"]),
         # on the device alone, as K1-K4 and K6
         "ms": per_forward(out["k5_rows"], "device_ms"),
@@ -1815,8 +1942,12 @@ def summary(out) -> dict:
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/stem.cu",
         "replaces": "cris_tpu/ops/pallas/stem.py:177",
-        "launches": folded["K7"],
-        "launches_by_route": out["folded_routes"]["K7"],
+        "launches": folded["K7"] + bench["K7"],
+        "launches_by_path": {"folded serving": folded["K7"],
+                             "bench --ab": bench["K7"]},
+        "launches_by_route": {
+            r: n + (bench["K7"] if r == "tensor_cores" else 0)
+            for r, n in out["folded_routes"]["K7"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in out["k7_rows"]),
         # on the device alone, as K1-K6
         "ms": k7_main["device_ms"],
@@ -1878,7 +2009,8 @@ def summary(out) -> dict:
                           api["model_max_abs_err"],
                       "kernel_api_seconds": api["seconds"],
                       "train_bf16_b32": {"median_step_ms": step_ms,
-                                         "peak_gib": peak}}), flush=True)
+                                         "peak_gib": peak},
+                      "bench_short": out["bench"]}), flush=True)
     return {"kernels": kernels}
 
 

@@ -11,7 +11,7 @@ parameters into the optimizer's backbone and head groups.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -72,7 +72,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
 def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
                     fold_bn: bool = False, pos_grid: Optional[int] = None,
-                    fused_bottleneck: bool = False,
+                    fused_bottleneck: Union[bool, str] = False,
                     fused_stem: bool = False) -> CRIS:
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
     train mode (batch-statistics BN, dropout) with ``train=True``, on the
@@ -84,8 +84,10 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
     at that grid (``fold_batchnorm(input_resolution=...)``). The kernel
     switches, the JAX package's ``CRIS_PALLAS_BOTTLENECK`` and
     ``CRIS_PALLAS_STEM``, default off as those do: ``fused_bottleneck``
-    runs every stride-1 identity bottleneck as K5, ``fused_stem`` the stem
-    and its pool as K7. Both need ``fold_bn`` and eval.
+    runs the stride-1 identity bottlenecks that K5's tail gate takes as K5
+    (True: under its default rule ``K5_TAILS``; a rule name of
+    ``ops.kernels.bottleneck.TAIL_RULES``: under that rule), ``fused_stem``
+    the stem and its pool as K7. Both need ``fold_bn`` and eval.
 
     On ``device="meta"`` the parameters have shapes and no storage;
     otherwise they are initialised on the CPU from ``seed`` and moved."""

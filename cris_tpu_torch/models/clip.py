@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -54,7 +54,8 @@ def preset_from_name(name: str) -> CLIPConfig:
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, fold_bn: bool = False,
                  pos_grid: Optional[int] = None,
-                 fused_bottleneck: bool = False, fused_stem: bool = False):
+                 fused_bottleneck: Union[bool, str] = False,
+                 fused_stem: bool = False):
         super().__init__()
         self.visual = ModifiedResNet(
             layers=cfg.vision_layers,

@@ -10,22 +10,24 @@ attention-pooled layer4 map, ``(v3, v4, v5)``.
 (``checkpoint.fold.fold_batchnorm``). On it two kernels can run, each
 behind its own switch, off by default as the JAX package's
 ``CRIS_PALLAS_BOTTLENECK`` and ``CRIS_PALLAS_STEM`` are:
-``fused_bottleneck`` sends every stride-1 identity bottleneck (the stage
-tails) through K5, ``fused_stem`` sends the stem and its pool through K7.
+``fused_bottleneck`` sends the stride-1 identity bottlenecks (the stage
+tails) that K5's tail gate takes through K5, ``fused_stem`` sends the
+stem and its pool through K7.
 Both kernels take NHWC views of the model's NCHW tensors and write NCHW
 memory, so nothing is transposed around them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from ..ops.kernels.bottleneck import compute_dtype, fused_bottleneck
+from ..ops.kernels.bottleneck import (K5_TAILS, TAIL_RULES, bottleneck_takes,
+                                     compute_dtype, fused_bottleneck)
 from ..ops.kernels.stem import fused_stem_pool
 from ..ops.resize import resize2d
 from .layers import norm
@@ -54,21 +56,25 @@ class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> [avg pool] -> 1x1 with CLIP's anti-aliased stride:
     the stride is an average pool after the 3x3, and in the shortcut.
 
-    ``fused``: run the block as K5 (needs ``fold_bn``, stride 1 and
+    ``fused``: a K5 tail rule (``TAIL_RULES``), or None: run the block as
+    K5 wherever ``bottleneck_takes`` takes its shape under that rule, and
+    as the cuDNN chain elsewhere (needs ``fold_bn``, stride 1 and
     ``inplanes == planes * 4``; set on exactly those blocks). Unlike the
     JAX gate (``supports_shape``: channels multiples of 128, a VMEM fit)
-    the port takes every such block, so layer1's mid-64 tails run K5 here
-    and XLA in the JAX package."""
+    the rule "every" takes every such block, so layer1's mid-64 tails run
+    K5 here and XLA in the JAX package."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 fold_bn: bool = False, fused: bool = False):
+                 fold_bn: bool = False, fused: Optional[str] = None):
         super().__init__()
         out_planes = planes * self.expansion
         identity = stride == 1 and inplanes == out_planes
         if fused and not (fold_bn and identity):
             raise ValueError("K5 runs only BN-folded stride-1 identity blocks")
+        if fused and fused not in TAIL_RULES:
+            raise ValueError(f"unknown K5 tail rule {fused!r}")
         self.fused = fused
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=fold_bn)
         self.bn1 = norm(planes, fold_bn)
@@ -88,7 +94,9 @@ class Bottleneck(nn.Module):
             self.downsample.add_module("1", norm(out_planes, fold_bn))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
+        if self.fused and bottleneck_takes(
+                x.shape[2], x.shape[3], x.shape[1], self.conv1.out_channels,
+                compute_dtype(x), self.fused):
             _no_training(self, "fused_bottleneck (K5)")
             w1, w2, w3 = (_hwio(c) for c in (self.conv1, self.conv2, self.conv3))
             return _nchw(fused_bottleneck(
@@ -147,6 +155,8 @@ class AttentionPool2d(nn.Module):
 class ModifiedResNet(nn.Module):
     """3-conv stem + 2x2 avg pool, four bottleneck stages, attnpool.
 
+    ``fused_bottleneck``: False, True (K5's default tail rule,
+    ``K5_TAILS``) or a tail rule name: the rule the stage tails run K5 by.
     ``fused_stem``: run the stem and its pool as K7 (needs ``fold_bn``)
     whenever H and W are multiples of 4. The JAX model also asks for its
     fused pools and H, W % 16 (its kernel's row blocks); here K7's output
@@ -155,7 +165,8 @@ class ModifiedResNet(nn.Module):
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
                  input_resolution: int = 224, width: int = 64,
                  fold_bn: bool = False, pos_grid: Optional[int] = None,
-                 fused_bottleneck: bool = False, fused_stem: bool = False):
+                 fused_bottleneck: Union[bool, str] = False,
+                 fused_stem: bool = False):
         super().__init__()
         if (fused_bottleneck or fused_stem) and not fold_bn:
             raise ValueError("K5 and K7 run only on the BN-folded model")
@@ -171,7 +182,8 @@ class ModifiedResNet(nn.Module):
         self.avgpool = nn.AvgPool2d(2)
         self._inplanes = width
         self._fold_bn = fold_bn
-        self._fuse_tails = fused_bottleneck
+        self._fuse_tails = (K5_TAILS if fused_bottleneck is True
+                            else fused_bottleneck or None)
         self.layer1 = self._make_layer(width, layers[0])
         self.layer2 = self._make_layer(width * 2, layers[1], stride=2)
         self.layer3 = self._make_layer(width * 4, layers[2], stride=2)

@@ -10,7 +10,7 @@ resized mask, as in training.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +40,8 @@ class CRIS(nn.Module):
                  vis_dim: int = 512, num_layers: int = 3, num_head: int = 8,
                  dim_ffn: int = 2048, dropout: float = 0.1,
                  fold_bn: bool = False, pos_grid: Optional[int] = None,
-                 fused_bottleneck: bool = False, fused_stem: bool = False):
+                 fused_bottleneck: Union[bool, str] = False,
+                 fused_stem: bool = False):
         """``fold_bn``, ``pos_grid`` and the two kernel switches: see
         ``models.build_segmenter``."""
         super().__init__()

@@ -10,7 +10,7 @@ from .attention_dropout import (attention_dropout_backward,
                                 attention_dropout_route,
                                 fused_attention_bse_dropout)
 from .bottleneck import (bottleneck_plain, bottleneck_plan,
-                         bottleneck_route, fused_bottleneck)
+                         bottleneck_route, bottleneck_takes, fused_bottleneck)
 from .dropout_mask import keep_bits_packed, keep_mask
 from .fused_attention import fused_attention, fused_attention_plain
 from .fused_matmul import conv1x1_fused, fused_matmul, fused_matmul_plain
@@ -22,7 +22,7 @@ __all__ = ["attention_bse_backward_plain", "attention_dropout_backward",
            "attention_dropout_backward_plain", "attention_dropout_forward",
            "attention_dropout_plain", "attention_dropout_route",
            "attention_plain", "bottleneck_plain", "bottleneck_plan",
-           "bottleneck_route", "conv1x1_fused",
+           "bottleneck_route", "bottleneck_takes", "conv1x1_fused",
            "fused_attention", "fused_attention_bse",
            "fused_attention_bse_dropout", "fused_attention_plain",
            "fused_bottleneck", "fused_matmul", "fused_matmul_plain",

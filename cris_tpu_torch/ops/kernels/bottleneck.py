@@ -132,6 +132,32 @@ def bottleneck_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return "tensor_cores" if fits else "staged"
 
 
+# The tails K5 takes when its switch is on: "every" stride-1 identity
+# tail, or the "narrow" ones: in bf16 only tails of mid <= 128 (R50's
+# 104^2 and 52^2 tails), where the per-tail table of chip_smoke.py phase 9
+# has K5 ahead of the cuDNN chain and the bench's b32 A/B
+# (``python3 -m cris_tpu_torch.bench --ab``) had it ahead of K5 on every
+# tail in every round; wider tails reread their weights from L2 once per
+# band and lose. The A/B measured bf16 alone, so other dtypes (the f32
+# checks on the staged body) keep every tail under either rule.
+TAIL_RULES = ("every", "narrow")
+K5_TAILS = "narrow"
+
+
+def bottleneck_takes(h: int, w: int, c: int, mid: int, dtype: torch.dtype,
+                     tails: str = K5_TAILS) -> bool:
+    """Whether K5 takes a stride-1 identity tail of (H, W, C) with width
+    mid at the compute dtype, under the tail rule ``tails`` (see
+    TAIL_RULES); a refused tail runs the cuDNN chain. The port's
+    counterpart of the JAX gate ``supports_shape``
+    (cris_tpu/ops/pallas/bottleneck.py:164), which also reads the
+    spatial shape for its VMEM fit; this rule needs only mid and the
+    dtype. Pure: reads integers and a dtype, no tensor."""
+    if tails not in TAIL_RULES:
+        raise ValueError(f"unknown K5 tail rule {tails!r}; one of {TAIL_RULES}")
+    return tails == "every" or dtype != torch.bfloat16 or mid <= 128
+
+
 def _launch(x, w1, b1, w2, b2, w3, b3):
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"fused_bottleneck: dtype {x.dtype}; need float32 "

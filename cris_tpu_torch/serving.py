@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -49,14 +49,18 @@ class PredictService:
     ``fold_bn`` (the default, as ``cris_tpu.serving``) they are folded
     once (``checkpoint.fold_batchnorm`` with the input resolution) and
     served by the folded model with ``pos_grid = input_size // 32``; the
-    kernel switches ``fused_bottleneck`` (K5) and ``fused_stem`` (K7)
-    need it and stay off by default. The forward runs under bf16 autocast
+    kernel switches ``fused_bottleneck`` (K5, on the tails its tail gate
+    takes; see ``models.build_segmenter``) and ``fused_stem`` (K7) need it
+    and stay off by default: the bench's A/B
+    (``python3 -m cris_tpu_torch.bench --ab``) found neither's gain
+    larger than the spread of its turns. The forward runs under bf16 autocast
     when ``cfg.precision`` is bf16."""
 
     def __init__(self, cfg, model_dir: Optional[str] = None,
                  device="cuda", max_batch: int = 16,
                  fold_bn: bool = True, state_dict=None,
-                 fused_bottleneck: bool = False, fused_stem: bool = False):
+                 fused_bottleneck: Union[bool, str] = False,
+                 fused_stem: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.input_size = int(cfg.input_size)

@@ -1,8 +1,10 @@
-"""Flat config: ``CfgNode``, a YAML loader and the CRIS-R50 RefCOCO preset.
+"""Flat config: ``CfgNode``, a YAML loader and the CRIS-R50 and
+CRIS-R101 RefCOCO presets.
 
 Counterpart of ``cris_tpu.utils.config``: two-level YAML files flatten
 into one attribute-accessible dict. ``yaml`` is imported only by the
-loader, so the preset below serves where PyYAML is absent.
+loader, so the presets below serve where PyYAML is absent
+(``config_for`` picks one for its YAML path).
 """
 
 from __future__ import annotations
@@ -110,3 +112,28 @@ _CRIS_R50_REFCOCO = dict(
 def cris_r50_refcoco() -> CfgNode:
     """A fresh copy of the CRIS-R50 RefCOCO configuration."""
     return CfgNode(copy.deepcopy(_CRIS_R50_REFCOCO))
+
+
+# config/refcoco/cris_r101.yaml, flattened: R50's but for these keys
+_CRIS_R101_REFCOCO = dict(_CRIS_R50_REFCOCO, clip_pretrain="pretrain/RN101.pt",
+                          word_dim=512, fpn_in=[512, 1024, 512],
+                          exp_name="CRIS_R101")
+
+
+def cris_r101_refcoco() -> CfgNode:
+    """A fresh copy of the CRIS-R101 RefCOCO configuration."""
+    return CfgNode(copy.deepcopy(_CRIS_R101_REFCOCO))
+
+
+_PRESETS = {os.path.join("config", "refcoco", "cris_r50.yaml"): cris_r50_refcoco,
+            os.path.join("config", "refcoco", "cris_r101.yaml"): cris_r101_refcoco}
+
+
+def config_for(path: str) -> CfgNode:
+    """The configuration of a YAML file: the preset for the two RefCOCO
+    files (matched on their last three path components, so no PyYAML is
+    needed for them), else the file through ``load_cfg_from_cfg_file``."""
+    key = os.path.join(*os.path.normpath(path).split(os.sep)[-3:])
+    if key in _PRESETS:
+        return _PRESETS[key]()
+    return load_cfg_from_cfg_file(path)

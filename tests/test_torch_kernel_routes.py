@@ -25,8 +25,10 @@ from cris_tpu_torch.ops.kernels import (attention_dropout_backward,
                                         fused_bottleneck, fused_matmul,
                                         fused_stem_pool, stem_route)
 from cris_tpu_torch.ops.kernels.attention import attention_route, split_heads
-from cris_tpu_torch.ops.kernels.bottleneck import (_tc_rows, _tc_smem_bytes,
-                                                   bottleneck_route)
+from cris_tpu_torch.ops.kernels.bottleneck import (K5_TAILS, TAIL_RULES,
+                                                   _tc_rows, _tc_smem_bytes,
+                                                   bottleneck_route,
+                                                   bottleneck_takes)
 from cris_tpu_torch.ops.kernels.fused_matmul import fused_matmul_route
 from cris_tpu_torch.ops.kernels.stem import TC_TILES
 from cris_tpu_torch.ops.kernels.stem import _tc_smem_bytes as _stem_smem_bytes
@@ -337,6 +339,64 @@ def test_k5_route_reads_no_values():
     bias = torch.zeros(64)
     fused_bottleneck(x, ws[0], bias, ws[1], bias, ws[2], bias)
     assert fused_bottleneck.launches_by_route == before
+
+
+@pytest.mark.parametrize("rule", TAIL_RULES)
+@pytest.mark.parametrize("site,h,c,mid", K5_SITES,
+                         ids=[s[0] for s in K5_SITES])
+def test_k5_tail_gate_at_the_r50_tails(site, h, c, mid, rule):
+    """"every" takes all four R50 tails; "narrow" takes in bf16 the 104^2
+    and 52^2 tails (mid 64 and 128), where K5 beat the cuDNN chain, and
+    in f32 every tail. The gate reads integers and a dtype, so no tensor
+    is made."""
+    assert bottleneck_takes(h, h, c, mid, BF16, rule) is (
+        rule == "every" or mid <= 128)
+    assert bottleneck_takes(h, h, c, mid, torch.float32, rule) is True
+
+
+@pytest.mark.parametrize("shape", [(26, 26, 1024, 256), (13, 13, 2048, 512),
+                                   (40, 40, 768, 192), (7, 7, 2048, 512)],
+                         ids=["R50 layer3", "R50 layer4", "mid 192",
+                              "224 px layer4"])
+def test_k5_tail_gate_refuses(shape):
+    """The "narrow" rule refuses bf16 tails wider than mid 128, whatever
+    their spatial size; "every" takes them; an unknown rule raises."""
+    assert not bottleneck_takes(*shape, BF16, "narrow")
+    assert bottleneck_takes(*shape, BF16, "every")
+    with pytest.raises(ValueError, match="tail rule"):
+        bottleneck_takes(*shape, BF16, "wide")
+
+
+@pytest.mark.parametrize("rule", [True, *TAIL_RULES])
+def test_folded_tails_consult_the_gate(rule, monkeypatch):
+    """A folded tiny CRIS with tails (1, 2, 2, 1) asks the gate about each
+    tail with the rule it was built with (True: K5_TAILS) at its input's
+    shape and compute dtype, and runs K5 only where the gate takes it."""
+    from cris_tpu_torch.models import clip_resnet
+
+    asked, ran = [], []
+
+    def gate(h, w, c, mid, dtype, tails):
+        asked.append((h, w, c, mid, dtype, tails))
+        return h == 8  # layer2's tail only
+
+    def k5(*args):
+        ran.append(args[0].shape)
+        return args[0]
+
+    monkeypatch.setattr(clip_resnet, "bottleneck_takes", gate)
+    monkeypatch.setattr(clip_resnet, "fused_bottleneck", k5)
+    ccfg = CLIPConfig(64, 64, (1, 2, 2, 1), 16, None, 77, 49408, 64, 4, 2)
+    model = init_weights(CRIS(ccfg, fpn_in=(128, 256, 64),
+                              fpn_out=(32, 64, 128), vis_dim=64, num_layers=1,
+                              num_head=4, dim_ffn=128, dropout=0.0,
+                              fold_bn=True, fused_bottleneck=rule), 0).eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 3, 64, 64), torch.ones(1, 17, dtype=torch.long))
+    want = K5_TAILS if rule is True else rule
+    assert asked == [(8, 8, 128, 32, torch.float32, want),
+                     (4, 4, 256, 64, torch.float32, want)]
+    assert ran == [(1, 8, 8, 128)]
 
 
 # ---------------------------------------------------------------- K7

@@ -258,3 +258,18 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_bench_and_latency_import_no_jax_opencv_yaml_or_regex():
+    """The card's entry points, the bench and latency, import none of the
+    modules the card's machine lacks, nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import cris_tpu_torch.bench, cris_tpu_torch.latency\n"
+        "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
+        "       if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
