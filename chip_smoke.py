@@ -120,6 +120,17 @@ Phases (any failure raises, and the script exits non-zero):
    all on the tensor cores; and R101's first check on the card, its f32
    folded forward at B 1 against the unfolded CPU forward (relative L2
    <= 1e-4, mask agreement >= 0.999).
+13. the test.py path (python3 -m cris_tpu_torch.test): the host image
+   codec built here from csrc/image_codec.cc decodes an embedded 4:2:0
+   JPEG to the sha256 of cv2.imdecode's output; seed-0 random CRIS-R50
+   weights saved as best_model.pth in a temporary output directory; the
+   first device batch of 64 (image, sentence) pairs through the folded
+   f32 model on the card against the same on the CPU (relative L2 of the
+   probabilities <= 1e-4); then the entry's main over
+   synthetic://64?seed=0 at 416 px, batch_size_val 64, bf16, BN folded:
+   IoU, Pr@50..90 and oIoU finite in [0, 1], every pair scored, K1 7
+   times a device batch, every launch on the tensor cores, and pairs per
+   second on the host clock with the card's busy share.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -134,12 +145,17 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 6,8    # K2 on both routes, the train step
     python3 chip_smoke.py --phases 9      # K5 and K7: routes, plans, times
     python3 chip_smoke.py --phases 12     # the bench at short lengths, R101
+    python3 chip_smoke.py --phases 13     # the test.py path, the codec
 """
 
 import argparse
+import base64
+import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -180,6 +196,56 @@ K5_SHAPES = [
     ("layer3 tail", 26, 26, 1024, 256, 5),
     ("layer4 tail", 13, 13, 2048, 512, 2),
 ]
+# A 61 x 47 JPEG made with cv2.imencode (quality 90, 4:2:0, restart
+# interval 2), and the sha256 of cv2.imdecode's BGR output for it
+# (OpenCV 5.0.0, libjpeg-turbo 3.1.2): the codec built on the card must
+# reproduce it. tests/test_torch_data.py holds both against cv2.
+CODEC_JPEG_SHAPE = (47, 61, 3)
+CODEC_JPEG_SHA256 = ("631d8935ae55513c9b5fd9e9f5d1292b"
+                     "ac651f0073eaab81a5eead919dc52e56")
+CODEC_JPEG_B64 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAMCAgMCAgMDAwMEAwMEBQgFBQQEBQoHBwYIDAoM"
+    "DAsKCwsNDhIQDQ4RDgsLEBYQERMUFRUVDA8XGBYUGBIUFRT/2wBDAQMEBAUEBQkFBQkUDQsN"
+    "FBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBT/wAAR"
+    "CAAvAD0DASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAA"
+    "AgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkK"
+    "FhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWG"
+    "h4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl"
+    "5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+    "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYk"
+    "NOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOE"
+    "hYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/90ABAAC/9oADAMBAAIRAxEAPwD0r4cMvhnUluJU+ZiCrqAoUk9D"
+    "j2PB9M13vjnUYfGGjyQWygy+X8m0YK5OODj65/H61k+K/DYsrRmt1dnOAQp5PX256Dk5/MCt"
+    "r4S2EcZd9Qj8pVG8liMHGTnk/UdOvY1+VrPctzfLZZZl7bpyep+Y53RoYvO6eCknzvY+K/H3"
+    "7L2qzeJJdTXPk792ShweSTg+vUEYr2b4J30OlC30dgI5lXy2yuCuF5AGOowc/wBa9F+PXxPg"
+    "8O2E1rZ2wnJ4woHXn/7E8+g4r5g8PeM3tPFK6hcOI13lvL3bQOnsDnnHPp71/Q2T18dmGS0s"
+    "BhVdUV/Vz9SwOSZvhsVSwtePuN6d/n1P/9DqP2iY/sViJcq5IyQp5zkAE5xj1/I/Xl/hv4Gu"
+    "tf8ACk93CMEIXYhecnODnHHXP881teKZoviVp1vBAPMCgDgjLdCCR+Ofw9q9L+HcUHgnw0+n"
+    "zp5RdQo3HCs3OP5fh9a9POKlOhg19a+NuzR0ZvxLieGc7llkVol8z46+zvaePJrBYnklllwZ"
+    "GIJB6cjn0znvjrX1voXw+e+0a0lCsgKY4wM/5/rXkvjvwI2ka+/iBIXaItvA4PJ5/Hkc/T3p"
+    "W/aW/sCNLAvjyPk2kdOB2PSvKzbhThKvGjVjVfM1rbv8tj8azLHZ5xNiZ1Mqgmk9bo//0fo7"
+    "4YfFPwr491Y2IkSQMwXOQcHooA75Hcf41z/7TB1DwraCTw3v8tmAJTP3sdD7D/PSvkD4YfD/"
+    "AMU/B/UYtTuppUt4m3lQSAG4yR6nB6c9vavsLwh8V9K8Y6N5F6iSSCPbtc5zxggDv/8AqNfK"
+    "5PUyrhak85yzDqtSjpbofd0MkyrCYqOYNqdRfeeaeDrGDxT4buJdf/4+24MkgIJbA9OmT7f/"
+    "AFvCfix4Gvba6mk0q3yquzNtHGQFAYnpnkCvRPil4zFh4jaz08tHDJIcrGoA64HQe31yDgdq"
+    "7DSNU0uw0JdQvollAQFw7DBbv3wecd/yr9ey3MqeQ4Grm6l72MXuw7X7HvVMXgskUswzHEWb"
+    "1in/AFof/9KP9km3v7G8L62nkIc4M+CGHcYyOcY6V1vxp+IcOl+KImspmNuhGQx4GOCMnp25"
+    "GOnbiuW1r4p6brTyWeiLHDOQwz0I47Y79DXlXjWC9SwupJ2Ziq4+YAHoSBjnjAH+RX2XAlHH"
+    "Y7H1KOe4X91JOzfnexGEy18TZ7Vz/MvdoWaUu/8AWh9X3nj3wx4u8CCzilT7eY8YBGMYwAQO"
+    "Tx29u9fLOvfAjX9V1KW4tIJwrE7ioyc5PHb+teU/B3UNdtviFELiaZbMuR5ZJ2jpkgfl71+p"
+    "XgfUfDsnh21e98tJ2QFt4Gd2Bnnn2/ya0p0cB4fYurFxWJU22r68vkfKUJZNg8RVU8Z7BX08"
+    "13P/0y9+Ix+JEf2NginfknIHBz19eMD9cVh32m6j4HmMun+Y5m2nCfPhjnkZ57Ac+/1rB+Dm"
+    "x9TQxyAAksHUHPTGDn3H+e/17pPgfT/E2lyebCDtUrk4yenGcfSujj2nluQ4OWGymlyUHuhZ"
+    "r4oZHmGZwybAYbknLZ22PIfh58OLHx7NHf6nIFkXa2HyOenY56kivU/Fnwt0C60E2SXUUcJj"
+    "8pQWwcge34fn6V89/FjxpqPw11U2elkwSM+0opAHH3sEdPXr1B/Hx/xv+0F4kg0ZJ4pWUynA"
+    "56EZ6c+oJ/HFeNw2nxXg4yi7ewV0fN0MqxHE+PlTzGpzQpbfp/wD/9TmNe+HVl4I1KVrGYzk"
+    "ng7shyB94cYzz/nNR6CIPFl9Fb37FQcYWQDGcdcjjuv+eK81+A/je/8AiLezLqWXjAbG9s45"
+    "GT17Guj8e6jdeEfGqWlmSg3biucr9f1Azj0r2sf4iVVg1lUV++WnN5HkrjDDLNP9VXT/AHa2"
+    "Pe9R+AVnofhsa5FDEZiOsYz79QP88njivA9Y+MGu6Nd/ZDFOwjGAN23Hb7uBjoK+tfhxrN54"
+    "p8DJb3D+ZDhWI3HhcZIB646ce1co/wAHtEu7iaRrVJmdt5J+XBPGMfhj8K9jBcSZRh6CeaUe"
+    "eXVn0cuDsgwr583oe1k/h8kf/9k="
+)
 HBM_BYTES_PER_S = 3.35e12
 SM_HZ = 1.98e9  # the H100 SXM's top SM clock: a sleep's cycles at the least
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -1718,6 +1784,110 @@ def phase_kernel_api(api, cfg, build_segmenter):
                 model_max_abs_err=model_err, seconds=seconds)
 
 
+def phase_test_path(k1):
+    """13: the codec's bits on the card, the first batch's f32
+    probabilities card vs CPU, and python3 -m cris_tpu_torch.test's main
+    over 64 synthetic refs at R50 416 px, b64, bf16, folded. Returns the
+    run's numbers, with K1's launches by route during main alone."""
+    from cris_tpu_torch import test as entry
+    from cris_tpu_torch.data import RefDataset, SyntheticBackend, codec
+    from cris_tpu_torch.engine import Evaluator
+    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
+    from cris_tpu_torch.utils.logging import logger
+
+    t0 = time.perf_counter()
+    path = codec.build()
+    build_s = time.perf_counter() - t0
+    img = codec.decode_image(base64.b64decode(CODEC_JPEG_B64))
+    digest = hashlib.sha256(img.tobytes()).hexdigest()
+    print(f"codec: {path.name} built in {build_s:.1f} s; the embedded JPEG "
+          f"decodes to {img.shape}, sha256 {digest}", flush=True)
+    assert img.shape == CODEC_JPEG_SHAPE, img.shape
+    assert digest == CODEC_JPEG_SHA256, digest
+
+    cfg = cris_r50_refcoco()
+    uri, b = "synthetic://64?seed=0", cfg.batch_size_val
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, cfg.exp_name)
+        os.makedirs(out_dir)
+        weights = os.path.join(out_dir, "best_model.pth")
+        torch.save({"state_dict": build_segmenter(cfg, device="cpu",
+                                                  seed=0).state_dict()},
+                   weights)
+        masks = SyntheticBackend(64, seed=0).materialize_masks(
+            os.path.join(tmp, "masks"))
+
+        # the first device batch, as inference packs it, f32 card vs CPU
+        data = RefDataset(uri, masks, cfg.dataset, cfg.test_split, "test",
+                          cfg.input_size, cfg.word_len)
+        pairs = sum(data.backend[i]["num_sents"] for i in range(len(data)))
+        images, words = [], []
+        for i in range(len(data)):
+            sample = data[i]
+            for sent in sample["sents"][: b - len(images)]:
+                images.append(sample["image"])
+                words.append(tokenize(sent, cfg.word_len, True)[0])
+            if len(images) == b:
+                break
+        images, words = np.stack(images), np.stack(words)
+        probs = {}
+        for device in ("cuda", "cpu"):
+            model = entry.load_model(cfg, weights, torch.device(device))
+            ev = Evaluator(model, cfg.input_size, None, batch_size=b)
+            t0 = time.perf_counter()
+            probs[device] = torch.from_numpy(ev._fetch(
+                ev._dispatch(images, words), b))
+            print(f"first batch f32 on {device}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            del model, ev
+        rel = _rel(probs["cuda"], probs["cpu"])
+        print(f"test.py path, first batch of {b} pairs, f32 folded "
+              f"probabilities card vs CPU: rel L2 {rel:.3e}", flush=True)
+        assert torch.isfinite(probs["cuda"]).all()
+        assert rel <= 1e-4, rel
+        torch.cuda.empty_cache()
+
+        argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                "--opts", "TRAIN.output_folder", tmp, "TEST.test_lmdb", uri,
+                "DATA.mask_root", masks, "TRAIN.batch_size_val", str(b)]
+        reset_counts(k1)
+        t0 = time.perf_counter()
+        iou, prec = entry.main(argv)
+        seconds = time.perf_counter() - t0
+        by_route = dict(k1.launches_by_route)
+        launches = k1.launches
+        for handler in logger.handlers:
+            handler.close()
+        logger.handlers.clear()
+        with open(os.path.join(out_dir, "test.log")) as f:
+            run = json.loads(f.read().rsplit("=> run: ", 1)[1].splitlines()[0])
+    batches = -(-pairs // b)
+    busy = run["device_seconds"] / run["seconds"]
+    print(f"python3 -m cris_tpu_torch.test ({uri}, R50 416 px, b{b}, bf16, "
+          f"folded): IoU {100 * iou:.2f}, "
+          + ", ".join(f"{k} {100 * v:.2f}" for k, v in prec.items())
+          + f"; {run['pairs']} pairs in {run['batches']} batches, "
+          f"{run['pairs_per_s']:.2f} pairs/s on the host clock "
+          f"({run['seconds']:.2f} s in inference, {seconds:.2f} s in main), "
+          f"the card busy {run['device_seconds']:.3f} s ({busy:.4f}, the host "
+          f"{1 - busy:.4f}); K1 {launches} launches, "
+          f"{launches / run['batches']:.1f} a batch, by route {by_route}; "
+          f"on {run['card']}", flush=True)
+    assert run["pairs"] == pairs and run["batches"] == batches, (run, pairs)
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in [iou, *prec.values()]), (iou, prec)
+    assert sorted(prec) == ["Pr@50", "Pr@60", "Pr@70", "Pr@80", "Pr@90",
+                            "oIoU"], prec
+    want = 7 * batches  # 3 decoder layers x 2 sites + attnpool
+    assert launches == want, (launches, want)
+    assert by_route == {"tensor_cores": want, "scalar": 0}, by_route
+    return {"iou": iou, "prec": prec, "run": run, "main_seconds": seconds,
+            "busy_share": busy, "first_batch_rel_l2": rel,
+            "codec_build_seconds": build_s, "K1": launches,
+            "K1_by_route": by_route}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -1729,7 +1899,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 13)) if run_all else {
+    wanted = set(range(2, 14)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -1811,6 +1981,8 @@ def main() -> int:
             bench, build_segmenter, fold_batchnorm, tokenize,
             preset_from_name, kernels.bottleneck_takes, k1, k2,
             kernels.attention_dropout_backward, k5, k7)
+    if 13 in wanted:
+        out["test_path"] = phase_test_path(k1)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -1828,6 +2000,7 @@ def summary(out) -> dict:
     (k2_fwd_n, k2_bwd_n, k1_train_n), step_ms, peak, _, train_routes = \
         out["train"]
     bench = out["bench"]["launches"]  # phase 12, all on tensor_cores
+    test_path = out["test_path"]  # phase 13
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -1883,15 +2056,17 @@ def summary(out) -> dict:
         "source": "cris_tpu_torch/csrc/attention_bse.cu",
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
-                     + bench["K1"]),
+                     + bench["K1"] + test_path["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
-                             "bench": bench["K1"]},
+                             "bench": bench["K1"],
+                             "test.py": test_path["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
             + (bench["K1"] if r == "tensor_cores" else 0)
+            + test_path["K1_by_route"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
         # on the device alone: the tensor-core body runs shorter than the
@@ -2010,7 +2185,9 @@ def summary(out) -> dict:
                       "kernel_api_seconds": api["seconds"],
                       "train_bf16_b32": {"median_step_ms": step_ms,
                                          "peak_gib": peak},
-                      "bench_short": out["bench"]}), flush=True)
+                      "bench_short": out["bench"],
+                      "test_path": {k: v for k, v in test_path.items()
+                                    if k != "K1_by_route"}}), flush=True)
     return {"kernels": kernels}
 
 

@@ -1,5 +1,5 @@
-"""Flat config: ``CfgNode``, a YAML loader and the CRIS-R50 and
-CRIS-R101 RefCOCO presets.
+"""Flat config: ``CfgNode``, a YAML loader, ``--opts KEY VALUE``
+overrides and the CRIS-R50 and CRIS-R101 RefCOCO presets.
 
 Counterpart of ``cris_tpu.utils.config``: two-level YAML files flatten
 into one attribute-accessible dict. ``yaml`` is imported only by the
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import copy
 import os
+from ast import literal_eval
 
 
 class CfgNode(dict):
@@ -46,6 +47,51 @@ def load_cfg_from_cfg_file(file: str) -> CfgNode:
     for section in raw:
         flat.update(raw[section])
     return CfgNode(flat)
+
+
+def merge_cfg_from_list(cfg: CfgNode, cfg_list) -> CfgNode:
+    """``cfg`` with ``--opts full.key value`` pairs applied: the last
+    dotted component selects the key (the namespace is flat), an unknown
+    key is an error, and each value is literal-eval decoded and coerced to
+    the existing value's type (cris_tpu/utils/config.py:75-90)."""
+    new_cfg = copy.deepcopy(cfg)
+    if len(cfg_list) % 2 != 0:
+        raise AssertionError("--opts must come in KEY VALUE pairs")
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        subkey = full_key.split(".")[-1]
+        if subkey not in cfg:
+            raise AssertionError(f"Non-existent key: {full_key}")
+        value = _coerce_value_type(_decode_cfg_value(v), cfg[subkey], full_key)
+        setattr(new_cfg, subkey, value)
+    return new_cfg
+
+
+def _decode_cfg_value(v):
+    """A raw string -> a Python literal when it is one (a bare word or a
+    path stays a string)."""
+    if not isinstance(v, str):
+        return v
+    try:
+        return literal_eval(v)
+    except (ValueError, SyntaxError):
+        return v
+
+
+def _coerce_value_type(replacement, original, full_key):
+    """The replacement, when its type matches the original's (anything
+    replaces a None; list <-> tuple and int -> float convert)."""
+    original_type, replacement_type = type(original), type(replacement)
+    if replacement_type == original_type or original is None:
+        return replacement
+    if replacement_type is tuple and original_type is list:
+        return list(replacement)
+    if replacement_type is list and original_type is tuple:
+        return tuple(replacement)
+    if replacement_type is int and original_type is float:
+        return float(replacement)
+    raise ValueError(
+        f"Type mismatch ({original_type} vs. {replacement_type}) with values "
+        f"({original} vs. {replacement}) for config key: {full_key}")
 
 
 # config/refcoco/cris_r50.yaml, flattened

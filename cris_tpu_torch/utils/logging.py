@@ -1,12 +1,62 @@
-"""Training meters on the standard library's ``logging`` (counterpart of
-``AverageMeter`` and ``ProgressMeter`` in cris_tpu/utils/logging.py)."""
+"""Logging and training meters on the standard library's ``logging``
+(counterpart of ``setup_logger``, ``log_exceptions``, ``AverageMeter`` and
+``ProgressMeter`` in cris_tpu/utils/logging.py)."""
 
 from __future__ import annotations
 
+import functools
 import logging
-from typing import List
+import os
+import sys
+from typing import List, Optional
+
+_LOG_FORMAT = "%(asctime)s | %(levelname)-8s | %(name)s:%(lineno)d - %(message)s"
+_DATE_FORMAT = "%Y-%m-%d %H:%M:%S"
 
 logger = logging.getLogger("cris_tpu_torch")
+
+
+def setup_logger(save_dir: Optional[str] = None, process_index: int = 0,
+                 filename: str = "log.txt", mode: str = "a") -> logging.Logger:
+    """The package logger at INFO: stderr, and ``save_dir/filename`` when
+    given (``mode="o"`` starts the file anew), on process 0; other
+    processes stay silent."""
+    for handler in logger.handlers:
+        handler.close()
+    logger.handlers.clear()
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    if process_index != 0:
+        logger.addHandler(logging.NullHandler())
+        return logger
+    formatter = logging.Formatter(_LOG_FORMAT, datefmt=_DATE_FORMAT)
+    stream = logging.StreamHandler(sys.stderr)
+    stream.setFormatter(formatter)
+    logger.addHandler(stream)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, filename)
+        if mode == "o" and os.path.exists(path):
+            os.remove(path)
+        fh = logging.FileHandler(path, mode="a")
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
+    return logger
+
+
+def log_exceptions(fn):
+    """Log an uncaught exception through the package logger, then raise
+    it again (the reference's ``@logger.catch`` on its entry points)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except Exception:
+            logger.exception(f"uncaught exception in {fn.__name__}")
+            raise
+
+    return wrapper
 
 
 class AverageMeter:

@@ -251,8 +251,15 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.ops.kernels.fused_attention\n"
         "import cris_tpu_torch.ops.kernels.fused_matmul\n"
         "import cris_tpu_torch.ops.kernels.layernorm\n"
-        "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'cris_tpu')\n"
-        "       if m in sys.modules]\n"
+        "import cris_tpu_torch.data, cris_tpu_torch.data.codec\n"
+        "import cris_tpu_torch.data.dataset, cris_tpu_torch.data.loader\n"
+        "import cris_tpu_torch.data.records, cris_tpu_torch.data.synthetic\n"
+        "import cris_tpu_torch.engine.evaluator, cris_tpu_torch.engine.metrics\n"
+        "import cris_tpu_torch.cli, cris_tpu_torch.test\n"
+        "from cris_tpu_torch.data import decode_image, make_record\n"
+        "decode_image(make_record(0)['img'])\n"
+        "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"
+        "                   'cris_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
