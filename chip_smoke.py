@@ -131,6 +131,23 @@ Phases (any failure raises, and the script exits non-zero):
    IoU, Pr@50..90 and oIoU finite in [0, 1], every pair scored, K1 7
    times a device batch, every launch on the tensor cores, and pairs per
    second on the host clock with the card's busy share.
+14. the train.py path (python3 -m cris_tpu_torch.train) at CRIS-R50, 416
+   px, bf16, dropout 0.1, b64: (a) a seeded RN50 CLIP traced into a
+   TorchScript archive with a released archive's scalar entries, passed
+   as clip_pretrain: the inferred config is the RN50 preset and the built
+   backbone the traced weights bit for bit; (b) main over
+   synthetic://128?seed=1 (2 steps an epoch) and synthetic://64?seed=2,
+   no mask_root, 2 epochs, milestone 1: finite losses, the logged and
+   the groups' learning rates on the schedule, per step K2 6 + 6 and K1
+   1 launches and K1 7 per val batch, all on the tensor cores,
+   last_model.pth and best_model.pth written, best_model.pth through
+   cris_tpu_torch.test.load_model gives finite probabilities, and its
+   "=> run:" line; (c) a resume to 3 epochs: logged at epoch 2, the
+   scheduler at step 4 and the optimizer state equal to the saved one
+   before the first step, the best IoU carried forward; (d) an f32 b8
+   step with remat on and off from one set of weights and one seed: the
+   gradients within phase 7's bars of each other, the BN statistics
+   equal; a bf16 b64 step's peak memory with and without remat.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -146,6 +163,7 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 9      # K5 and K7: routes, plans, times
     python3 chip_smoke.py --phases 12     # the bench at short lengths, R101
     python3 chip_smoke.py --phases 13     # the test.py path, the codec
+    python3 chip_smoke.py --phases 14     # the train.py path, resume, remat
 """
 
 import argparse
@@ -1784,6 +1802,19 @@ def phase_kernel_api(api, cfg, build_segmenter):
                 model_max_abs_err=model_err, seconds=seconds)
 
 
+def _run_line(path: str) -> dict:
+    with open(path) as f:
+        return json.loads(f.read().rsplit("=> run: ", 1)[1].splitlines()[0])
+
+
+def _close_log():
+    from cris_tpu_torch.utils.logging import logger
+
+    for handler in logger.handlers:
+        handler.close()
+    logger.handlers.clear()
+
+
 def phase_test_path(k1):
     """13: the codec's bits on the card, the first batch's f32
     probabilities card vs CPU, and python3 -m cris_tpu_torch.test's main
@@ -1794,7 +1825,6 @@ def phase_test_path(k1):
     from cris_tpu_torch.engine import Evaluator
     from cris_tpu_torch.models import build_segmenter
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
-    from cris_tpu_torch.utils.logging import logger
 
     t0 = time.perf_counter()
     path = codec.build()
@@ -1857,11 +1887,8 @@ def phase_test_path(k1):
         seconds = time.perf_counter() - t0
         by_route = dict(k1.launches_by_route)
         launches = k1.launches
-        for handler in logger.handlers:
-            handler.close()
-        logger.handlers.clear()
-        with open(os.path.join(out_dir, "test.log")) as f:
-            run = json.loads(f.read().rsplit("=> run: ", 1)[1].splitlines()[0])
+        _close_log()
+        run = _run_line(os.path.join(out_dir, "test.log"))
     batches = -(-pairs // b)
     busy = run["device_seconds"] / run["seconds"]
     print(f"python3 -m cris_tpu_torch.test ({uri}, R50 416 px, b{b}, bf16, "
@@ -1888,6 +1915,212 @@ def phase_test_path(k1):
             "K1_by_route": by_route}
 
 
+def phase_train_entry(k1, k2, k2_bwd):
+    """14: python3 -m cris_tpu_torch.train at CRIS-R50, 416 px, bf16,
+    dropout 0.1, b64: (a) a seeded RN50 CLIP traced into a TorchScript
+    archive and built from it; (b) main over 128 synthetic refs (2 steps
+    an epoch) and 64 val refs, 2 epochs, milestone 1; (c) a resume to
+    epoch 3; (d) remat against no remat. Returns (b)'s numbers."""
+    import copy
+    import re
+
+    from cris_tpu_torch import cli
+    from cris_tpu_torch import test as test_entry
+    from cris_tpu_torch import train as entry
+    from cris_tpu_torch.checkpoint import (BEST_NAME, LAST_NAME,
+                                           load_clip_torchscript,
+                                           save_clip_torchscript)
+    from cris_tpu_torch.engine import (Evaluator, make_optimizer, step_seed,
+                                       train_step)
+    from cris_tpu_torch.grad_spread import grad_faults, grad_rel
+    from cris_tpu_torch.models import (CLIP, CLIP_PRESETS, build_segmenter,
+                                       init_weights)
+    from cris_tpu_torch.profile_train import make_batches
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    t_phase = time.perf_counter()
+    cfg = cris_r50_refcoco()
+    assert cfg.precision == "bf16" and cfg.dropout == 0.1
+    b, steps, val_batches = cfg.batch_size, 2 * 2, 2 * 1
+    sites = 2 * cfg.num_layers
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a released-format archive in, the RN50 preset and its bits out
+        clip = init_weights(CLIP(CLIP_PRESETS["RN50"]), 5)
+        gen = torch.Generator().manual_seed(5)
+        with torch.no_grad():  # BN statistics other than the init's 0 and 1
+            for buf in clip.buffers():
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+        archive = save_clip_torchscript(clip, os.path.join(tmp, "RN50.pt"))
+        sd, inferred = load_clip_torchscript(archive)
+        assert inferred == CLIP_PRESETS["RN50"], inferred
+        built_cfg = copy.deepcopy(cfg)
+        built_cfg.clip_pretrain = archive
+        built = cli.build_model(built_cfg, "cuda").state_dict()
+        want = clip.state_dict()
+        assert set(sd) == set(want)
+        for k, v in want.items():
+            assert torch.equal(built["backbone." + k].cpu(), v), k
+        print(f"(a) archive {os.path.getsize(archive) / 2**20:.1f} MiB, "
+              f"{len(sd)} tensors: inferred config == RN50 preset, the built "
+              f"backbone equals the traced weights bit for bit", flush=True)
+        del built, clip, sd
+        torch.cuda.empty_cache()
+
+        # (b) train, validate, save
+        argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                "--opts", "TRAIN.clip_pretrain", archive,
+                "DATA.train_lmdb", "synthetic://128?seed=1",
+                "DATA.val_lmdb", "synthetic://64?seed=2", "DATA.mask_root", "",
+                "TRAIN.epochs", "2", "TRAIN.milestones", "[1]",
+                "TRAIN.print_freq", "1", "TRAIN.output_folder", tmp]
+        out_dir = os.path.join(tmp, cfg.exp_name)
+        reset_counts(k1, k2, k2_bwd)
+        t0 = time.perf_counter()
+        best, last = entry.main(argv)
+        main_s = time.perf_counter() - t0
+        counts = {"K1": k1.launches, "K2 fwd": k2.launches,
+                  "K2 bwd": k2_bwd.launches}
+        routes = {"K1": dict(k1.launches_by_route),
+                  "K2 fwd": dict(k2.launches_by_route),
+                  "K2 bwd": dict(k2_bwd.launches_by_route)}
+        _close_log()
+        log_path = os.path.join(out_dir, "train.log")
+        with open(log_path) as f:
+            log = f.read()
+        run = _run_line(log_path)
+        lines = re.findall(r"Epoch=\[(\d)/2\] \[(\d)/2\].*Lr=(\S+)\s+"
+                           r"Loss=(\S+)", log)
+        losses = [float(x[3]) for x in lines]
+        ckpt = torch.load(os.path.join(out_dir, LAST_NAME), map_location="cpu",
+                          weights_only=False)
+        lrs = [g["lr"] for g in ckpt["optimizer"]["param_groups"]]
+        print(f"(b) python3 -m cris_tpu_torch.train (R50 416 px, b{b}, bf16, "
+              f"dropout 0.1, 2 epochs of 2 steps, milestone 1): losses "
+              f"{losses}, logged lr {[float(x[2]) for x in lines]}, group lrs "
+              f"after 4 steps {lrs}, best IoU {best:.6f} (epoch {last}); "
+              f"launches {counts}, by route {routes}; main {main_s:.1f} s",
+              flush=True)
+        print(f"(b) => run: {json.dumps(run)}", flush=True)
+        assert last == 2 and len(losses) == steps, (last, lines)
+        assert all(np.isfinite(losses)), losses
+        decayed = cfg.base_lr * cfg.lr_decay  # after the milestone epoch
+        assert np.allclose([float(x[2]) for x in lines],
+                           [cfg.base_lr] * 2 + [decayed] * 2), lines
+        assert np.allclose(lrs, [decayed * cfg.lr_multi, decayed],
+                           rtol=1e-12), lrs
+        assert ckpt["scheduler"]["last_epoch"] == steps
+        assert ckpt["epoch"] == 2 and ckpt["best_iou"] == best
+        want = {"K1": steps + 7 * val_batches, "K2 fwd": sites * steps,
+                "K2 bwd": sites * steps}
+        assert counts == want, (counts, want)
+        for name, n in want.items():
+            assert routes[name] == {"tensor_cores": n, "scalar": 0}, routes
+        assert run["steps"] == steps and run["images"] == steps * b, run
+        assert os.path.isfile(os.path.join(out_dir, BEST_NAME))
+        model = test_entry.load_model(cfg, os.path.join(out_dir, BEST_NAME),
+                                      torch.device("cuda"))
+        gen = torch.Generator().manual_seed(3)
+        probs = Evaluator(model, cfg.input_size, torch.bfloat16).predict_probs(
+            torch.randn(2, 3, cfg.input_size, cfg.input_size,
+                        generator=gen).numpy(),
+            torch.randint(1, 400, (2, cfg.word_len), generator=gen).numpy())
+        assert probs.shape == (2, cfg.input_size, cfg.input_size)
+        assert np.isfinite(probs).all()
+        del model
+        out.update(best_iou=best, losses=losses, run=run, main_seconds=main_s,
+                   launches=counts, by_route=routes)
+
+        # (c) resume: 1 more epoch from last_model.pth
+        seen = []
+        real_epoch = entry.train_epoch
+
+        def first_epoch(model, optimizer, scheduler, *args, **kwargs):
+            if not seen:
+                state = optimizer.state_dict()
+                seen.append(scheduler.last_epoch)
+                for i, group in ckpt["optimizer"]["state"].items():
+                    for key, value in group.items():
+                        assert torch.equal(state["state"][i][key].cpu(),
+                                           value), (i, key)
+                assert state["param_groups"] == ckpt["optimizer"][
+                    "param_groups"]
+            return real_epoch(model, optimizer, scheduler, *args, **kwargs)
+
+        entry.train_epoch = first_epoch
+        try:
+            best3, last3 = entry.main(argv + [
+                "TRAIN.epochs", "3", "TRAIN.resume",
+                os.path.join(out_dir, LAST_NAME)])
+        finally:
+            entry.train_epoch = real_epoch
+        _close_log()
+        with open(log_path) as f:
+            log = f.read()
+        ckpt3 = torch.load(os.path.join(out_dir, LAST_NAME),
+                           map_location="cpu", weights_only=False)
+        resumed = f"=> loaded checkpoint '{os.path.join(out_dir, LAST_NAME)}'" \
+                  " (epoch 2)"
+        print(f"(c) resume: '{resumed}' logged {resumed in log}, "
+              f"scheduler.last_epoch {seen}, optimizer state equal to the "
+              f"saved one before the first step; epoch 3 IoU "
+              f"{ckpt3['cur_iou']:.6f}, best IoU {best:.6f} -> {best3:.6f}",
+              flush=True)
+        assert resumed in log and seen == [steps] and last3 == 3
+        assert ckpt3["epoch"] == 3 and ckpt3["scheduler"]["last_epoch"] == 6
+        assert best3 == ckpt3["best_iou"] == max(best, ckpt3["cur_iou"])
+        del ckpt, ckpt3
+
+    # (d) remat: the same f32 b8 step, and a bf16 b64 step's peak memory
+    bases = {}
+    for remat in (False, True):
+        c = copy.deepcopy(cfg)
+        c.remat = remat
+        bases[remat] = (c, build_segmenter(c, device="cpu", seed=0,
+                                           train=True))
+
+    def remat_step(remat, batch, dtype):
+        c, base = bases[remat]
+        model = copy.deepcopy(base).cuda()
+        opt, sched = make_optimizer(model, c, steps_per_epoch=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = train_step(model, opt, sched, batch, step_seed(0, 0),
+                          dtype)["loss"].item()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        stats = {n: t.detach().cpu() for n, t in model.named_buffers()}
+        del model, opt, sched
+        torch.cuda.empty_cache()
+        return loss, grads, stats, peak
+
+    batch = make_batches(1, 8, cfg.input_size, cfg.word_len, "cuda", seed=7)[0]
+    off, on, off2 = (remat_step(r, batch, None) for r in (False, True, False))
+    names = list(off[1])
+    head = [n for n in names if not n.startswith("backbone.")]
+    faults = grad_faults(on[1], off[1], off2[1], names, head)
+    rel, spread = grad_rel(on[1], off[1], names), grad_rel(off2[1], off[1],
+                                                          names)
+    same_stats = all(torch.equal(on[2][n], off[2][n]) for n in off[2])
+    print(f"(d) remat, f32 b8 dropout 0.1: loss {on[0]:.6f} vs {off[0]:.6f}; "
+          f"gradients' global rel L2 {rel:.3e} (no remat against itself "
+          f"{spread:.3e}); {len(faults)} outside phase 7's bars; BN "
+          f"statistics equal: {same_stats}", flush=True)
+    assert abs(on[0] - off[0]) <= 1e-4 * abs(off[0]), (on[0], off[0])
+    assert not faults, faults[:5]
+    assert same_stats
+    batch = make_batches(1, b, cfg.input_size, cfg.word_len, "cuda", seed=8)[0]
+    peaks = {r: remat_step(r, batch, torch.bfloat16)[3] for r in (False, True)}
+    print(f"(d) bf16 b{b} train step peak memory: no remat {peaks[False]:.2f} "
+          f"GiB, remat {peaks[True]:.2f} GiB; on {card_line()}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: {seconds:.1f} s", flush=True)
+    out.update(remat_rel_l2=rel, remat_spread=spread,
+               peak_gib={"no remat": peaks[False], "remat": peaks[True]},
+               seconds=seconds)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -1899,7 +2132,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 14)) if run_all else {
+    wanted = set(range(2, 15)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -1983,6 +2216,9 @@ def main() -> int:
             kernels.attention_dropout_backward, k5, k7)
     if 13 in wanted:
         out["test_path"] = phase_test_path(k1)
+    if 14 in wanted:
+        out["train_entry"] = phase_train_entry(
+            k1, k2, kernels.attention_dropout_backward)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -2001,6 +2237,7 @@ def summary(out) -> dict:
         out["train"]
     bench = out["bench"]["launches"]  # phase 12, all on tensor_cores
     test_path = out["test_path"]  # phase 13
+    train_py = out["train_entry"]  # phase 14 (b), all on tensor_cores
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -2012,15 +2249,18 @@ def summary(out) -> dict:
         (the tensor-core kernels run shorter than the wrapper's host time),
         with SDPA with dropout as the library call."""
         key = {"forward": "fwd", "backward": "bwd"}[part]
+        entry_n = train_py["launches"][f"K2 {key}"]
         return {
             "name": f"fused_attention_bse_dropout ({part})",
             "route": "cuda",
             "source": k2_src,
             "replaces": f"cris_tpu/ops/pallas/attention_train.py:{replaces}",
-            "launches": train_n + bench_n,
-            "launches_by_path": {"train": train_n, "bench": bench_n},
-            "launches_by_route": {r: n + (bench_n if r == "tensor_cores"
-                                          else 0) for r, n in by_route.items()},
+            "launches": train_n + bench_n + entry_n,
+            "launches_by_path": {"train": train_n, "bench": bench_n,
+                                 "train.py": entry_n},
+            "launches_by_route": {r: n + (bench_n + entry_n
+                                          if r == "tensor_cores" else 0)
+                                  for r, n in by_route.items()},
             "max_abs_err": worst,
             "ms": main_k2[f"{key}_device_ms"],
             "plain_ms": main_k2[f"plain_{key}_ms"],
@@ -2056,17 +2296,19 @@ def summary(out) -> dict:
         "source": "cris_tpu_torch/csrc/attention_bse.cu",
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
-                     + bench["K1"] + test_path["K1"]),
+                     + bench["K1"] + test_path["K1"]
+                     + train_py["launches"]["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
                              "bench": bench["K1"],
-                             "test.py": test_path["K1"]},
+                             "test.py": test_path["K1"],
+                             "train.py": train_py["launches"]["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
             + (bench["K1"] if r == "tensor_cores" else 0)
-            + test_path["K1_by_route"][r]
+            + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
         # on the device alone: the tensor-core body runs shorter than the
@@ -2187,7 +2429,9 @@ def summary(out) -> dict:
                                          "peak_gib": peak},
                       "bench_short": out["bench"],
                       "test_path": {k: v for k, v in test_path.items()
-                                    if k != "K1_by_route"}}), flush=True)
+                                    if k != "K1_by_route"},
+                      "train_entry": {k: v for k, v in train_py.items()
+                                      if k != "by_route"}}), flush=True)
     return {"kernels": kernels}
 
 

@@ -1,4 +1,4 @@
-"""Trained CRIS ``.pth`` checkpoints -> the port's state_dict.
+"""CRIS ``.pth`` checkpoints in CRIS.pytorch's own format.
 
 The port keeps CRIS.pytorch's module names, so a checkpoint written by
 its ``train.py`` (``{"state_dict": model.state_dict(), ...}``, under
@@ -7,23 +7,93 @@ prefix stripped and nothing converted: the port's counterpart of
 ``cris_tpu.checkpoint.torch_convert.load_cris_checkpoint``
 (cris_tpu/checkpoint/torch_convert.py:331-337), which converts the same
 file to the JAX tree.
+
+The training entry writes that format too, every epoch: ``epoch``,
+``cur_iou``, ``best_iou``, ``prec``, ``state_dict``, ``optimizer`` and
+``scheduler`` through ``torch.save``, to ``last_model.pth``, copied to
+``best_model.pth`` on a new best; ``cfg.resume`` reads it back. This is
+the counterpart of cris_tpu/checkpoint/orbax_io.py:23-114, which writes
+orbax directories instead.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import shutil
 from typing import Dict
 
 import torch
 
 BEST_NAME = "best_model.pth"  # what serving looks for under a model_dir
+LAST_NAME = "last_model.pth"
+
+
+def _load(path: str) -> dict:
+    """A ``.pth`` file on the CPU. It is unpickled (``weights_only=False``,
+    as the JAX package reads it), so load only checkpoints from a trusted
+    source."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _strip(sd) -> Dict[str, torch.Tensor]:
+    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
 
 
 def load_cris_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """The state_dict of a trained CRIS ``.pth`` file, on the CPU, with a
-    leading ``module.`` stripped from every key. The file is unpickled
-    (``weights_only=False``, as the JAX package reads it), so load only
-    checkpoints from a trusted source."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = ckpt.get("state_dict", ckpt)
-    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    leading ``module.`` stripped from every key."""
+    ckpt = _load(path)
+    return _strip(ckpt.get("state_dict", ckpt))
+
+
+def _replace(write, path: str) -> str:
+    """``write(tmp)`` to a temporary name beside ``path``, then rename it
+    into place, so a reader never sees half a file."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def save_checkpoint(output_dir: str, name: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, scheduler, epoch: int,
+                    cur_iou: float, best_iou: float,
+                    prec: Dict[str, float]) -> str:
+    """Write ``output_dir/name`` in CRIS.pytorch's format; returns its
+    path."""
+    os.makedirs(output_dir, exist_ok=True)
+    ckpt = {"epoch": int(epoch), "cur_iou": float(cur_iou),
+            "best_iou": float(best_iou),
+            "prec": {k: float(v) for k, v in prec.items()},
+            "state_dict": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "scheduler": scheduler.state_dict()}
+    return _replace(lambda tmp: torch.save(ckpt, tmp),
+                    os.path.join(output_dir, name))
+
+
+def promote_best(output_dir: str) -> str:
+    """Copy ``last_model.pth`` to ``best_model.pth``."""
+    return _replace(
+        lambda tmp: shutil.copyfile(os.path.join(output_dir, LAST_NAME), tmp),
+        os.path.join(output_dir, BEST_NAME))
+
+
+def load_train_checkpoint(path: str, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer, scheduler) -> dict:
+    """Restore a checkpoint of ``save_checkpoint`` into ``model`` (every
+    key matched), ``optimizer`` and ``scheduler`` (its step count; the
+    schedule itself is the caller's, rebuilt from the config), onto their
+    devices. Returns the file's dict (``epoch``, ``best_iou``, ...)."""
+    if not os.path.isfile(path):
+        raise ValueError(f"=> resume failed! no checkpoint found at '{path}'")
+    ckpt = _load(path)
+    model.load_state_dict(_strip(ckpt["state_dict"]), strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    scheduler.load_state_dict(ckpt["scheduler"])
+    return ckpt

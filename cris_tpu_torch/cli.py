@@ -1,6 +1,6 @@
 """Command-line bootstrap of the port's entry points (counterpart of
-cris_tpu/cli.py:89-103): ``--config path.yaml [--device cpu] --opts KEY
-VALUE ...``.
+cris_tpu/cli.py:89-161): ``--config path.yaml [--device cpu] --opts KEY
+VALUE ...``, and the training model with its initial weights.
 
 The YAML file is read with PyYAML where it is installed; without it (the
 card's machine) the RefCOCO presets of ``utils.config.config_for`` serve
@@ -11,10 +11,16 @@ their two files. ``--opts`` takes the rest of the command line, so
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
+import torch
+
+from .checkpoint import load_clip_torchscript, load_cris_checkpoint
+from .models import CRIS, build_segmenter
 from .utils.config import (CfgNode, config_for, load_cfg_from_cfg_file,
                            merge_cfg_from_list)
+from .utils.logging import logger
 
 
 def load_config(path: str) -> CfgNode:
@@ -45,3 +51,52 @@ def get_parser(description: str = "CRIS referring expression segmentation",
         cfg = merge_cfg_from_list(cfg, args.opts)
     cfg.device = args.device
     return cfg
+
+
+def build_model(cfg, device, train: bool = True) -> CRIS:
+    """CRIS for training on ``device`` (counterpart of
+    ``build_model_and_variables``, cris_tpu/cli.py:105-144): when
+    ``cfg.clip_pretrain`` is an existing TorchScript archive, the
+    architecture is inferred from it and ``backbone.*`` holds its weights
+    while the neck, decoder and projector keep their init from
+    ``cfg.manual_seed``; otherwise everything is initialised from the
+    seed on the preset that ``cfg.clip_pretrain`` names.
+
+    Every backbone tensor must come from the archive but the attnpool's
+    ``connect`` conv and BN, which CRIS adds to CLIP and a released
+    archive lacks: they keep their init, as the reference's non-strict
+    load leaves them (a JAX package load needs them in the archive)."""
+    path = cfg.get("clip_pretrain")
+    clip_sd, clip_config = None, None
+    if path and os.path.isfile(path):
+        logger.info(f"=> loading CLIP weights from '{path}'")
+        clip_sd, clip_config = load_clip_torchscript(path)
+    model = build_segmenter(cfg, device="cpu",
+                            seed=int(cfg.get("manual_seed", 0)), train=train,
+                            clip_config=clip_config)
+    if clip_sd is not None:
+        missing, unexpected = model.backbone.load_state_dict(clip_sd,
+                                                             strict=False)
+        missing = [k for k in missing
+                   if not k.startswith("visual.attnpool.connect.")]
+        if missing or unexpected:
+            raise ValueError(f"'{path}' does not fit the CLIP it describes: "
+                             f"missing {missing[:5]}, unexpected "
+                             f"{unexpected[:5]}")
+    return model.to(device)
+
+
+def load_initial_weight(cfg, model: torch.nn.Module) -> torch.nn.Module:
+    """``cfg.weight``, a trained CRIS ``.pth`` file, loaded into ``model``
+    with every key matched (counterpart of cris_tpu/cli.py:147-161). The
+    JAX package's orbax directories are not read."""
+    path = cfg.get("weight")
+    if not path:
+        return model
+    if os.path.isdir(path):
+        raise ValueError(f"'{path}' is a directory: the port reads initial "
+                         "weights only from .pth files, not orbax "
+                         "checkpoints")
+    logger.info(f"=> loading initial weight (torch) '{path}'")
+    model.load_state_dict(load_cris_checkpoint(path), strict=True)
+    return model

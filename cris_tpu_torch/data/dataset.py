@@ -69,8 +69,9 @@ class RefDataset:
         self.word_length = word_length
         self.backend = open_backend(data_uri)
         self.mask_root = mask_root
-        if mask_root is None and hasattr(self.backend, "materialize_masks"):
-            # synthetic data: GT masks in a directory unique to the backend
+        if not mask_root and hasattr(self.backend, "materialize_masks"):
+            # synthetic data without a mask_root (None, or "" as --opts
+            # gives it): GT masks in a directory unique to the backend
             tag = f"{len(self.backend)}_{self.backend.seed}"
             self.mask_root = self.backend.materialize_masks(os.path.join(
                 tempfile.gettempdir(),

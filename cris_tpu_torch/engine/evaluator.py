@@ -18,11 +18,16 @@ last row. The host keeps the card fed as the JAX package does:
   while the host prepares the next batch;
 - the per-sample host tail runs on a thread pool.
 
+The model runs in eval mode (running BN statistics, no dropout), as the
+JAX Evaluator's ``train=False``, whatever mode it is in: ``device_probs``,
+``validate`` and ``inference`` give it back in the mode they found it in.
+
 One process: ``_allgather`` returns its inputs (data parallel comes later).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import deque
@@ -41,6 +46,20 @@ from .metrics import EVAL_THRESHOLD, mask_inter_union, mask_iou, summarize_ious
 
 # device batches allowed in flight before the host blocks on a fetch
 _PIPELINE_DEPTH = 2
+
+
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """``model`` in eval mode for the block, then back in train mode if it
+    was in train mode."""
+    if not model.training:
+        yield
+        return
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train()
 
 
 class Evaluator:
@@ -69,8 +88,9 @@ class Evaluator:
         """The device step on the model's device: (B, 3, S, S) float32
         image, (B, L) ids -> (B, S, S) float32 probabilities at network
         input size, left on the device."""
-        with torch.autocast(self.device.type, dtype=self.dtype or torch.bfloat16,
-                            enabled=self.dtype is not None):
+        with eval_mode(self.model), torch.autocast(
+                self.device.type, dtype=self.dtype or torch.bfloat16,
+                enabled=self.dtype is not None):
             pred = self.model(image, word)
         probs = torch.sigmoid(pred.float())
         size = (self.input_size, self.input_size)
@@ -138,7 +158,8 @@ class Evaluator:
         sums = [0.0, 0.0]  # cumulative intersection / union
         t0 = self._start_run()
         batches = 0
-        with ThreadPoolExecutor(self.host_workers) as pool:
+        with eval_mode(self.model), \
+                ThreadPoolExecutor(self.host_workers) as pool:
             inflight: deque = deque()
 
             def drain_one():
@@ -259,7 +280,8 @@ class Evaluator:
 
         t0 = self._start_run()
         batches = 0
-        with ThreadPoolExecutor(self.host_workers) as pool:
+        with eval_mode(self.model), \
+                ThreadPoolExecutor(self.host_workers) as pool:
             inflight: deque = deque()
 
             def drain_one():

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..models import param_group_label, resolve_dtype
-from ..utils.logging import AverageMeter, ProgressMeter
+from ..utils.logging import AverageMeter, ExperimentTracker, ProgressMeter
+from ..utils.profiling import StepTimer
 from .metrics import train_metrics
 
 
@@ -134,16 +135,52 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
 
 
+class DeviceBatches:
+    """A loader's host batches, NHWC images and masks as the dataset makes
+    them, as the NCHW device batches ``train_step`` takes: on the card each
+    array is copied from pinned memory without blocking the host, then put
+    in NCHW there."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def _put(self, x) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield {"image": self._put(batch["image"]).permute(0, 3, 1, 2)
+                   .contiguous(),
+                   "word": self._put(batch["word"]),
+                   "mask": self._put(batch["mask"]).permute(0, 3, 1, 2)}
+
+
 def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
-                epoch: int, cfg, seed: int = 0) -> Dict[str, float]:
+                epoch: int, cfg, seed: int = 0,
+                tracker: Optional[ExperimentTracker] = None) -> Dict:
     """One epoch of the reference train loop (engine/engine.py:17-87) over
     decoded batches: meters and a progress line every ``print_freq``
-    steps, under autocast to ``cfg.precision`` (bf16 by default, as in the
-    JAX package). Per-step metrics stay on the device and are drained (one
-    copy to the host) at each progress line and at the end, so the host
-    never waits for the device between steps. Returns the epoch's
-    averages."""
+    steps, with the JAX package's keys logged to ``tracker`` there
+    (cris_tpu/engine/trainer.py:252-264), under autocast to
+    ``cfg.precision`` (bf16 by default, as in the JAX package), and a
+    ``torch.profiler`` trace of steps 10-15 of epoch 1 when
+    ``cfg.profile_dir`` is set. Per-step metrics stay on the device and
+    are drained (one copy to the host) at each progress line and at the
+    end, so the host never waits for the device between steps.
+
+    Returns the epoch's averages {loss, iou, prec@50} and under "run"
+    what it counted: steps, images, host seconds (first batch fetched to
+    the last step done), and on the card the seconds its steps took
+    between CUDA events recorded around each (None on the CPU)."""
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
+    timer = StepTimer(cfg.get("profile_dir") if epoch == 1 else None)
     batch_time = AverageMeter("Batch", ":2.2f")
     data_time = AverageMeter("Data", ":2.2f")
     lr_meter = AverageMeter("Lr", ":1.6f")
@@ -157,7 +194,10 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
     cur_lr = lr_at_epoch(cfg.base_lr, cfg.get("milestones", []),
                          cfg.get("lr_decay", 0.1), epoch)
     print_freq = int(cfg.get("print_freq", 100))
+    on_card = next(model.parameters()).device.type == "cuda"
     pending = []  # [(batch size, device metrics), ...]
+    events = []  # [(start, end) CUDA events of each step]
+    steps = images = 0
 
     def drain():
         if not pending:
@@ -170,19 +210,44 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
             pr_meter.update(pr50, n)
         pending.clear()
 
-    end = time.time()
+    t0 = end = time.time()
     for i, batch in enumerate(loader):
+        timer.step(i)
         data_time.update(time.time() - end)
         step = scheduler.last_epoch
+        if on_card:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
         metrics = train_step(model, optimizer, scheduler, batch,
                              step_seed(seed, step), dtype)
-        pending.append((len(batch["image"]), metrics))
+        if on_card:
+            events[-1][1].record()
+        n = len(batch["image"])
+        steps, images = steps + 1, images + n
+        pending.append((n, metrics))
         lr_meter.update(cur_lr)
         batch_time.update(time.time() - end)
         end = time.time()
         if (i + 1) % print_freq == 0:
             drain()
             progress.display(i + 1)
+            if tracker is not None:
+                tracker.log({
+                    "time/batch": batch_time.val,
+                    "time/data": data_time.val,
+                    "training/lr": lr_meter.val,
+                    "training/loss": loss_meter.val,
+                    "training/iou": iou_meter.val,
+                    "training/prec@50": pr_meter.val,
+                }, step=epoch * len(loader) + (i + 1))
     drain()
+    timer.close()
+    device_s = None
+    if events:
+        events[-1][1].synchronize()
+        device_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    run = {"steps": steps, "images": images, "seconds": time.time() - t0,
+           "device_seconds": device_s}
     return {"loss": loss_meter.avg, "iou": iou_meter.avg,
-            "prec@50": pr_meter.avg}
+            "prec@50": pr_meter.avg, "run": run}

@@ -3,7 +3,9 @@
 ``build_segmenter(cfg, device, seed)`` builds CRIS from a flat config with
 seeded random weights (a ``torch.Generator``), on the card by default, or
 with no storage at all on the ``meta`` device; ``fold_bn=True`` builds the
-BN-folded inference variant. Weights from the JAX package load through
+BN-folded inference variant; ``clip_config`` (a CLIP archive's, from
+``checkpoint.torch_convert``) takes the place of the preset that
+``cfg.clip_pretrain`` names. Weights from the JAX package load through
 ``cris_tpu_torch.checkpoint.from_jax``. ``param_group_label`` splits the
 parameters into the optimizer's backbone and head groups.
 """
@@ -73,10 +75,15 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
                     fold_bn: bool = False, pos_grid: Optional[int] = None,
                     fused_bottleneck: Union[bool, str] = False,
-                    fused_stem: bool = False) -> CRIS:
+                    fused_stem: bool = False,
+                    clip_config: Optional[CLIPConfig] = None) -> CRIS:
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
     train mode (batch-statistics BN, dropout) with ``train=True``, on the
-    card unless ``device`` says otherwise.
+    card unless ``device`` says otherwise. The CLIP architecture is
+    ``clip_config``, else the preset ``cfg.clip_pretrain`` names.
+    ``cfg.remat`` (cris_tpu/models/__init__.py:66) recomputes each
+    backbone bottleneck, text block and decoder layer in the backward;
+    it acts in training only.
 
     ``fold_bn`` builds the inference variant for weights that
     ``checkpoint.fold_batchnorm`` folded (convs with biases, no BN but the
@@ -94,7 +101,7 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
     if (fused_bottleneck or fused_stem) and train:
         raise ValueError("fused_bottleneck and fused_stem are inference "
                          "kernels: need train=False")
-    clip_config = preset_from_name(cfg.clip_pretrain)
+    clip_config = clip_config or preset_from_name(cfg.clip_pretrain)
     meta = torch.device(device).type == "meta"
     with torch.device("meta" if meta else "cpu"):
         model = CRIS(
@@ -111,6 +118,11 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
             fused_bottleneck=fused_bottleneck,
             fused_stem=fused_stem,
         )
+    if cfg.get("remat", False):
+        for mod in model.modules():
+            if isinstance(mod, (Bottleneck, ResidualAttentionBlock,
+                                TransformerDecoderLayer)):
+                mod.remat = True
     if not meta:
         init_weights(model, seed).to(device)
     return model.train(train)

@@ -30,7 +30,7 @@ from ..ops.kernels.bottleneck import (K5_TAILS, TAIL_RULES, bottleneck_takes,
                                      compute_dtype, fused_bottleneck)
 from ..ops.kernels.stem import fused_stem_pool
 from ..ops.resize import resize2d
-from .layers import norm
+from .layers import norm, remat
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -62,9 +62,14 @@ class Bottleneck(nn.Module):
     ``inplanes == planes * 4``; set on exactly those blocks). Unlike the
     JAX gate (``supports_shape``: channels multiples of 128, a VMEM fit)
     the rule "every" takes every such block, so layer1's mid-64 tails run
-    K5 here and XLA in the JAX package."""
+    K5 here and XLA in the JAX package.
+
+    ``remat`` (set by ``build_segmenter`` from ``cfg.remat``): in training
+    with gradients on, the block's activations are recomputed in the
+    backward (cris_tpu/models/clip_resnet.py:451, 475-476)."""
 
     expansion = 4
+    remat = False
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  fold_bn: bool = False, fused: Optional[str] = None):
@@ -103,6 +108,11 @@ class Bottleneck(nn.Module):
                 _nhwc(x), w1[0, 0], self.conv1.bias,
                 w2.reshape(9, *w2.shape[2:]), self.conv2.bias,
                 w3[0, 0], self.conv3.bias))
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(self._chain, x)
+        return self._chain(x)
+
+    def _chain(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(self.avgpool(out)))

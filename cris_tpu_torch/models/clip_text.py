@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import causal_mask, dot_product_attention
-from .layers import LayerNormF32, QuickGELU
+from .layers import LayerNormF32, QuickGELU, remat
 
 
 class PackedAttention(nn.Module):
@@ -38,6 +38,12 @@ class PackedAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
+    """``remat`` (set by ``build_segmenter`` from ``cfg.remat``): in
+    training with gradients on, the block's activations are recomputed in
+    the backward (cris_tpu/models/clip_text.py:81-82)."""
+
+    remat = False
+
     def __init__(self, d_model: int, n_head: int):
         super().__init__()
         self.attn = PackedAttention(d_model, n_head)
@@ -50,6 +56,11 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNormF32(d_model)
 
     def forward(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(self._body, x, attn_mask)
+        return self._body(x, attn_mask)
+
+    def _body(self, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), attn_mask)
         return x + self.mlp(self.ln_2(x))
 

@@ -13,7 +13,10 @@ two generators from it, one on the CPU and one on the model's device.
 Each attention site of each layer draws its own K2 seed from the CPU one
 (no host-device sync), as ``nn.scan(split_rngs={"dropout": True})`` gives
 each JAX layer its own stream; the elementwise dropouts draw their masks
-from the device one.
+from the device one. Under ``remat`` a layer draws its two seeds and
+notes the device generator's state before the checkpointed call, and
+the call restores that state, so the recomputed forward in the backward
+draws the masks of the first.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.kernels.dropout_mask import MAX_SEED
 from ..ops.posenc import sincos_1d, sincos_2d
-from .layers import Dropout, LayerNormF32
+from .layers import Dropout, LayerNormF32, remat
 
 # (CPU generator for the attention seeds, device generator for the masks)
 Rng = Tuple[torch.Generator, torch.Generator]
@@ -71,6 +74,12 @@ class MultiheadAttention(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
+    """``remat`` (set by ``build_segmenter`` from ``cfg.remat``): in
+    training with gradients on, the layer's activations are recomputed in
+    the backward (cris_tpu/models/decoder.py:165-166)."""
+
+    remat = False
+
     def __init__(self, d_model: int = 512, nhead: int = 8,
                  dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
@@ -101,6 +110,18 @@ class TransformerDecoderLayer(nn.Module):
         if rng is not None:
             seeds = (draw_seed(rng[0]), draw_seed(rng[0]))
             gen = rng[1]
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen)
+        start = None if gen is None else gen.get_state()
+
+        def body(vis, txt, vis_pos, txt_pos):
+            if start is not None:
+                gen.set_state(start)
+            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen)
+
+        return remat(body, vis, txt, vis_pos, txt_pos)
+
+    def _body(self, vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen):
         y = self.norm1(vis)
         q = y + vis_pos
         y = self.self_attn(q, q, y, dropout_seed=seeds[0])

@@ -5,16 +5,42 @@ BatchNorm normalises with the batch statistics in training (and updates
 its running statistics) and with the running statistics in eval; with
 ``fold_bn`` (inference only) a conv or linear carries the BN's affine in
 its weight and bias and the BN is gone. ``Dropout`` draws its mask from an
-explicit generator.
+explicit generator. ``remat`` runs a block under activation checkpointing.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+# set on the thread that recomputes a checkpointed block in the backward
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``, non-reentrant; the JAX
+    package's ``nn.remat``). ``fn`` must compute the same values on its
+    second call: the train-mode ``BatchNorm`` skips its running-statistics
+    update on that call, and randomness has to be fixed by the caller."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 from ..ops.resize import upsample2x
 
@@ -27,7 +53,8 @@ class BatchNorm(nn.Module):
     mean and ``var = max(E[x^2] - E[x]^2, 0)`` are taken in f32 over every
     dim but 1 and the output is normalised with that biased variance; the
     running statistics are updated in place, outside autograd, with the
-    unbiased ``n / (n - 1)`` correction on the variance. In eval the
+    unbiased ``n / (n - 1)`` correction on the variance (once a step:
+    not when ``remat`` recomputes the forward). In eval the
     running statistics normalise. Either way the per-channel affine is
     prepared in f32 and applied in the input's dtype."""
 
@@ -50,10 +77,13 @@ class BatchNorm(nn.Module):
                 var = torch.clamp(x32.square().mean(dims) - mean.square(),
                                   min=0.0)
             n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(m * var * (n / max(n - 1, 1)))
+            # remat's second forward: the first one updated them
+            if not getattr(_recompute, "active", False):
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(m * mean)
+                    self.running_var.mul_(1.0 - m).add_(
+                        m * var * (n / max(n - 1, 1)))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var.float() + self.eps) * self.weight.float()

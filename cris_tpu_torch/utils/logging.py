@@ -1,6 +1,7 @@
-"""Logging and training meters on the standard library's ``logging``
-(counterpart of ``setup_logger``, ``log_exceptions``, ``AverageMeter`` and
-``ProgressMeter`` in cris_tpu/utils/logging.py)."""
+"""Logging, training meters and the experiment tracker on the standard
+library's ``logging`` (counterpart of ``setup_logger``, ``log_exceptions``,
+``AverageMeter``, ``ProgressMeter`` and ``ExperimentTracker`` in
+cris_tpu/utils/logging.py)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import functools
 import logging
 import os
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 _LOG_FORMAT = "%(asctime)s | %(levelname)-8s | %(name)s:%(lineno)d - %(message)s"
 _DATE_FORMAT = "%Y-%m-%d %H:%M:%S"
@@ -102,3 +103,28 @@ class ProgressMeter:
 
     def display(self, batch: int):
         logger.info(self.line(batch))
+
+
+class ExperimentTracker:
+    """An optional wandb metric sink: a no-op when ``enabled`` is false or
+    wandb cannot be imported or started (cris_tpu/utils/logging.py:116-136)."""
+
+    def __init__(self, enabled: bool = True, **init_kwargs):
+        self._run = None
+        if not enabled:
+            return
+        try:
+            import wandb
+
+            self._run = wandb.init(**init_kwargs)
+        except Exception:  # not installed, or no login / network
+            logger.warning("wandb unavailable: experiment tracking is off")
+            self._run = None
+
+    def log(self, metrics: Dict[str, float], step: Optional[int] = None):
+        if self._run is not None:
+            self._run.log(metrics, step=step)
+
+    def finish(self):
+        if self._run is not None:
+            self._run.finish()

@@ -256,10 +256,14 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.data.records, cris_tpu_torch.data.synthetic\n"
         "import cris_tpu_torch.engine.evaluator, cris_tpu_torch.engine.metrics\n"
         "import cris_tpu_torch.cli, cris_tpu_torch.test\n"
+        "import cris_tpu_torch.train, cris_tpu_torch.checkpoint.pth\n"
+        "import cris_tpu_torch.checkpoint.torch_convert\n"
+        "import cris_tpu_torch.utils.seed, cris_tpu_torch.utils.profiling\n"
+        "from cris_tpu_torch.utils import ExperimentTracker\n"
         "from cris_tpu_torch.data import decode_image, make_record\n"
         "decode_image(make_record(0)['img'])\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"
-        "                   'cris_tpu') if m in sys.modules]\n"
+        "                   'wandb', 'cris_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
