@@ -5,7 +5,10 @@
 Phases (any failure raises, and the script exits non-zero):
 1. card, versions, and the build of the CUDA kernels from cris_tpu_torch/csrc;
 2. K1 against its plain PyTorch version at B = 16 on the main path's
-   shapes and at head dims 16, 48, 128 and 12, f32 (rtol = atol = 1e-4)
+   shapes and at head dims 16, 48, 128 and 12, and at the train.py
+   path's B 64 in bf16 (the decoder's self- and cross-attention of a val
+   batch, each row's words drawn as phase 6 draws them, and attnpool's
+   of a train step), f32 (rtol = atol = 1e-4)
    and bf16 (rtol = atol = 2e-2, mean |err| < 2e-3), each call on the
    route its dtype and head dim must take (bf16 at a head dim that is a
    multiple of 8: the tensor-core body; f32, and bf16 at head dim 12: the
@@ -22,15 +25,17 @@ Phases (any failure raises, and the script exits non-zero):
    per device batch (3 decoder layers x 2 sites + attnpool), every time
    on the tensor-core route.
 5. K1's gradient (kernel forward, plain recompute backward) against
-   autograd through its plain version at the R50 sites, B 16, at the
-   phase-2 tolerances (in units of a tensor's RMS where that exceeds 1;
+   autograd through its plain version at the R50 sites, B 16, and at
+   attnpool at the train.py path's B 64 in bf16, at the phase-2
+   tolerances (in units of a tensor's RMS where that exceeds 1;
    for bf16 inputs the reference runs in f32 on them), with forward +
    backward times;
 6. K2 (attention dropout, forward and backward kernels) against its plain
    version with the same seed, at the decoder's self- and
-   cross-attention, rate 0.1, at B 16 and at the train path's B 32 (its
+   cross-attention, rate 0.1, at B 16, at the train path's B 32 (its
    cross-attention with each row's words drawn as the train batches draw
-   them, 3 to 17 valid), and at head dim 12: output and dq/dk/dv as in
+   them, 3 to 17 valid), at the train.py path's B 64 in bf16 (the same
+   two sites), and at head dim 12: output and dq/dk/dv as in
    phase 5, each call on the route its dtype and head dim must take (bf16
    at a head dim that is a multiple of 8: the tensor-core kernels; f32,
    and bf16 at head dim 12: the scalar ones; the counts per route equal
@@ -196,14 +201,37 @@ SHAPES = [
     # a head dim the tensor-core gate refuses: bf16 on the scalar body
     ("head dim 12 (scalar body)", 100, 37, 4, 12, 6),
 ]
-# K2's sites, (site, B, S, T, H, D, masked keys): the decoder's at B 16
-# with the same mask in every row, and at the train path's B 32, where
-# "rows" draws each row's valid words as the train batches do (3 to 17)
-K2_SITES = [(site, B, s, t, h, d, m) for site, s, t, h, d, m in SHAPES[:3]] + [
-    ("decoder self-attn, train batch", 32, 676, 676, 8, 64, 0),
-    ("decoder cross-attn, train batch", 32, 676, 17, 8, 64, "rows"),
+BOTH = (torch.float32, torch.bfloat16)
+BF16 = (torch.bfloat16,)
+# the train.py path's batch: cris_r50_refcoco().batch_size and
+# batch_size_val (phase 14 asserts it), where the model runs bf16
+TRAIN_PY_B = 64
+# K1's sites, (site, B, S, T, H, D, masked keys, dtypes): SHAPES at B 16,
+# and the train.py path's at its batch, where "rows" draws each row's
+# valid words as the train batches do (3 to 17): the decoder's in each
+# val batch, attnpool's in each train step
+K1_SITES = [(site, B, s, t, h, d, m, BOTH) for site, s, t, h, d, m in SHAPES] + [
+    ("decoder self-attn, train.py val", TRAIN_PY_B, 676, 676, 8, 64, 0, BF16),
+    ("decoder cross-attn, train.py val", TRAIN_PY_B, 676, 17, 8, 64, "rows",
+     BF16),
+    ("attnpool, train.py batch", TRAIN_PY_B, 169, 169, 32, 64, 0, BF16),
+]
+# K1's gradient at the R50 sites, and at attnpool in the train.py step
+K1_GRAD_SITES = [(site, B, s, t, h, d, m, BOTH)
+                 for site, s, t, h, d, m in SHAPES[:4]] + K1_SITES[-1:]
+# K2's sites, in K1_SITES' form: the decoder's at B 16 with the same mask
+# in every row, at the bench's train step's B 32 and at the train.py
+# path's batch
+K2_SITES = [(site, B, s, t, h, d, m, BOTH)
+            for site, s, t, h, d, m in SHAPES[:3]] + [
+    ("decoder self-attn, train batch", 32, 676, 676, 8, 64, 0, BOTH),
+    ("decoder cross-attn, train batch", 32, 676, 17, 8, 64, "rows", BOTH),
     # a head dim the tensor-core gate refuses: bf16 on the scalar kernels
-    ("head dim 12 (scalar body)", B, 100, 37, 4, 12, 6),
+    ("head dim 12 (scalar body)", B, 100, 37, 4, 12, 6, BOTH),
+    ("decoder self-attn, train.py batch", TRAIN_PY_B, 676, 676, 8, 64, 0,
+     BF16),
+    ("decoder cross-attn, train.py batch", TRAIN_PY_B, 676, 17, 8, 64, "rows",
+     BF16),
 ]
 
 
@@ -353,16 +381,18 @@ def phase_kernel(fused, plain):
     max_abs_err, the decoder self-attention's bf16 row)."""
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for site, s, t, h, d, masked in SHAPES:
+    for site, b, s, t, h, d, masked, dtypes in K1_SITES:
         e = h * d
-        q = torch.randn(B, s, e, device="cuda", generator=gen)
-        k = torch.randn(B, t, e, device="cuda", generator=gen)
-        v = torch.randn(B, t, e, device="cuda", generator=gen)
+        q = torch.randn(b, s, e, device="cuda", generator=gen)
+        k = torch.randn(b, t, e, device="cuda", generator=gen)
+        v = torch.randn(b, t, e, device="cuda", generator=gen)
         valid = None
-        if masked:
-            valid = torch.ones(B, t, dtype=torch.bool, device="cuda")
+        if masked == "rows":
+            valid = _word_valid(b, t)
+        elif masked:
+            valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
             valid[:, t - masked:] = False
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
             got, route = route_taken(fused, lambda: fused(qd, kd, vd, h, valid))
             assert route == expected_route(dtype, d), (site, dtype, route)
@@ -393,9 +423,9 @@ def phase_kernel(fused, plain):
             dp2 = device_ms(lambda: plain(qd, kd, vd, h, valid), 10)
             dl1, dl2 = device_ms(lib, 10), device_ms(lib, 10)
             es = qd.element_size()
-            b_ms, b_by = bound(es * B * (2 * s + 2 * t) * e,
-                               4.0 * B * h * s * t * d, dtype)
-            row = dict(site=site, B=B, S=s, T=t, H=h, D=d, masked=masked,
+            b_ms, b_by = bound(es * b * (2 * s + 2 * t) * e,
+                               4.0 * b * h * s * t * d, dtype)
+            row = dict(site=site, B=b, S=s, T=t, H=h, D=d, masked=masked,
                        dtype=str(dtype).replace("torch.", ""), route=route,
                        max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(),
@@ -414,7 +444,8 @@ def phase_kernel(fused, plain):
                                 f"{e2.mean().item():.3e})")
             worst = max(worst, row["max_abs_err"])
             rows.append(row)
-            print(f"K1 {site:30s} {row['dtype']:8s} S={s} T={t} H={h} D={d} "
+            print(f"K1 {site:32s} {row['dtype']:8s} B={b} S={s} T={t} H={h} "
+                  f"D={d} "
                   f"route {route} max|err|={row['max_abs_err']:.3e} "
                   f"mean|err|={row['mean_abs_err']:.3e}{pallas_point} "
                   f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms "
@@ -599,9 +630,9 @@ def phase_k1_backward(fused, plain):
     """K1's autograd.Function against autograd through attention_plain."""
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for site, s, t, h, d, masked in SHAPES[:4]:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, g, valid = _site_inputs(gen, B, s, t, h, d, masked, dtype)
+    for site, b, s, t, h, d, masked, dtypes in K1_GRAD_SITES:
+        for dtype in dtypes:
+            q, k, v, g, valid = _site_inputs(gen, b, s, t, h, d, masked, dtype)
             kern = lambda q, k, v: fused(q, k, v, h, valid)  # noqa: E731
             ref_fn = lambda q, k, v: plain(q, k, v, h, valid)  # noqa: E731
             got = _fwd_bwd(kern, q, k, v, g)
@@ -613,12 +644,12 @@ def phase_k1_backward(fused, plain):
             k1 = cuda_ms(lambda: _fwd_bwd(kern, q, k, v, g), 5)
             k2 = cuda_ms(lambda: _fwd_bwd(kern, q, k, v, g), 5)
             p2 = cuda_ms(lambda: _fwd_bwd(ref_fn, q, k, v, g), 5)
-            row = dict(site=site, dtype=str(dtype).replace("torch.", ""),
+            row = dict(site=site, B=b, dtype=str(dtype).replace("torch.", ""),
                        max_abs_err=max(errs), fwd_bwd_ms=(k1 + k2) / 2,
                        plain_fwd_bwd_ms=(p1 + p2) / 2)
             worst = max(worst, row["max_abs_err"])
             rows.append(row)
-            print(f"K1 fwd+bwd {site:30s} {row['dtype']:8s} max|err| "
+            print(f"K1 fwd+bwd {site:30s} B={b} {row['dtype']:8s} max|err| "
                   f"{row['max_abs_err']:.3e} (out, dq, dk, dv) kernel "
                   f"{row['fwd_bwd_ms']:.4f} ms  plain "
                   f"{row['plain_fwd_bwd_ms']:.4f} ms", flush=True)
@@ -680,8 +711,8 @@ def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, plain_k2_bwd, k1, keep_mask,
     rows, worst_fwd, worst_bwd = [], 0.0, 0.0
     gen = torch.Generator(device="cuda").manual_seed(6)
     frac_tc = None
-    for site, b, s, t, h, d, masked in K2_SITES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for site, b, s, t, h, d, masked, dtypes in K2_SITES:
+        for dtype in dtypes:
             q, k, v, g, valid = _site_inputs(gen, b, s, t, h, d, masked, dtype)
             seed = 1234567 + b + s + t
             route = expected_route(dtype, d)
@@ -788,7 +819,7 @@ def phase_k2(k2, k2_fwd, k2_bwd, plain_k2, plain_k2_bwd, k1, keep_mask,
             vs_plain = ("" if "bwd_max_abs_err_vs_bf16_plain" not in row else
                         f" (vs the bf16 plain backward "
                         f"{row['bwd_max_abs_err_vs_bf16_plain']:.3e})")
-            print(f"K2 {site:31s} B={b} T={t} valid keys {min(lens)}-"
+            print(f"K2 {site:34s} B={b} T={t} valid keys {min(lens)}-"
                   f"{max(lens)} {row['dtype']:8s} route {route} max|err| out "
                   f"{e_fwd:.3e} grads {e_bwd:.3e}{vs_plain}; fwd kernel "
                   f"{row['fwd_ms']:.4f} ms (device alone "
@@ -1928,8 +1959,8 @@ def phase_train_entry(k1, k2, k2_bwd):
     from cris_tpu_torch import test as test_entry
     from cris_tpu_torch import train as entry
     from cris_tpu_torch.checkpoint import (BEST_NAME, LAST_NAME,
-                                           load_clip_torchscript,
-                                           save_clip_torchscript)
+                                           load_clip_torchscript)
+    from cris_tpu_torch.checkpoint.torch_convert import save_clip_torchscript
     from cris_tpu_torch.engine import (Evaluator, make_optimizer, step_seed,
                                        train_step)
     from cris_tpu_torch.grad_spread import grad_faults, grad_rel
@@ -1941,6 +1972,8 @@ def phase_train_entry(k1, k2, k2_bwd):
     t_phase = time.perf_counter()
     cfg = cris_r50_refcoco()
     assert cfg.precision == "bf16" and cfg.dropout == 0.1
+    # phases 2, 5 and 6 hold K1 and K2 at this batch
+    assert cfg.batch_size == cfg.batch_size_val == TRAIN_PY_B
     b, steps, val_batches = cfg.batch_size, 2 * 2, 2 * 1
     sites = 2 * cfg.num_layers
     out = {}

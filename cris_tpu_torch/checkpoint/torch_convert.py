@@ -6,9 +6,12 @@ The port keeps OpenAI CLIP's parameter names, so nothing is renamed or
 transposed: the archive's state_dict is read, its three scalar entries
 and BatchNorm's ``num_batches_tracked`` counters are dropped, half
 precision is widened to f32, and the architecture is inferred from the
-tensor shapes. The ViT image tower is not ported. ``save_clip_torchscript``
-writes the port's CLIP in that format (for checks; no weights ship with
-the repository).
+tensor shapes. The ViT image tower is not ported.
+
+``save_clip_torchscript`` is check support, not a path of the port: it
+writes the port's CLIP in that format for tests/test_torch_train_entry.py
+and ``chip_smoke.py`` phase 14 (no weights ship with the repository), and
+the package does not export it.
 """
 
 from __future__ import annotations

@@ -48,6 +48,30 @@ from .metrics import EVAL_THRESHOLD, mask_inter_union, mask_iou, summarize_ious
 _PIPELINE_DEPTH = 2
 
 
+def host_tensor(x, dtype: Optional[torch.dtype] = None,
+                pin: bool = False) -> torch.Tensor:
+    """A host array (or a tensor) as a tensor of ``dtype`` (its own when
+    None), in pinned memory when ``pin`` and it is on the host."""
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(
+        x, np.ndarray) else x
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.pin_memory() if pin and t.device.type == "cpu" else t
+
+
+def to_device(x, device, dtype: Optional[torch.dtype] = None,
+              nchw: bool = False) -> torch.Tensor:
+    """A host array or a tensor on ``device`` as ``dtype`` (its own when
+    None); an (N, H, W, C) one is put in (N, C, H, W) on the device when
+    ``nchw``. A host array bound for the card is copied from pinned memory
+    without blocking the host (PyTorch's pinned-memory cache keeps the
+    block until the copy is done); a pinned tensor is not copied again."""
+    device = torch.device(device)
+    t = host_tensor(x, dtype, pin=device.type == "cuda")
+    t = t.to(device, non_blocking=True)
+    return t.permute(0, 3, 1, 2).contiguous() if nchw else t
+
+
 @contextlib.contextmanager
 def eval_mode(model: torch.nn.Module):
     """``model`` in eval mode for the block, then back in train mode if it
@@ -110,20 +134,19 @@ class Evaluator:
     def _dispatch(self, image: np.ndarray, word: np.ndarray):
         """Enqueue one device batch of (B, S, S, 3) float32 images and
         (B, L) ids; returns what ``_fetch`` takes. On the card the copies
-        come from pinned memory without blocking the host, and CUDA events
-        bracket the batch."""
-        image_t = torch.from_numpy(np.ascontiguousarray(image, np.float32))
-        word_t = torch.from_numpy(np.asarray(word, np.int64))
+        do not block the host (``to_device``), and CUDA events bracket the
+        batch."""
+        on_card = self.device.type == "cuda"
+        image_t = host_tensor(image, torch.float32, pin=on_card)
+        word_t = host_tensor(word, torch.long, pin=on_card)
         events = None
-        if self.device.type == "cuda":
-            image_t, word_t = image_t.pin_memory(), word_t.pin_memory()
+        if on_card:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        image_d = image_t.to(self.device, non_blocking=True)
-        word_d = word_t.to(self.device, non_blocking=True)
         probs = self.device_probs(
-            image_d.permute(0, 3, 1, 2).contiguous(), word_d)
+            to_device(image_t, self.device, nchw=True),
+            to_device(word_t, self.device))
         if events is not None:
             events[1].record()
         # the pinned host tensors stay referenced until the fetch

@@ -26,12 +26,12 @@ import bisect
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..models import param_group_label, resolve_dtype
 from ..utils.logging import AverageMeter, ExperimentTracker, ProgressMeter
 from ..utils.profiling import StepTimer
+from .evaluator import to_device
 from .metrics import train_metrics
 
 
@@ -82,13 +82,13 @@ def make_optimizer(model: torch.nn.Module, cfg, steps_per_epoch: int
     return optimizer, scheduler
 
 
-def _device_batch(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    def put(x, dtype):
-        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
-        return x.to(device=device, dtype=dtype, non_blocking=True)
-
-    return (put(batch["image"], torch.float32), put(batch["word"], torch.long),
-            put(batch["mask"], torch.float32))
+def _device_batch(batch, device, nchw: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(image, word, mask) of ``batch`` on ``device``; ``nchw`` puts a
+    loader's (B, H, W, C) images and masks in (B, C, H, W) there."""
+    return (to_device(batch["image"], device, torch.float32, nchw),
+            to_device(batch["word"], device, torch.long),
+            to_device(batch["mask"], device, torch.float32, nchw))
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
@@ -135,38 +135,13 @@ def step_seed(seed: int, step: int) -> int:
     return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
 
 
-class DeviceBatches:
-    """A loader's host batches, NHWC images and masks as the dataset makes
-    them, as the NCHW device batches ``train_step`` takes: on the card each
-    array is copied from pinned memory without blocking the host, then put
-    in NCHW there."""
-
-    def __init__(self, loader, device):
-        self.loader = loader
-        self.device = torch.device(device)
-
-    def __len__(self) -> int:
-        return len(self.loader)
-
-    def _put(self, x) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
-    def __iter__(self):
-        for batch in self.loader:
-            yield {"image": self._put(batch["image"]).permute(0, 3, 1, 2)
-                   .contiguous(),
-                   "word": self._put(batch["word"]),
-                   "mask": self._put(batch["mask"]).permute(0, 3, 1, 2)}
-
-
 def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
                 epoch: int, cfg, seed: int = 0,
                 tracker: Optional[ExperimentTracker] = None) -> Dict:
     """One epoch of the reference train loop (engine/engine.py:17-87) over
-    decoded batches: meters and a progress line every ``print_freq``
+    the loader's batches ((B, H, W, 3) images, (B, L) ids, (B, H, W, 1)
+    masks, as the dataset makes them), each copied to the model's device
+    and put in NCHW there: meters and a progress line every ``print_freq``
     steps, with the JAX package's keys logged to ``tracker`` there
     (cris_tpu/engine/trainer.py:252-264), under autocast to
     ``cfg.precision`` (bf16 by default, as in the JAX package), and a
@@ -177,8 +152,11 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
 
     Returns the epoch's averages {loss, iou, prec@50} and under "run"
     what it counted: steps, images, host seconds (first batch fetched to
-    the last step done), and on the card the seconds its steps took
-    between CUDA events recorded around each (None on the CPU)."""
+    the last step done), on the card the seconds between CUDA events
+    recorded around each step (None on the CPU; they hold the card's waits
+    for the host inside a step too, so they bound its busy time from
+    above), and the profiler window's ``StepTimer.window`` (None when no
+    window closed in this epoch)."""
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
     timer = StepTimer(cfg.get("profile_dir") if epoch == 1 else None)
     batch_time = AverageMeter("Batch", ":2.2f")
@@ -194,7 +172,8 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
     cur_lr = lr_at_epoch(cfg.base_lr, cfg.get("milestones", []),
                          cfg.get("lr_decay", 0.1), epoch)
     print_freq = int(cfg.get("print_freq", 100))
-    on_card = next(model.parameters()).device.type == "cuda"
+    device = next(model.parameters()).device
+    on_card = device.type == "cuda"
     pending = []  # [(batch size, device metrics), ...]
     events = []  # [(start, end) CUDA events of each step]
     steps = images = 0
@@ -214,16 +193,18 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
     for i, batch in enumerate(loader):
         timer.step(i)
         data_time.update(time.time() - end)
+        image, word, mask = _device_batch(batch, device, nchw=True)
         step = scheduler.last_epoch
         if on_card:
             events.append((torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True)))
             events[-1][0].record()
-        metrics = train_step(model, optimizer, scheduler, batch,
+        metrics = train_step(model, optimizer, scheduler,
+                             {"image": image, "word": word, "mask": mask},
                              step_seed(seed, step), dtype)
         if on_card:
             events[-1][1].record()
-        n = len(batch["image"])
+        n = len(image)
         steps, images = steps + 1, images + n
         pending.append((n, metrics))
         lr_meter.update(cur_lr)
@@ -243,11 +224,11 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
                 }, step=epoch * len(loader) + (i + 1))
     drain()
     timer.close()
-    device_s = None
+    event_s = None
     if events:
         events[-1][1].synchronize()
-        device_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        event_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     run = {"steps": steps, "images": images, "seconds": time.time() - t0,
-           "device_seconds": device_s}
+           "step_event_seconds": event_s, "traced": timer.window}
     return {"loss": loss_meter.avg, "iou": iou_meter.avg,
             "prec@50": pr_meter.avg, "run": run}

@@ -29,6 +29,7 @@ import torch
 
 from . import serving
 from .utils import cris_r50_refcoco
+from .utils.profiling import busy_time, device_events
 
 NVSMI = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 RUNS = 5  # requests per bucket
@@ -73,19 +74,9 @@ def stage_breakdown(service, image, runs=RUNS):
     return result
 
 
-def busy_time(spans) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    return busy
-
-
 def profile(fn, top=TOP):
     """Device time of ``fn`` by kernel, and the share of its wall time in
     which the card ran a kernel or a copy (the union of their intervals)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -95,10 +86,7 @@ def profile(fn, top=TOP):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again; the profiler's own buffer requests are not work
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("Activity Buffer")]
+    events = device_events(prof)
     by_name = defaultdict(lambda: [0, 0.0])
     spans = []
     for e in events:

@@ -10,13 +10,6 @@ kernel, the share of the wall time in which the card ran anything, and
 the share of the device time in the port's own kernels (K1, K2 forward
 and backward). It prints the card's name and power limit, and ``--out``
 writes everything as JSON.
-
-    python3 -m cris_tpu_torch.profile_train --trace DIR/trace.json
-
-reads instead a Chrome trace that the train entry's profiler window
-wrote (``TRAIN.profile_dir``: steps 10-15 of epoch 1) and prints the
-window's wall time, the card's busy time in it (the union of its
-kernels, copies and sets) and their ratio; it needs no card.
 """
 
 from __future__ import annotations
@@ -29,7 +22,7 @@ import torch
 
 from . import engine
 from .models import build_segmenter
-from .profile_serving import NVSMI, busy_time, profile
+from .profile_serving import NVSMI, profile
 from .utils import cris_r50_refcoco
 
 BATCH = 32
@@ -66,34 +59,10 @@ def own_shares(kernels, device_ms):
     return out
 
 
-# Chrome-trace categories of work on the card
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def trace_busy(path: str) -> dict:
-    """{wall_ms, device_busy_ms, device_busy_share} of a Chrome trace: the
-    wall time from its first to its last event, and the union of the
-    card's work in it."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") in DEVICE_CATEGORIES]
-    wall_us = (max(e["ts"] + e["dur"] for e in events)
-               - min(e["ts"] for e in events))
-    busy_us = busy_time(spans)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us if wall_us else 0.0}
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the results here as JSON")
-    parser.add_argument("--trace", help="read this Chrome trace instead")
     args = parser.parse_args()
-    if args.trace:
-        print(json.dumps(trace_busy(args.trace)), flush=True)
-        return
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     card = subprocess.run(NVSMI, capture_output=True, text=True,

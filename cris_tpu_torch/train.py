@@ -16,10 +16,15 @@ on a new best, in ``{output_folder}/{exp_name}``. Runs on the card unless
 
 Logs to stderr and ``train.log`` in the output directory, ending with
 the best IoU, the training time and a line ``=> run: {...}``: the train
-steps, images, host seconds in the train epochs, images per second, on
-the card the seconds the steps took between CUDA events and their share
-of the host seconds, the peak memory, the seconds spent validating, and
-the card's name and power limit.
+steps, images, host seconds in the train epochs, images per second, the
+seconds spent validating, on the card the seconds between CUDA events
+around each step and their share of the host seconds (the events hold
+the card's waits for the host inside a step too: an upper bound on its
+busy share), the peak memory, the card's name and power limit, and
+under ``traced`` the profiler window's ``StepTimer.window`` when
+``profile_dir`` is set and epoch 1 runs more than 10 steps: the card's
+busy time over steps 10-15 (the union of its kernels and copies) and its
+share of the window's wall time.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from .bench import card
 from .checkpoint import (LAST_NAME, load_train_checkpoint, promote_best,
                          save_checkpoint)
 from .data import RefDataLoader, RefDataset
-from .engine import DeviceBatches, Evaluator, make_optimizer, train_epoch
+from .engine import Evaluator, make_optimizer, train_epoch
 from .models import resolve_dtype
 from .utils import ExperimentTracker, init_random_seed
 from .utils.logging import log_exceptions, logger, setup_logger
@@ -94,15 +99,17 @@ def main(argv=None):
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    totals = {"steps": 0, "images": 0, "seconds": 0.0, "device_seconds": 0.0,
-              "val_seconds": 0.0}
+    totals = {"steps": 0, "images": 0, "seconds": 0.0,
+              "step_event_seconds": 0.0, "val_seconds": 0.0}
+    traced = None
     start_time = time.time()
     for epoch in range(start_epoch, cfg.epochs):
         last_epoch = epoch + 1
         train_loader.set_epoch(last_epoch)
-        stats = train_epoch(model, optimizer, scheduler,
-                            DeviceBatches(train_loader, device), last_epoch,
-                            cfg, seed=cfg.manual_seed, tracker=tracker)
+        stats = train_epoch(model, optimizer, scheduler, train_loader,
+                            last_epoch, cfg, seed=cfg.manual_seed,
+                            tracker=tracker)
+        traced = stats["run"].pop("traced") or traced
         for key, value in stats["run"].items():
             totals[key] += value or 0
         iou, prec = evaluator.validate(val_loader, last_epoch, cfg.epochs)
@@ -125,12 +132,14 @@ def main(argv=None):
     run["images_per_s"] = (run["images"] / run["seconds"] if run["seconds"]
                            else None)
     if device.type == "cuda":
-        run["busy_share"] = (run["device_seconds"] / run["seconds"]
-                             if run["seconds"] else None)
+        run["step_event_share"] = (run["step_event_seconds"] / run["seconds"]
+                                   if run["seconds"] else None)
         run["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     else:
-        run.update(device_seconds=None, busy_share=None, peak_gib=None)
+        run.update(step_event_seconds=None, step_event_share=None,
+                   peak_gib=None)
     run["card"] = card(device)
+    run["traced"] = traced
     logger.info(f"=> run: {json.dumps(run)}")
     return best_iou, last_epoch
 

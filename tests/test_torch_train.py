@@ -295,7 +295,7 @@ class _Lines:
 
 
 def test_train_epoch_drains_device_metrics(monkeypatch):
-    """train_epoch over three decoded batches at dropout 0.1: the same
+    """train_epoch over three loader batches at dropout 0.1: the same
     parameters as three train_step calls with step_seed(seed, step), the
     epoch's averages of their metrics, and a progress line every
     print_freq steps in the JAX meters' format. ``precision: fp32`` in the
@@ -310,13 +310,14 @@ def test_train_epoch_drains_device_metrics(monkeypatch):
     monkeypatch.setattr(port_logging, "logger", port_log)
     monkeypatch.setattr(jax_logging, "logger", jax_log)
     img, word, mask, _ = _batch()
-    loader = [_port_batch(img, word, mask)] * 3
+    # the loader's batches: NHWC images and masks, as the dataset makes them
+    loader = [{"image": img, "word": word, "mask": mask}] * 3
     cfg = _port_cfg(print_freq=2, precision="fp32")
     models = [init_weights(_port_tiny(0.1), 3).train() for _ in range(2)]
     opts = [make_optimizer(m, cfg, len(loader)) for m in models]
     avg = train_epoch(models[0], *opts[0], loader, 1, cfg, seed=9)
-    steps = [train_step(models[1], *opts[1], batch, step_seed(9, i))
-             for i, batch in enumerate(loader)]
+    steps = [train_step(models[1], *opts[1], _port_batch(img, word, mask),
+                        step_seed(9, i)) for i in range(len(loader))]
     for key in ("loss", "iou", "prec@50"):
         np.testing.assert_allclose(
             avg[key], np.mean([float(m[key]) for m in steps]), rtol=1e-6)
