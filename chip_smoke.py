@@ -116,7 +116,9 @@ Phases (any failure raises, and the script exits non-zero):
    call (SDPA, the cuBLAS chain, F.layer_norm and its backward), back to
    back and on the device alone (device_ms: the host enqueues while the
    card sleeps).
-12. the bench (cris_tpu_torch.bench): its three metrics at short lengths
+12. the bench (cris_tpu_torch.bench): its host metric
+   (host_input_pipeline_640x480; a failure fails the phase), then its
+   three device metrics at short lengths
    (n1 2, n2 4, 2 trials), each value finite and positive, with K1's
    launches per eval batch (7, R50 and R101) and K2's forward and
    backward (6 each) and K1's (1) per train step, every one on the
@@ -125,8 +127,9 @@ Phases (any failure raises, and the script exits non-zero):
    all on the tensor cores; and R101's first check on the card, its f32
    folded forward at B 1 against the unfolded CPU forward (relative L2
    <= 1e-4, mask agreement >= 0.999).
-13. the test.py path (python3 -m cris_tpu_torch.test): the host image
-   codec built here from csrc/image_codec.cc decodes an embedded 4:2:0
+13. the test.py path (python3 -m cris_tpu_torch.test): the host data
+   library built here from csrc/image_codec.cc and csrc/batch_preprocess.cc
+   decodes an embedded 4:2:0
    JPEG to the sha256 of cv2.imdecode's output; seed-0 random CRIS-R50
    weights saved as best_model.pth in a temporary output directory; the
    first device batch of 64 (image, sentence) pairs through the folded
@@ -142,7 +145,9 @@ Phases (any failure raises, and the script exits non-zero):
    as clip_pretrain: the inferred config is the RN50 preset and the built
    backbone the traced weights bit for bit; (b) main over
    synthetic://128?seed=1 (2 steps an epoch) and synthetic://64?seed=2,
-   no mask_root, 2 epochs, milestone 1: finite losses, the logged and
+   no mask_root, 2 epochs, milestone 1, each of its 6 batches of 64
+   (train and val) preprocessed by one call of the native data plane
+   (RefDataset.get_batch -> data/native.py): finite losses, the logged and
    the groups' learning rates on the schedule, per step K2 6 + 6 and K1
    1 launches and K1 7 per val batch, all on the tensor cores,
    last_model.pth and best_model.pth written, best_model.pth through
@@ -153,6 +158,22 @@ Phases (any failure raises, and the script exits non-zero):
    step with remat on and off from one set of weights and one seed: the
    gradients within phase 7's bars of each other, the BN statistics
    equal; a bf16 b64 step's peak memory with and without remat.
+15. the native data plane on the card's host (data/native.py,
+   csrc/batch_preprocess.cc): (a) the data library built from
+   cris_tpu_torch/csrc; (b) 1280 records of the bench's 640 x 480 JPEG
+   images and PNG masks (data/host_bench.make_test_jpegs, 20 seeds on a
+   pool of processes) written with write_refpack; RefDataset.get_batch
+   (one plane call) against the per-sample __getitem__ on the first 64,
+   train and val: every array np.array_equal; (c)
+   host_input_pipeline_640x480 (measure_host_pipeline's defaults: 64
+   images, the plane on all threads and on one, 24 per sample) with the
+   host's cores and CPU model; (d) python3 -m cris_tpu_torch.train at R50
+   b64 bf16 over the 1280 records (20 steps, 1 epoch, the first 64 as the
+   val set, the profiler window on), the plane and CRIS_NATIVE=0 in turns
+   (plane, per-sample, per-sample, plane): each run's img/s, the
+   profiler window's busy share (traced), K1 27 and K2 120 + 120
+   launches all on the tensor cores, and 21 plane calls (none under
+   CRIS_NATIVE=0).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -168,14 +189,19 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 9      # K5 and K7: routes, plans, times
     python3 chip_smoke.py --phases 12     # the bench at short lengths, R101
     python3 chip_smoke.py --phases 13     # the test.py path, the codec
-    python3 chip_smoke.py --phases 14     # the train.py path, resume, remat
+    python3 chip_smoke.py --phases 14     # the train.py path through the
+                                          # native data plane, resume, remat
+    python3 chip_smoke.py --phases 15     # the plane on the card's host,
+                                          # the host metric, the train A/B
 """
 
 import argparse
 import base64
+import contextlib
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1396,13 +1422,15 @@ def k5_tails_taken(cfg, preset_from_name, takes, rule) -> int:
 
 def phase_bench(bench, build_segmenter, fold_batchnorm, tokenize,
                 preset_from_name, takes, k1, k2, k2_bwd, k5, k7):
-    """12: the bench's three metrics at short lengths (n1 2, n2 4, 2
-    trials) with their launches per batch and route, its A/B at one
+    """12: the bench's host metric, then its three device metrics at short
+    lengths (n1 2, n2 4, 2 trials) with their launches per batch and route, its A/B at one
     round with each arm's K5 and K7 launches per batch as the gate gives
     them, and R101's folded f32 forward on the card against the CPU."""
     device = torch.device("cuda")
     n1, n2, trials = 2, 4, 2
     out, launches = {"metrics": []}, {}
+    # the host metric first, as the bench runs it; a failure raises
+    out["host"] = bench.run_host_metric(device)
     for name, step, path in bench.METRICS:
         cfg = bench.config_for(path)
         # (wrapper, label, launches per batch)
@@ -1429,6 +1457,8 @@ def phase_bench(bench, build_segmenter, fold_batchnorm, tokenize,
               f"({', '.join(f'{l} {p} a batch' for _, l, p in counts)}); "
               f"{seconds:.1f} s", flush=True)
         out["metrics"].append({"metric": name, **r, "by_route": got})
+        if name == bench.METRICS[0][0]:
+            bench.print_cores_to_feed(out["host"], r["value"])
 
     cfg = bench.config_for(bench.R50)
     reset_counts(k5, k7)
@@ -1950,8 +1980,9 @@ def phase_train_entry(k1, k2, k2_bwd):
     """14: python3 -m cris_tpu_torch.train at CRIS-R50, 416 px, bf16,
     dropout 0.1, b64: (a) a seeded RN50 CLIP traced into a TorchScript
     archive and built from it; (b) main over 128 synthetic refs (2 steps
-    an epoch) and 64 val refs, 2 epochs, milestone 1; (c) a resume to
-    epoch 3; (d) remat against no remat. Returns (b)'s numbers."""
+    an epoch) and 64 val refs, 2 epochs, milestone 1, every batch through
+    the native data plane; (c) a resume to epoch 3; (d) remat against no
+    remat. Returns (b)'s numbers."""
     import copy
     import re
 
@@ -2010,8 +2041,11 @@ def phase_train_entry(k1, k2, k2_bwd):
         out_dir = os.path.join(tmp, cfg.exp_name)
         reset_counts(k1, k2, k2_bwd)
         t0 = time.perf_counter()
-        best, last = entry.main(argv)
+        with plane_calls() as calls:
+            best, last = entry.main(argv)
         main_s = time.perf_counter() - t0
+        # each epoch's 2 train batches and 1 val batch, one plane call each
+        assert calls == [b] * 3 * 2, calls
         counts = {"K1": k1.launches, "K2 fwd": k2.launches,
                   "K2 bwd": k2_bwd.launches}
         routes = {"K1": dict(k1.launches_by_route),
@@ -2032,7 +2066,8 @@ def phase_train_entry(k1, k2, k2_bwd):
               f"dropout 0.1, 2 epochs of 2 steps, milestone 1): losses "
               f"{losses}, logged lr {[float(x[2]) for x in lines]}, group lrs "
               f"after 4 steps {lrs}, best IoU {best:.6f} (epoch {last}); "
-              f"launches {counts}, by route {routes}; main {main_s:.1f} s",
+              f"launches {counts}, by route {routes}; {len(calls)} batches "
+              f"of {b} through the native data plane; main {main_s:.1f} s",
               flush=True)
         print(f"(b) => run: {json.dumps(run)}", flush=True)
         assert last == 2 and len(losses) == steps, (last, lines)
@@ -2154,6 +2189,196 @@ def phase_train_entry(k1, k2, k2_bwd):
     return out
 
 
+@contextlib.contextmanager
+def plane_calls():
+    """Counts the native data plane's calls (the batch size of each) while
+    open: RefDataset.get_batch reaches it as native.batch_preprocess."""
+    from cris_tpu_torch.data import native
+
+    real, calls = native.batch_preprocess, []
+
+    def counted(img_bytes, *args, **kwargs):
+        calls.append(len(img_bytes))
+        return real(img_bytes, *args, **kwargs)
+
+    native.batch_preprocess = counted
+    try:
+        yield calls
+    finally:
+        native.batch_preprocess = real
+
+
+# phase 15's train.py A/B: a refpack of 1280 bench images (20 steps of 64)
+HOST_AB_RECORDS, HOST_AB_STEPS, HOST_AB_CHUNK = 1280, 20, 64
+
+
+def _bench_records(n: int) -> list:
+    """n records of the bench's 640 x 480 JPEG images and PNG masks,
+    made in chunks of 64 (chunk k from seed k) on a pool of processes."""
+    import multiprocessing
+
+    from cris_tpu_torch.data.host_bench import make_test_jpegs
+
+    chunks = [(HOST_AB_CHUNK, (640, 480), k) for k in range(n // HOST_AB_CHUNK)]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(len(chunks), os.cpu_count() or 1)) as pool:
+        made = pool.starmap(make_test_jpegs, chunks)
+    records = []
+    for imgs, masks in made:
+        for img, mask in zip(imgs, masks):
+            i = len(records)
+            records.append({"img": img, "mask": mask, "cat": 0, "seg_id": i,
+                            "img_name": f"bench_{i}.jpg", "num_sents": 2,
+                            "sents": [f"the disc number {i % 7}",
+                                      "the round thing on the left"]})
+    return records
+
+
+def phase_host_plane(k1, k2, k2_bwd):
+    """15: the native data plane on the card's host: (a) the library built
+    from csrc/; (b) RefDataset.get_batch through the plane against the
+    per-sample path on 64 640 x 480 JPEG records, train and val,
+    np.array_equal on every array; (c) host_input_pipeline_640x480 at its
+    module's default size; (d) python3 -m cris_tpu_torch.train at R50 b64
+    bf16 over a refpack of 1280 such records, 20 steps an arm, the plane
+    and CRIS_NATIVE=0 in turns (plane, per-sample, per-sample, plane):
+    img/s, the profiler window's busy share and K1/K2's launches by route
+    per run. Returns the numbers."""
+    from cris_tpu_torch import train as entry
+    from cris_tpu_torch.bench import card as bench_card
+    from cris_tpu_torch.data import RefDataset, codec, write_refpack
+    from cris_tpu_torch.data.host_bench import measure_host_pipeline
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    path = codec.build()
+    print(f"(a) data library {path.name} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = cris_r50_refcoco()
+    b = cfg.batch_size
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        records = _bench_records(HOST_AB_RECORDS)
+        train_pack = os.path.join(tmp, "train.refpack")
+        val_pack = os.path.join(tmp, "val.refpack")
+        write_refpack(train_pack, records)
+        write_refpack(val_pack, records[:b])
+        masks = os.path.join(tmp, "masks")
+        os.makedirs(masks)
+        for rec in records[:b]:
+            with open(os.path.join(masks, f"{rec['seg_id']}.png"), "wb") as f:
+                f.write(rec["mask"])
+        made_s = time.perf_counter() - t0
+
+        # (b) the plane against the per-sample path, bit for bit
+        for mode in ("train", "val"):
+            ds = RefDataset(val_pack, masks, cfg.dataset, "val", mode,
+                            cfg.input_size, cfg.word_len)
+            idx = list(range(b))
+            rngs = [np.random.RandomState(i) for i in idx]
+            t0 = time.perf_counter()
+            with plane_calls() as calls:
+                got = ds.get_batch(idx, rngs)
+            plane_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = [ds.__getitem__(i, rng=np.random.RandomState(i))
+                    for i in idx]
+            sample_s = time.perf_counter() - t0
+            assert calls == [b], calls
+            arrays = 0
+            for x, y in zip(got, want):
+                assert set(x) == set(y)
+                for key, value in y.items():
+                    if isinstance(value, np.ndarray):
+                        assert x[key].dtype == value.dtype, key
+                        assert np.array_equal(x[key], value), (mode, key)
+                        arrays += 1
+                    else:
+                        assert x[key] == value, (mode, key)
+            print(f"(b) {mode}: {b} records ({HOST_AB_RECORDS} made in "
+                  f"{made_s:.1f} s): the plane's batch equals the per-sample "
+                  f"path's, {arrays} arrays np.array_equal; plane "
+                  f"{plane_s:.3f} s, per sample {sample_s:.3f} s", flush=True)
+
+        # (c) the host metric
+        host = measure_host_pipeline()
+        print(f"(c) {json.dumps({'metric': 'host_input_pipeline_640x480', **host, 'card': card_line()})}",
+              flush=True)
+        assert host["native_img_s"] > 0 and host["python_img_s"] > 0, host
+        out["host"] = host
+
+        # (d) the train entry, the plane against CRIS_NATIVE=0, in turns
+        argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                "--opts", "DATA.train_lmdb", train_pack, "DATA.val_lmdb",
+                val_pack, "DATA.mask_root", masks, "TRAIN.epochs", "1",
+                "TRAIN.print_freq", "5"]
+        sites = 2 * cfg.num_layers
+        want = {"K1": HOST_AB_STEPS + 7, "K2 fwd": sites * HOST_AB_STEPS,
+                "K2 bwd": sites * HOST_AB_STEPS}
+        runs = []
+        before = os.environ.get("CRIS_NATIVE")
+        try:
+            for k, (rnd, arm) in enumerate([(0, "plane"), (0, "per-sample"),
+                                            (1, "per-sample"), (1, "plane")]):
+                if arm == "plane":
+                    os.environ.pop("CRIS_NATIVE", None)
+                else:
+                    os.environ["CRIS_NATIVE"] = "0"
+                run_dir = os.path.join(tmp, f"run{k}")
+                reset_counts(k1, k2, k2_bwd)
+                t0 = time.perf_counter()
+                with plane_calls() as calls:
+                    entry.main(argv + ["TRAIN.output_folder", run_dir,
+                                       "TRAIN.profile_dir",
+                                       os.path.join(tmp, f"prof{k}")])
+                main_s = time.perf_counter() - t0
+                _close_log()
+                run = _run_line(os.path.join(run_dir, cfg.exp_name,
+                                             "train.log"))
+                counts = {"K1": k1.launches, "K2 fwd": k2.launches,
+                          "K2 bwd": k2_bwd.launches}
+                routes = {"K1": dict(k1.launches_by_route),
+                          "K2 fwd": dict(k2.launches_by_route),
+                          "K2 bwd": dict(k2_bwd.launches_by_route)}
+                row = {"round": rnd, "arm": arm,
+                       "img_s": run["images_per_s"],
+                       "traced_busy_share": run["traced"]["device_busy_share"],
+                       "traced": run["traced"], "steps": run["steps"],
+                       "step_event_share": run["step_event_share"],
+                       "profiler_seconds": run["profiler_seconds"],
+                       "plane_calls": len(calls), "launches": counts,
+                       "by_route": routes, "main_seconds": main_s,
+                       "card": bench_card(torch.device("cuda"))}
+                print(f"(d) {json.dumps(row)}", flush=True)
+                assert run["steps"] == HOST_AB_STEPS, run
+                assert counts == want, (counts, want)
+                for name, n in want.items():
+                    assert routes[name] == {"tensor_cores": n, "scalar": 0}
+                # 20 train batches and 1 val batch through the plane, or none
+                assert len(calls) == (HOST_AB_STEPS + 1 if arm == "plane"
+                                      else 0), calls
+                runs.append(row)
+                shutil.rmtree(run_dir)
+        finally:
+            if before is None:
+                os.environ.pop("CRIS_NATIVE", None)
+            else:
+                os.environ["CRIS_NATIVE"] = before
+    for arm in ("plane", "per-sample"):
+        rates = [r["img_s"] for r in runs if r["arm"] == arm]
+        busy = [r["traced_busy_share"] for r in runs if r["arm"] == arm]
+        print(f"(d) {arm}: img/s {rates}, traced busy share {busy}",
+              flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15: {seconds:.1f} s", flush=True)
+    out.update(runs=runs, seconds=seconds,
+               launches={name: sum(r["launches"][name] for r in runs)
+                         for name in want})
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -2165,7 +2390,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 15)) if run_all else {
+    wanted = set(range(2, 16)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -2252,6 +2477,9 @@ def main() -> int:
     if 14 in wanted:
         out["train_entry"] = phase_train_entry(
             k1, k2, kernels.attention_dropout_backward)
+    if 15 in wanted:
+        out["host_plane"] = phase_host_plane(
+            k1, k2, kernels.attention_dropout_backward)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -2271,6 +2499,7 @@ def summary(out) -> dict:
     bench = out["bench"]["launches"]  # phase 12, all on tensor_cores
     test_path = out["test_path"]  # phase 13
     train_py = out["train_entry"]  # phase 14 (b), all on tensor_cores
+    ab_py = out["host_plane"]["launches"]  # phase 15 (d), all tensor_cores
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -2282,7 +2511,8 @@ def summary(out) -> dict:
         (the tensor-core kernels run shorter than the wrapper's host time),
         with SDPA with dropout as the library call."""
         key = {"forward": "fwd", "backward": "bwd"}[part]
-        entry_n = train_py["launches"][f"K2 {key}"]
+        entry_n = (train_py["launches"][f"K2 {key}"]
+                   + ab_py[f"K2 {key}"])
         return {
             "name": f"fused_attention_bse_dropout ({part})",
             "route": "cuda",
@@ -2290,7 +2520,8 @@ def summary(out) -> dict:
             "replaces": f"cris_tpu/ops/pallas/attention_train.py:{replaces}",
             "launches": train_n + bench_n + entry_n,
             "launches_by_path": {"train": train_n, "bench": bench_n,
-                                 "train.py": entry_n},
+                                 "train.py": train_py["launches"][f"K2 {key}"],
+                                 "train.py A/B": ab_py[f"K2 {key}"]},
             "launches_by_route": {r: n + (bench_n + entry_n
                                           if r == "tensor_cores" else 0)
                                   for r, n in by_route.items()},
@@ -2330,17 +2561,18 @@ def summary(out) -> dict:
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
                      + bench["K1"] + test_path["K1"]
-                     + train_py["launches"]["K1"]),
+                     + train_py["launches"]["K1"] + ab_py["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
                              "bench": bench["K1"],
                              "test.py": test_path["K1"],
-                             "train.py": train_py["launches"]["K1"]},
+                             "train.py": train_py["launches"]["K1"],
+                             "train.py A/B": ab_py["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
-            + (bench["K1"] if r == "tensor_cores" else 0)
+            + (bench["K1"] + ab_py["K1"] if r == "tensor_cores" else 0)
             + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
@@ -2464,7 +2696,8 @@ def summary(out) -> dict:
                       "test_path": {k: v for k, v in test_path.items()
                                     if k != "K1_by_route"},
                       "train_entry": {k: v for k, v in train_py.items()
-                                      if k != "by_route"}}), flush=True)
+                                      if k != "by_route"},
+                      "host_plane": out["host_plane"]}), flush=True)
     return {"kernels": kernels}
 
 

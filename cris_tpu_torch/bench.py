@@ -1,10 +1,22 @@
-"""The port's benchmark: ``bench.py``'s three device metrics on one CUDA card.
+"""The port's benchmark: ``bench.py``'s host metric and its three device
+metrics on one CUDA card.
 
     python3 -m cris_tpu_torch.bench [--trials N] [--n1 N] [--n2 N]
     python3 -m cris_tpu_torch.bench --ab [--rounds N]
 
 One JSON line per metric, under ``bench.py``'s names, in images per
 second: ``{"metric", "value", "unit", "trials", "spread", "card"}``.
+
+- ``host_input_pipeline_640x480``, first, as ``bench.py:352-383`` prints
+  it (``data/host_bench.py``): 48 distinct 640 x 480 JPEG images with PNG
+  masks preprocessed to 416^2, the best of 2 runs on the host clock. Its
+  value is the native data plane's img/s on all the host's threads; beside
+  it the plane on one thread, the per-sample numpy path (16 images),
+  ``vs_baseline`` (native over per-sample), ``os.cpu_count()`` and the CPU
+  model. After the R50 eval metric, ``host_cores_to_feed_r50_eval``: the
+  cores of the plane (at its one-thread rate) that keep up with this
+  run's R50 eval rate. A failure of the host metric prints an ``error``
+  line; the device metrics still run, and the run exits non-zero.
 
 - ``cris_r50_eval_throughput_416px_b32``: the eval step that
   ``bench.py:174-182`` scans. The BN-folded CRIS-R50
@@ -51,10 +63,11 @@ higher in every round; the gate keeps "narrow" only if (c) beats (b); a
 switch turns on by default only if its arm beats the arm without it and
 the median gain exceeds the larger of the two arms' (max - min).
 
-The eval metric runs first; if it fails, the run exits non-zero. The
-other two print an ``error`` line and the run goes on. It runs on the
-card unless ``--device cpu`` is given (the tests, at a tiny size); with no
-card it exits non-zero, and it never falls back to the CPU on its own.
+Of the device metrics the eval metric runs first; if it fails, the run
+exits non-zero. The other two print an ``error`` line and the run goes
+on. It runs on the card unless ``--device cpu`` is given (the tests, at a
+tiny size); with no card it exits non-zero, and it never falls back to
+the CPU on its own.
 """
 
 from __future__ import annotations
@@ -73,6 +86,7 @@ import torch
 
 from . import engine
 from .checkpoint import fold_batchnorm
+from .data.host_bench import cores_to_feed, measure_host_pipeline
 from .engine import Evaluator
 from .models import build_segmenter, resolve_dtype
 from .ops.kernels import fused_bottleneck, fused_stem_pool
@@ -91,6 +105,9 @@ TRAIN_OPT = dict(base_lr=1e-4, lr_multi=0.1, milestones=[35], lr_decay=0.1,
                  weight_decay=0.0, max_norm=0.0)
 ARMS = {"a": {}, "b": {"fused_bottleneck": "every"},
         "c": {"fused_bottleneck": "narrow"}}
+HOST_METRIC = "host_input_pipeline_640x480"
+# bench.py:363's sizes of the host measurement
+HOST_ARGS = dict(n_images=48, repeats=2, python_images=16)
 
 
 def card(device: torch.device) -> str:
@@ -242,6 +259,39 @@ def run_metric(name: str, step: str, cfg, device: torch.device, b: int,
     return result
 
 
+def run_host_metric(device: torch.device) -> Dict:
+    """The host metric's line, printed; on a failure an ``error`` line is
+    printed and the exception raised."""
+    try:
+        r = measure_host_pipeline(**HOST_ARGS)
+    except Exception as e:
+        print(json.dumps({"metric": HOST_METRIC, "error": repr(e)[:200]}),
+              flush=True)
+        raise
+    line = {"metric": HOST_METRIC, "value": r["native_img_s"], "unit": "img/s",
+            "native_1thread_img_s": r["native_1thread_img_s"],
+            "per_sample_img_s": r["python_img_s"],
+            "vs_baseline": r["native_img_s"] / r["python_img_s"],
+            "native_threads": r["native_threads"],
+            "prewarped_img_s": r["prewarped_img_s"],
+            "host_cores": r["host_cores"], "cpu_model": r["cpu_model"],
+            "images": r["n_images"], "card": card(device)}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def print_cores_to_feed(host: Dict, eval_img_s: float) -> None:
+    """The plane's cores (at its one-thread rate) that feed this run's R50
+    eval rate."""
+    print(json.dumps({
+        "metric": "host_cores_to_feed_r50_eval",
+        "value": cores_to_feed(eval_img_s, host["native_1thread_img_s"]),
+        "unit": "cores", "r50_eval_img_s": eval_img_s,
+        "native_1thread_img_s": host["native_1thread_img_s"],
+        "host_cores": host["host_cores"], "cpu_model": host["cpu_model"]}),
+        flush=True)
+
+
 def free(device: torch.device) -> None:
     """Return the last metric's memory before the next one."""
     gc.collect()
@@ -340,6 +390,10 @@ def main(argv=None) -> int:
         ab(config_for(R50), device, args.batch, args.n1, args.n2,
            args.rounds)
         return 0
+    try:
+        host = run_host_metric(device)
+    except Exception:  # noqa: BLE001 -- printed; the device metrics go on
+        host = None
     for i, (name, step, path) in enumerate(METRICS):
         try:
             result = run_metric(name, step, config_for(path), device,
@@ -356,7 +410,9 @@ def main(argv=None) -> int:
                           "unit": "img/s", "trials": result["trials"],
                           "spread": result["spread"],
                           "card": card(device)}), flush=True)
-    return 0
+        if i == 0 and host is not None:
+            print_cores_to_feed(host, result["value"])
+    return 0 if host is not None else 1
 
 
 if __name__ == "__main__":

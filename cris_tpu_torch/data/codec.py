@@ -1,4 +1,4 @@
-"""Image decoding and PNG encoding on the host, without OpenCV or PIL.
+"""Image decoding and encoding on the host, without OpenCV or PIL.
 
 ``decode_image`` and ``decode_mask`` are the port's ``cv2.imdecode`` with
 ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``: the format is sniffed from the
@@ -11,17 +11,21 @@ output is BGR (gray replicated to 3 channels) or gray uint8.
   so the pixels equal OpenCV's bit for bit. Anything else (progressive,
   arithmetic-coded, 12-bit, CMYK, corrupt data) raises ``ValueError``
   naming the marker or the fault.
-- PNG: 8-bit gray and RGB, not interlaced. ``zlib`` inflates the data
-  here, the C++ library undoes the five row filters.
+- PNG: 8-bit gray and RGB, not interlaced. The same library walks the
+  chunks (an ancillary chunk with a bad CRC is dropped, a critical one
+  raises), inflates the data and undoes the row filters.
 
-The C++ library is built with the host's C++ compiler at first use (a few
-seconds, no torch headers) under ``build/cris_tpu_torch/`` at the
-repository root, named by a digest of its source and flags, and loaded
-with ``ctypes``. It is written under a temporary name and renamed into
-place, so processes that build it at once do not race. If it cannot be
-built, decoding raises: there is no other decoder.
+``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
+with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
 
-``encode_png`` (filter 0 + ``zlib``) is pure Python.
+The C++ library (``csrc/image_codec.cc`` and the batched data plane,
+``csrc/batch_preprocess.cc``, see ``data/native.py``) is built with the
+host's C++ compiler at first use (a few seconds, no torch headers) under
+``build/cris_tpu_torch/`` at the repository root, named by a digest of its
+sources and flags, and loaded with ``ctypes``. It is written under a
+temporary name and renamed into place, so processes that build it at once
+do not race. If it cannot be built, decoding raises: there is no other
+decoder.
 """
 
 from __future__ import annotations
@@ -41,13 +45,17 @@ from typing import Optional
 import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "image_codec.cc"
+CSRC = PACKAGE_DIR / "csrc"
+SOURCES = (CSRC / "image_codec.cc", CSRC / "batch_preprocess.cc")
+HEADERS = (CSRC / "image_codec.h",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
-CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+# -ffp-contract=off: the data plane's warps must round as numpy does, so
+# no multiply-add may be fused (and no -ffast-math, no -march=native)
+CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off",
+             "-pthread"]
 
-_JPEG_MAGIC = b"\xff\xd8\xff"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_ERRLEN = 256
+_ERRLEN = 512
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
@@ -55,8 +63,9 @@ _library: Optional[ctypes.CDLL] = None
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libcris_codec_{digest.hexdigest()[:16]}.so"
+    for path in SOURCES + HEADERS:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libcris_data_{digest.hexdigest()[:16]}.so"
 
 
 def _compiler() -> str:
@@ -68,7 +77,7 @@ def _compiler() -> str:
 
 
 def build() -> Path:
-    """Compile the codec unless a library for this source exists."""
+    """Compile the library unless one for these sources exists."""
     target = library_path()
     if target.is_file():
         return target
@@ -76,11 +85,12 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(prefix=target.name + ".", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_compiler(), *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [_compiler(), *CXX_FLAGS, "-o", tmp, *map(str, SOURCES)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"building {', '.join(s.name for s in SOURCES)}"
+                               f" failed:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):
@@ -89,19 +99,28 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """The codec's shared library, built on first use."""
+    """The data library, built on first use."""
     global _library
     with _lock:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            pi, pll = ctypes.POINTER(i), ctypes.POINTER(ll)
-            lib.cris_jpeg_info.argtypes = [p, ll, pi, pi, pll, pll, p, i]
-            lib.cris_jpeg_decode.argtypes = [p, ll, p, i, p, i]
-            lib.cris_png_unfilter.argtypes = [p, ll, i, i, i, p, p, i]
-            for fn in (lib.cris_jpeg_info, lib.cris_jpeg_decode,
-                       lib.cris_png_unfilter):
+            pi, pll, pp = (ctypes.POINTER(i), ctypes.POINTER(ll),
+                           ctypes.POINTER(p))
+            lib.cris_decode.argtypes = [p, ll, i, pp, pi, pi, pi, p, i]
+            lib.cris_jpeg_encode.argtypes = [p, i, i, i, i, pp, pll, p, i]
+            lib.cris_zlib_inflate.argtypes = [p, ll, pp, pll, p, i]
+            ptrs = ctypes.POINTER(ctypes.c_char_p)
+            sz = ctypes.POINTER(ctypes.c_size_t)
+            lib.cris_batch_preprocess.argtypes = [ptrs, sz, ptrs, sz, i, i, i,
+                                                  p, p, p, p, p, i]
+            for fn in (lib.cris_decode, lib.cris_jpeg_encode,
+                       lib.cris_zlib_inflate, lib.cris_batch_preprocess,
+                       lib.cris_data_abi_version):
                 fn.restype = i
+            lib.cris_data_abi_version.argtypes = []
+            lib.cris_free.argtypes = [p]
+            lib.cris_free.restype = None
             _library = lib
         return _library
 
@@ -112,116 +131,24 @@ def _call(fn, *args) -> None:
         raise ValueError(err.value.decode(errors="replace"))
 
 
-def exif_orientation(payload: bytes) -> int:
-    """The orientation tag (0x0112) of an APP1 payload, read as OpenCV's
-    EXIF reader reads it: a TIFF header 6 bytes in, IFD0's entries; 1 when
-    there is none or the header is not TIFF."""
-    tiff = payload[6:]
-    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
-        return 1
-    end = "<" if tiff[:2] == b"II" else ">"
-    if struct.unpack_from(end + "H", tiff, 2)[0] != 42:
-        return 1
-    ifd = struct.unpack_from(end + "I", tiff, 4)[0]
-    if ifd + 2 > len(tiff):
-        return 1
-    for k in range(struct.unpack_from(end + "H", tiff, ifd)[0]):
-        entry = ifd + 2 + 12 * k
-        if entry + 12 > len(tiff):
-            break
-        if struct.unpack_from(end + "H", tiff, entry)[0] == 0x0112:
-            return struct.unpack_from(end + "H", tiff, entry + 8)[0]
-    return 1
-
-
-def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
-    """cv2's ApplyExifOrientation: flips for 2-4, a transpose then flips
-    for 5-8, nothing for 1 or an unknown value."""
-    if 5 <= orientation <= 8:
-        img = img.swapaxes(0, 1)
-        orientation = {5: 1, 6: 2, 7: 3, 8: 4}[orientation]
-    if orientation == 2:
-        img = img[:, ::-1]
-    elif orientation == 3:
-        img = img[::-1, ::-1]
-    elif orientation == 4:
-        img = img[::-1]
-    return np.ascontiguousarray(img)
-
-
-def _decode_jpeg(buf: bytes, channels: int) -> np.ndarray:
-    lib = load_library()
-    h, w = ctypes.c_int(), ctypes.c_int()
-    app1_off, app1_len = ctypes.c_longlong(), ctypes.c_longlong()
-    _call(lib.cris_jpeg_info, buf, len(buf), ctypes.byref(h), ctypes.byref(w),
-          ctypes.byref(app1_off), ctypes.byref(app1_len))
-    shape = (h.value, w.value) + ((3,) if channels == 3 else ())
-    out = np.empty(shape, np.uint8)
-    _call(lib.cris_jpeg_decode, buf, len(buf), out.ctypes.data, channels)
-    if app1_off.value >= 0:
-        payload = buf[app1_off.value : app1_off.value + app1_len.value]
-        out = apply_orientation(out, exif_orientation(payload))
-    return out
-
-
-def _decode_png(buf: bytes, gray: bool) -> np.ndarray:
-    """8-bit gray or RGB PNG -> (H, W) gray or (H, W, 3) BGR."""
-    pos, header, idat = len(_PNG_MAGIC), None, []
-    while True:
-        if pos + 12 > len(buf):
-            raise ValueError("PNG: truncated data (no IEND chunk)")
-        length, kind = struct.unpack_from(">I4s", buf, pos)
-        data = buf[pos + 8 : pos + 8 + length]
-        if len(data) != length or pos + 12 + length > len(buf):
-            raise ValueError(f"PNG {kind!r}: truncated chunk")
-        crc = struct.unpack_from(">I", buf, pos + 8 + length)[0]
-        pos += 12 + length
-        critical = not kind[0] & 0x20
-        if zlib.crc32(kind + data) != crc:
-            if critical:
-                raise ValueError(f"PNG {kind.decode(errors='replace')}: "
-                                 "CRC mismatch")
-            continue  # libpng drops an ancillary chunk with a bad CRC
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
-            break
-        elif critical:
-            raise ValueError(f"PNG {kind.decode(errors='replace')}: chunk "
-                             "not supported (palette images are not)")
-    if header is None:
-        raise ValueError("PNG: no IHDR chunk")
-    width, height, depth, color, method, filt, interlace = header
-    if depth != 8 or color not in (0, 2) or interlace or method or filt:
-        raise ValueError(f"PNG IHDR: bit depth {depth}, color type {color}, "
-                         f"interlace {interlace}: only 8-bit gray or RGB, not "
-                         "interlaced, is supported")
-    if gray and color == 2:
-        raise ValueError("PNG: RGB to grayscale is not supported")
+def _take(lib, ptr: ctypes.c_void_p, out: np.ndarray) -> np.ndarray:
+    """``out`` filled from the library's malloc'd output, which is freed."""
     try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"PNG IDAT: {e}") from None
-    bpp = 1 if color == 0 else 3
-    out = np.empty((height, width, bpp), np.uint8)
-    _call(load_library().cris_png_unfilter, raw, len(raw), height, width, bpp,
-          out.ctypes.data)
-    if gray:
-        return out[:, :, 0]
-    if bpp == 1:
-        return np.repeat(out, 3, axis=2)
-    return np.ascontiguousarray(out[:, :, ::-1])
+        ctypes.memmove(out.ctypes.data, ptr, out.nbytes)
+    finally:
+        lib.cris_free(ptr)
+    return out
 
 
 def _decode(buf, gray: bool) -> np.ndarray:
     buf = bytes(buf)
-    if buf.startswith(_JPEG_MAGIC):
-        return _decode_jpeg(buf, 1 if gray else 3)
-    if buf.startswith(_PNG_MAGIC):
-        return _decode_png(buf, gray)
-    raise ValueError("not a JPEG or PNG image")
+    lib = load_library()
+    ptr = ctypes.c_void_p()
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _call(lib.cris_decode, buf, len(buf), int(gray), ctypes.byref(ptr),
+          ctypes.byref(h), ctypes.byref(w), ctypes.byref(c))
+    shape = (h.value, w.value) + ((3,) if c.value == 3 else ())
+    return _take(lib, ptr, np.empty(shape, np.uint8))
 
 
 def decode_image(buf) -> np.ndarray:
@@ -234,6 +161,24 @@ def decode_mask(buf) -> np.ndarray:
     """JPEG or gray PNG bytes -> (H, W) uint8, as ``cv2.imdecode`` with
     ``IMREAD_GRAYSCALE`` gives it."""
     return _decode(buf, gray=True)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) BGR or (H, W) gray uint8 -> baseline JPEG bytes, as
+    ``cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])`` writes
+    them (JFIF, IJG quality tables, 4:2:0 for color, standard Huffman
+    tables); ``cv2.imwrite``'s default quality is 95."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or
+                                     (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    lib = load_library()
+    ptr, size = ctypes.c_void_p(), ctypes.c_longlong()
+    _call(lib.cris_jpeg_encode, img.ctypes.data, img.shape[0], img.shape[1],
+          1 if img.ndim == 2 else 3, int(quality), ctypes.byref(ptr),
+          ctypes.byref(size))
+    return _take(lib, ptr, np.empty(size.value, np.uint8)).tobytes()
 
 
 def read_mask(path: str) -> np.ndarray:

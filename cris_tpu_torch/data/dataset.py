@@ -9,7 +9,9 @@ and tokenizer):
   the inference loop evaluates every sentence.
 
 Images stay NHWC float32, as the JAX package's samples are; the device
-step puts them in NCHW on the card. Backends come from the config's
+step puts them in NCHW on the card. The loader takes batches from
+``get_batch``, which preprocesses train and val records in one call of the
+native data plane (``data/native.py``). Backends come from the config's
 ``*_lmdb`` entry: RefPack files or ``synthetic://COUNT?seed=S`` URIs.
 """
 
@@ -23,6 +25,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from ..utils.tokenizer import tokenize
+from . import native
 from .records import RefPackReader
 from .synthetic import SyntheticBackend
 from .transforms import (decode_image, decode_mask, get_transform_mats,
@@ -83,42 +86,72 @@ class RefDataset:
     def _mask_path(self, seg_id) -> str:
         return os.path.join(self.mask_root or "", f"{seg_id}.png")
 
+    def _sample(self, rec, image, mask, inverse, ori_size, rng):
+        """This mode's sample from a record's preprocessed image (and train
+        mask, or val/test inverse affine and original size): train draws
+        its sentence from ``rng``."""
+        sents = rec["sents"]
+        if self.mode == "train":
+            rng = rng or np.random
+            sent = sents[int(rng.choice(rec["num_sents"]))]
+            return {"image": image,
+                    "word": tokenize(sent, self.word_length, True)[0],
+                    "mask": mask}
+        base = {"image": image, "seg_id": rec["seg_id"],
+                "mask_path": self._mask_path(rec["seg_id"]),
+                "inverse": inverse, "ori_size": ori_size}
+        if self.mode == "val":
+            base["word"] = tokenize(sents[0], self.word_length, True)[0]
+        else:
+            base["sents"] = list(sents)
+        return base
+
     def _getitem_prewarped(self, rec, rng=None):
         """Records of tools/prewarp.py: the letterbox warp is baked in, so a
         sample is a normalize + tokenize (the same outputs as the
         on-the-fly path)."""
         size = self.input_size[0]
         img = np.frombuffer(rec["warped"], np.uint8).reshape(size, size, 3)
-        sents = rec["sents"]
         if self.mode == "train":
             mask = np.frombuffer(rec["warped_mask"], np.float32).reshape(
                 size, size, 1)
-            rng = rng or np.random
-            sent = sents[int(rng.choice(rec["num_sents"]))]
-            return {"image": normalize_image(img),
-                    "word": tokenize(sent, self.word_length, True)[0],
-                    "mask": mask.copy()}
-        base = {
-            "image": normalize_image(img),
-            "seg_id": rec["seg_id"],
-            "mask_path": self._mask_path(rec["seg_id"]),
-            "inverse": np.frombuffer(rec["inverse"], np.float64).reshape(2, 3),
-            "ori_size": np.frombuffer(rec["ori_size"], np.int32).copy(),
-        }
-        if self.mode == "val":
-            base["word"] = tokenize(sents[0], self.word_length, True)[0]
-            return base
-        base["sents"] = list(sents)
+            return self._sample(rec, normalize_image(img), mask.copy(), None,
+                                None, rng)
+        sample = self._sample(
+            rec, normalize_image(img), None,
+            np.frombuffer(rec["inverse"], np.float64).reshape(2, 3),
+            np.frombuffer(rec["ori_size"], np.int32).copy(), rng)
         # the original image only when packed with --keep-ori
-        if "img" in rec:
-            base["ori_img"] = decode_image(rec["img"])
-        return base
+        if self.mode == "test" and "img" in rec:
+            sample["ori_img"] = decode_image(rec["img"])
+        return sample
 
     def get_batch(self, indices, rngs=None):
-        """The samples of ``indices``, one by one (the port has no batched
-        native data plane)."""
+        """The samples of ``indices``, sentences drawn from ``rngs``, as
+        ``cris_tpu/data/dataset.py``'s ``get_batch``: train and val records
+        through the native data plane (``data/native.py``: one C++ call
+        decodes, warps and normalises the batch, with the per-sample
+        path's values bit for bit), prewarped records through
+        ``_getitem_prewarped``; test mode, and ``CRIS_NATIVE=0``, sample by
+        sample."""
         rngs = rngs or [None] * len(indices)
-        return [self.__getitem__(int(i), rng=r) for i, r in zip(indices, rngs)]
+        if self.mode == "test" or not native.available():
+            return [self.__getitem__(int(i), rng=r)
+                    for i, r in zip(indices, rngs)]
+        records = [self.backend[int(i)] for i in indices]
+        if records and "warped" in records[0]:
+            return [self._getitem_prewarped(rec, r)
+                    for rec, r in zip(records, rngs)]
+        train = self.mode == "train"
+        images, masks, inverse, ori = native.batch_preprocess(
+            [rec["img"] for rec in records],
+            [rec["mask"] for rec in records] if train else None,
+            self.input_size[0], want_inverse=not train)
+        return [self._sample(rec, images[j],
+                             masks[j][..., None] if train else None,
+                             None if train else inverse[j],
+                             None if train else ori[j], rng)
+                for j, (rec, rng) in enumerate(zip(records, rngs))]
 
     def __getitem__(self, index: int,
                     rng: Optional[np.random.RandomState] = None):
@@ -128,28 +161,14 @@ class RefDataset:
         ori_img = decode_image(rec["img"])  # BGR
         img = ori_img[:, :, ::-1]  # RGB
         img_size = img.shape[:2]
-        sents = rec["sents"]
 
         mat, inv = get_transform_mats(img_size, self.input_size)
-        img = warp_image(img, mat, self.input_size)
-
+        img = normalize_image(warp_image(img, mat, self.input_size))
         if self.mode == "train":
             mask = warp_mask(decode_mask(rec["mask"]), mat, self.input_size)
-            rng = rng or np.random
-            sent = sents[int(rng.choice(rec["num_sents"]))]
-            return {"image": normalize_image(img),
-                    "word": tokenize(sent, self.word_length, True)[0],
-                    "mask": mask[..., None]}
-        base = {
-            "image": normalize_image(img),
-            "seg_id": rec["seg_id"],
-            "mask_path": self._mask_path(rec["seg_id"]),
-            "inverse": inv.astype(np.float64),
-            "ori_size": np.array(img_size, np.int32),
-        }
-        if self.mode == "val":
-            base["word"] = tokenize(sents[0], self.word_length, True)[0]
-            return base
-        base["ori_img"] = ori_img
-        base["sents"] = list(sents)
-        return base
+            return self._sample(rec, img, mask[..., None], None, None, rng)
+        sample = self._sample(rec, img, None, inv.astype(np.float64),
+                              np.array(img_size, np.int32), rng)
+        if self.mode == "test":
+            sample["ori_img"] = ori_img
+        return sample

@@ -9,10 +9,9 @@ the same (index, seed). The shapes are drawn in numpy with OpenCV's
 filled rasterization for these shapes (a filled circle is the disc
 (x - cx)^2 + (y - cy)^2 <= r^2; the triangle's row at t below its apex
 spans [cx - ceil(t / 2), cx + floor(t / 2)]), so the masks equal the JAX
-package's pixel for pixel. The image is stored as PNG (the port has no
-JPEG encoder; the decoder sniffs the format, as ``cv2.imdecode`` does),
-so its pixels are the drawn ones, where the JAX package's went through a
-JPEG encode.
+package's pixel for pixel. The image is stored as PNG (the decoder
+sniffs the format, as ``cv2.imdecode`` does), so its pixels are the drawn
+ones, where the JAX package's went through a JPEG encode.
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..data.codec import encode_png, read_mask
+from ..data.codec import encode_jpeg, encode_png, read_mask
 from ..data.transforms import inverse_warp_prediction
 from ..ops.resize import resize2d
 from ..utils.logging import logger
@@ -241,10 +241,10 @@ class Evaluator:
         """All-sentences test evaluation: IoU, Pr@50..90 and oIoU over every
         (ref, sentence) pair. ``visualize`` writes each pair's binarised
         prediction ``{seg_id}-iou=...-{sentence}.png`` and each ref's GT
-        ``{seg_id}-mask.png`` under ``vis_dir``; the original-image dump
-        ``-img.jpg`` needs a JPEG encoder, which the port lacks, so it is
-        skipped with one warning. ``progress`` logs every tenth of the
-        refs."""
+        ``{seg_id}-mask.png`` and original image ``{seg_id}-img.jpg``
+        (quality 95, as ``cv2.imwrite`` writes it; records prewarped without
+        ``--keep-ori`` have none, which one warning says) under
+        ``vis_dir``. ``progress`` logs every tenth of the refs."""
         iou_list: List[float] = []
         sums = [0.0, 0.0]  # cumulative intersection / union (oIoU)
         total = len(dataset)
@@ -268,16 +268,24 @@ class Evaluator:
             return iou, inter, union
 
         def pair_stream():
-            if visualize and vis_dir:
-                logger.warning("visualize: the port has no JPEG encoder; "
-                               "skipping the -img.jpg dumps")
+            warned_no_ori = False
             for idx in range(total):
                 if progress and idx % step == 0:
                     logger.info(f"Inference: {idx}/{total} refs")
                 sample = dataset[idx]
                 mask = read_mask(sample["mask_path"]) / 255.0
                 if visualize and vis_dir:
-                    write_png(f"{sample['seg_id']}-mask.png",
+                    seg_id = sample["seg_id"]
+                    if "ori_img" in sample:
+                        with open(os.path.join(vis_dir, f"{seg_id}-img.jpg"),
+                                  "wb") as f:
+                            f.write(encode_jpeg(sample["ori_img"], 95))
+                    elif not warned_no_ori:
+                        warned_no_ori = True
+                        logger.warning("visualize: records lack original "
+                                       "images (prewarped without "
+                                       "--keep-ori); skipping -img.jpg dumps")
+                    write_png(f"{seg_id}-mask.png",
                               (mask * 255).astype(np.uint8))
                 for sent in sample["sents"]:
                     yield (sample["image"], tokenize(sent, word_len, True)[0],

@@ -152,11 +152,12 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
 
     Returns the epoch's averages {loss, iou, prec@50} and under "run"
     what it counted: steps, images, host seconds (first batch fetched to
-    the last step done), on the card the seconds between CUDA events
-    recorded around each step (None on the CPU; they hold the card's waits
-    for the host inside a step too, so they bound its busy time from
-    above), and the profiler window's ``StepTimer.window`` (None when no
-    window closed in this epoch)."""
+    the last step done, less the profiler window's own start, stop,
+    measurement and trace export, which are "profiler_seconds"), on the
+    card the seconds between CUDA events recorded around each step (None
+    on the CPU; they hold the card's waits for the host inside a step too,
+    so they bound its busy time from above), and the profiler window's
+    ``StepTimer.window`` (None when no window closed in this epoch)."""
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
     timer = StepTimer(cfg.get("profile_dir") if epoch == 1 else None)
     batch_time = AverageMeter("Batch", ":2.2f")
@@ -190,8 +191,12 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
         pending.clear()
 
     t0 = end = time.time()
+    profiler_s = 0.0  # the window's start, stop, measurement and export
     for i, batch in enumerate(loader):
+        t = time.time()
         timer.step(i)
+        spent = time.time() - t
+        profiler_s, end = profiler_s + spent, end + spent
         data_time.update(time.time() - end)
         image, word, mask = _device_batch(batch, device, nchw=True)
         step = scheduler.last_epoch
@@ -223,12 +228,16 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
                     "training/prec@50": pr_meter.val,
                 }, step=epoch * len(loader) + (i + 1))
     drain()
-    timer.close()
     event_s = None
     if events:
         events[-1][1].synchronize()
         event_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
-    run = {"steps": steps, "images": images, "seconds": time.time() - t0,
-           "step_event_seconds": event_s, "traced": timer.window}
+    seconds = time.time() - t0 - profiler_s
+    t = time.time()
+    timer.close()
+    profiler_s += time.time() - t
+    run = {"steps": steps, "images": images, "seconds": seconds,
+           "step_event_seconds": event_s, "profiler_seconds": profiler_s,
+           "traced": timer.window}
     return {"loss": loss_meter.avg, "iou": iou_meter.avg,
             "prec@50": pr_meter.avg, "run": run}

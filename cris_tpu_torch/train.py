@@ -16,8 +16,9 @@ on a new best, in ``{output_folder}/{exp_name}``. Runs on the card unless
 
 Logs to stderr and ``train.log`` in the output directory, ending with
 the best IoU, the training time and a line ``=> run: {...}``: the train
-steps, images, host seconds in the train epochs, images per second, the
-seconds spent validating, on the card the seconds between CUDA events
+steps, images, host seconds in the train epochs (less the profiler
+window's own start, stop and trace export, ``profiler_seconds``), images
+per second, the seconds spent validating, on the card the seconds between CUDA events
 around each step and their share of the host seconds (the events hold
 the card's waits for the host inside a step too: an upper bound on its
 busy share), the peak memory, the card's name and power limit, and
@@ -100,7 +101,8 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     totals = {"steps": 0, "images": 0, "seconds": 0.0,
-              "step_event_seconds": 0.0, "val_seconds": 0.0}
+              "step_event_seconds": 0.0, "profiler_seconds": 0.0,
+              "val_seconds": 0.0}
     traced = None
     start_time = time.time()
     for epoch in range(start_epoch, cfg.epochs):

@@ -191,12 +191,28 @@ def _lines(text):
 
 ARGS = ["--device", "cpu", "--batch", "2", "--n1", "1", "--n2", "2",
         "--trials", "2"]
+DEVICE_METRICS = ["cris_r50_eval_throughput_416px_b32",
+                  "cris_r50_train_throughput_416px_b32",
+                  "cris_r101_eval_throughput_416px_b32"]
 
 
-def test_bench_runs_every_metric_on_the_cpu(monkeypatch, capsys):
-    """The three metrics on the tiny model: one JSON line each, under
-    bench.py's names, with a positive value, its trials and its spread;
-    the train bench runs engine.train_step once per batch."""
+@pytest.fixture
+def small_host(monkeypatch):
+    """The host metric on 4 images (2 per sample), one run each."""
+    monkeypatch.setattr(bench, "HOST_ARGS", dict(n_images=4, repeats=1,
+                                                 python_images=2))
+
+
+def _device_lines(lines):
+    return [r for r in lines if r["metric"] in DEVICE_METRICS]
+
+
+def test_bench_runs_every_metric_on_the_cpu(monkeypatch, capsys, small_host):
+    """The host metric first, then the three device metrics on the tiny
+    model: one JSON line each, under bench.py's names, with a positive
+    value, its trials and its spread, and the host's cores to feed the
+    eval rate after the eval metric; the train bench runs
+    engine.train_step once per batch."""
     monkeypatch.setattr(bench, "METRICS", tuple(
         (name, step, TINY) for name, step, _ in bench.METRICS))
     steps = []
@@ -210,10 +226,20 @@ def test_bench_runs_every_metric_on_the_cpu(monkeypatch, capsys):
     assert bench.main(ARGS) == 0
     lines = _lines(capsys.readouterr().out)
     assert [r["metric"] for r in lines] == [
-        "cris_r50_eval_throughput_416px_b32",
-        "cris_r50_train_throughput_416px_b32",
+        "host_input_pipeline_640x480", "cris_r50_eval_throughput_416px_b32",
+        "host_cores_to_feed_r50_eval", "cris_r50_train_throughput_416px_b32",
         "cris_r101_eval_throughput_416px_b32"]
-    for r in lines:
+    host, cores = lines[0], lines[2]
+    assert host["unit"] == "img/s" and host["card"] == "cpu"
+    for key in ("value", "native_1thread_img_s", "per_sample_img_s",
+                "vs_baseline", "host_cores"):
+        assert host[key] > 0, key
+    assert host["vs_baseline"] == host["value"] / host["per_sample_img_s"]
+    assert host["cpu_model"] and host["images"] == 4
+    assert cores["r50_eval_img_s"] == lines[1]["value"]
+    assert cores["value"] == pytest.approx(
+        lines[1]["value"] / host["native_1thread_img_s"])
+    for r in _device_lines(lines):
         assert r["unit"] == "img/s" and r["card"] == "cpu"
         assert r["value"] > 0 and len(r["trials"]) == 2
         assert min(r["trials"]) <= r["value"] <= max(r["trials"])
@@ -223,7 +249,8 @@ def test_bench_runs_every_metric_on_the_cpu(monkeypatch, capsys):
     assert len(set(steps)) == len(steps)
 
 
-def test_bench_reports_a_later_metric_error_and_goes_on(monkeypatch, capsys):
+def test_bench_reports_a_later_metric_error_and_goes_on(monkeypatch, capsys,
+                                                         small_host):
     monkeypatch.setattr(bench, "METRICS", tuple(
         (name, step, TINY) for name, step, _ in bench.METRICS))
 
@@ -232,13 +259,14 @@ def test_bench_reports_a_later_metric_error_and_goes_on(monkeypatch, capsys):
 
     monkeypatch.setattr(bench, "train_loop", broken)
     assert bench.main(ARGS) == 0
-    lines = _lines(capsys.readouterr().out)
+    lines = _device_lines(_lines(capsys.readouterr().out))
     assert [r["metric"] for r in lines] == [m for m, _, _ in bench.METRICS]
     assert "train broke" in lines[1]["error"] and "value" not in lines[1]
     assert lines[2]["value"] > 0
 
 
-def test_bench_fails_when_the_eval_metric_fails(monkeypatch, capsys):
+def test_bench_fails_when_the_eval_metric_fails(monkeypatch, capsys,
+                                                small_host):
     monkeypatch.setattr(bench, "METRICS", tuple(
         (name, step, TINY) for name, step, _ in bench.METRICS))
     rate = bench.marginal_rate
@@ -246,7 +274,28 @@ def test_bench_fails_when_the_eval_metric_fails(monkeypatch, capsys):
                         lambda b, n1, n2, t1, t2: rate(b, n1, n2, 1.0, 1.0))
     with pytest.raises(ValueError, match="no marginal rate"):
         bench.main(ARGS)
-    assert not any("value" in r for r in _lines(capsys.readouterr().out))
+    lines = _lines(capsys.readouterr().out)
+    assert [r["metric"] for r in lines] == ["host_input_pipeline_640x480"]
+    assert not any("value" in r for r in _device_lines(lines))
+
+
+def test_bench_host_metric_failure_is_printed_and_fails_the_run(
+        monkeypatch, capsys):
+    """A failing host metric prints an error line first; the device
+    metrics still run, and the run exits non-zero."""
+    monkeypatch.setattr(bench, "METRICS", tuple(
+        (name, step, TINY) for name, step, _ in bench.METRICS))
+
+    def broken(**kwargs):
+        raise ValueError("sample 3: SOF2: progressive JPEG is not supported")
+
+    monkeypatch.setattr(bench, "measure_host_pipeline", broken)
+    assert bench.main(ARGS) == 1
+    lines = _lines(capsys.readouterr().out)
+    assert lines[0]["metric"] == "host_input_pipeline_640x480"
+    assert "SOF2" in lines[0]["error"] and "value" not in lines[0]
+    assert [r["metric"] for r in lines[1:]] == DEVICE_METRICS
+    assert all(r["value"] > 0 for r in lines[1:])
 
 
 def test_bench_ab_on_the_cpu(monkeypatch, capsys):

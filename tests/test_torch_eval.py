@@ -7,6 +7,7 @@ _finish_sample), validate and inference end to end on the same weights
 import json
 import os
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -25,9 +26,9 @@ from cris_tpu.models import build_segmenter as jax_build
 
 from cris_tpu_torch import test as port_test
 from cris_tpu_torch.checkpoint import from_jax
-from cris_tpu_torch.data import (RefDataLoader, RefDataset, decode_mask,
-                                 get_transform_mats, inverse_warp_prediction,
-                                 read_mask, warp_mask)
+from cris_tpu_torch.data import (RefDataLoader, RefDataset, decode_image,
+                                 decode_mask, get_transform_mats,
+                                 inverse_warp_prediction, read_mask, warp_mask)
 from cris_tpu_torch.engine import Evaluator, metrics
 from cris_tpu_torch.utils import load_cfg_from_cfg_file
 from cris_tpu_torch.utils.logging import logger
@@ -236,6 +237,24 @@ def test_inference_visualize_dumps_every_pair(setup, tmp_path):
         f"{i}-mask.png" for i in range(len(ds)))
     np.testing.assert_array_equal(read_mask(str(vis / "0-mask.png")),
                                   read_mask(ds[0]["mask_path"]))
+    # each ref's original image at quality 95, as cv2.imwrite writes it:
+    # as near the original as cv2's own encode (within 0.5 dB PSNR)
+    assert sorted(n for n in names if n.endswith("-img.jpg")) == sorted(
+        f"{i}-img.jpg" for i in range(len(ds)))
+    for i in range(len(ds)):
+        ori = ds[i]["ori_img"]
+        buf = (vis / f"{i}-img.jpg").read_bytes()
+        got = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(got, decode_image(buf))
+        ok, ref = cv2.imencode(".jpg", ori, [cv2.IMWRITE_JPEG_QUALITY, 95])
+        assert ok and got.shape == ori.shape
+        assert _psnr(got, ori) >= _psnr(
+            cv2.imdecode(ref, cv2.IMREAD_COLOR), ori) - 0.5
+
+
+def _psnr(a, b):
+    err = np.mean((a.astype(np.float64) - b) ** 2)
+    return 10 * np.log10(255.0 ** 2 / err) if err else np.inf
 
 
 def test_test_main_refuses_without_card_checkpoint_or_int8(setup, tmp_path):

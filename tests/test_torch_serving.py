@@ -260,8 +260,12 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.checkpoint.torch_convert\n"
         "import cris_tpu_torch.utils.seed, cris_tpu_torch.utils.profiling\n"
         "from cris_tpu_torch.utils import ExperimentTracker\n"
+        "import cris_tpu_torch.data.native, cris_tpu_torch.data.host_bench\n"
         "from cris_tpu_torch.data import decode_image, make_record\n"
         "decode_image(make_record(0)['img'])\n"
+        "from cris_tpu_torch.data import batch_preprocess, make_test_jpegs\n"
+        "imgs, masks = make_test_jpegs(2, (200, 150))\n"
+        "assert batch_preprocess(imgs, masks, 64)[0].shape == (2, 64, 64, 3)\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"
         "                   'wandb', 'cris_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"

@@ -15,6 +15,7 @@ statistics at 1e-5.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -333,6 +334,37 @@ def test_train_epoch_drains_device_metrics(monkeypatch):
         lr.update(1e-4)
         mod.ProgressMeter(12, [loss, lr], prefix="p ").display(3)
     assert port_log.lines[-1] == jax_log.lines[-1]
+
+
+def test_train_epoch_leaves_the_profiler_window_out_of_its_seconds(
+        tmp_path, monkeypatch):
+    """The profiler window's stop, measurement and trace export are
+    profiler_seconds, not the epoch's host seconds (its img/s)."""
+    from cris_tpu_torch.engine import train_epoch
+    from cris_tpu_torch.engine import trainer
+    from cris_tpu_torch.models import init_weights
+
+    close = trainer.StepTimer.close
+
+    def slow_close(self):
+        if self._prof is not None:
+            time.sleep(0.5)
+        close(self)
+
+    monkeypatch.setattr(trainer.StepTimer, "close", slow_close)
+    img, word, mask, _ = _batch()
+    loader = [{"image": img, "word": word, "mask": mask}] * 12
+    cfg = _port_cfg(print_freq=100, precision="fp32",
+                    profile_dir=str(tmp_path / "prof"))
+    model = init_weights(_port_tiny(0.1), 3).train()
+    t0 = time.time()
+    run = train_epoch(model, *make_optimizer(model, cfg, len(loader)), loader,
+                      1, cfg, seed=9)["run"]
+    wall = time.time() - t0
+    assert run["traced"]["steps"] == 2  # steps 10 and 11
+    assert (tmp_path / "prof" / "trace.json").is_file()
+    assert run["profiler_seconds"] >= 0.5
+    assert run["seconds"] <= wall - run["profiler_seconds"]
 
 
 def test_batchnorm_train_matches_jax():
