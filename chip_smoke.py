@@ -174,13 +174,36 @@ Phases (any failure raises, and the script exits non-zero):
    profiler window's busy share (traced), K1 27 and K2 120 + 120
    launches all on the tensor cores, and 21 plane calls (none under
    CRIS_NATIVE=0).
+16. data parallel (cris_tpu_torch/parallel): (a) K2 at the train.py
+   batch's self-attention as a rank of 2 runs it, local batch 32 at batch
+   offsets 0 and 32, f32 (scalar kernels) and bf16 (tensor-core kernels):
+   output and gradients against the plain version with the same offset at
+   phase 6's bars, the packed keep mask equal to keep_bits_packed at the
+   offset and to rows 32:64 of the B 64 mask bit for bit, times on the
+   device alone; (b) 2 ranks on the one card over gloo (NCCL refuses two
+   ranks on one device; torch multiprocessing, init_distributed(backend=
+   "gloo")), R50 f32, dropout 0, global batch 8: one
+   DistributedDataParallel + synced-BN step against one process, held to
+   bars around the one process's own rounding spread (its step with
+   cuDNN off), as phase 7 holds the card to the CPU: loss within 1e-4
+   relative, gradients within phase 7's bars, each BN running statistic
+   within 1e-5 plus 2 own spreads, statistics and gradients equal on the
+   ranks; the gaps printed beside 2e-5, 1e-4 and 1e-5; each rank's half
+   stepped alone (BN without the sync) must fail the bars; then
+   Evaluator.validate over the 2 ranks against one process (IoU,
+   Pr@50..90, oIoU within 1e-6); (c) torchrun
+   --nproc_per_node=<cards> -m cris_tpu_torch.train over NCCL at R50 b64
+   bf16, 1 epoch of 4 steps over the bench's JPEG records: its run line's
+   world_size and images, and per rank K1 11 and K2 24 + 24 launches, all
+   on the tensor cores (on one card it says that no multi-card rate was
+   measured).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
 Philox work, 40 integer multiplies a call over 16.7 Tops/s; K5 with its
 L2 weight-traffic term beside; K1-K7 timed on the device alone, with
 their back-to-back times beside; K1-K5 and K7 with their launches per
-route, K7 with its plan),
+route, K7 with its plan, K2 with its phase 16 offset cases),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
@@ -193,11 +216,14 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # native data plane, resume, remat
     python3 chip_smoke.py --phases 15     # the plane on the card's host,
                                           # the host metric, the train A/B
+    python3 chip_smoke.py --phases 16     # data parallel: K2's offset, 2
+                                          # gloo ranks, torchrun over NCCL
 """
 
 import argparse
 import base64
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -2379,6 +2405,415 @@ def phase_host_plane(k1, k2, k2_bwd):
     return out
 
 
+# phase 16: data parallel. (a) K2 at the train.py batch split over DP_WORLD
+# ranks; (b) DP_WORLD ranks on the one card over gloo (NCCL refuses two
+# ranks on one device) at a global batch of DP_B; (c) the train entry under
+# torchrun over NCCL on every card, DP_ENTRY_STEPS steps of the global batch
+DP_WORLD, DP_B, DP_ENTRY_STEPS = 2, 8, 4
+DP_TIMEOUT = 900  # seconds for (b)'s ranks and (c)'s torchrun
+
+
+def phase_k2_offset(k2, k2_fwd, plain_k2, keep_bits_packed, rate=0.1):
+    """16(a): K2 at the train.py batch's self-attention (676 x 676, 8 x
+    64) as rank r of DP_WORLD runs it: local batch TRAIN_PY_B / DP_WORLD
+    at batch offsets 0 and that batch, f32 (the scalar kernels) and bf16
+    (the tensor-core kernels), each call on its route. Output and dq, dk,
+    dv against the plain version with the same seed and offset at phase
+    6's bars; on the tensor-core route the forward's packed keep mask
+    equals keep_bits_packed at the offset and rows offset .. of the
+    global batch's mask, bit for bit; the two offsets give other outputs.
+    Forward and backward on the device alone, beside their bound."""
+    b = TRAIN_PY_B // DP_WORLD
+    s, t, h, d = 676, 676, 8, 64
+    seed = 1234567
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    full = keep_bits_packed(seed, TRAIN_PY_B, h, s, t, rate, "cuda")
+    rows = []
+    for dtype in BOTH:
+        q, k, v, g, _ = _site_inputs(gen, b, s, t, h, d, 0, dtype)
+        route = expected_route(dtype, d)
+        outs = []
+        for offset in (0, b):
+            kern = lambda q, k, v: k2(  # noqa: E731
+                q, k, v, h, None, rate, seed, offset)
+            ref_fn = lambda q, k, v: plain_k2(  # noqa: E731
+                q, k, v, h, None, rate, seed, batch_offset=offset)
+            before = dict(k2.launches_by_route)
+            got = _fwd_bwd(kern, q, k, v, g)
+            ref = _reference(ref_fn, q, k, v, g)
+            torch.cuda.synchronize()
+            what = f"K2 offset {offset} {dtype}"
+            e_fwd = _check(got[0], ref[0], dtype, what + " out")
+            e_bwd = max(_check(a, b_, dtype, f"{what} {n}")
+                        for n, a, b_ in zip(("dq", "dk", "dv"), got[1:],
+                                            ref[1:]))
+            del ref
+            with torch.no_grad():
+                _, _, _, bits = k2_fwd(q, k, v, h, None, rate, seed, offset)
+            assert _by_route_delta(k2, before) == {
+                r: 2 * (r == route) for r in before}, (what, before)
+            if route == "tensor_cores":
+                assert torch.equal(bits, keep_bits_packed(
+                    seed, b, h, s, t, rate, "cuda", offset)), what
+                assert torch.equal(bits, full[offset:offset + b]), what
+            else:
+                assert bits is None, what
+            outs.append(got[0])
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            out_k = kern(qg, kg, vg)
+            with torch.no_grad():
+                fwd_ms = device_ms(lambda: kern(q, k, v), 10)
+            bwd_ms = device_ms(lambda: torch.autograd.grad(
+                out_k, (qg, kg, vg), g, retain_graph=True), 10)
+            del out_k
+            row = dict(site="decoder self-attn, a train.py rank's batch",
+                       B=b, batch_offset=offset, S=s, T=t, H=h, D=d,
+                       dtype=str(dtype).replace("torch.", ""), rate=rate,
+                       route=route, fwd_max_abs_err=e_fwd,
+                       bwd_max_abs_err=e_bwd, fwd_device_ms=fwd_ms,
+                       bwd_device_ms=bwd_ms)
+            for part in ("fwd", "bwd"):
+                row[f"{part}_bound_ms"], row[f"{part}_bound_by"], _ = \
+                    _k2_bound(b, s, t, h, d, dtype, route, part == "bwd",
+                              valid_keys=b * t)
+            bits_note = ("; packed mask == keep_bits_packed at the offset =="
+                         " rows of the B 64 mask"
+                         if route == "tensor_cores" else "")
+            print(f"16(a) K2 B={b} batch offset {offset} {row['dtype']:8s} "
+                  f"route {route}: max|err| out {e_fwd:.3e} grads "
+                  f"{e_bwd:.3e}{bits_note}; "
+                  f"device alone fwd {fwd_ms:.4f} ms (bound "
+                  f"{row['fwd_bound_ms']:.4f}) bwd {bwd_ms:.4f} ms (bound "
+                  f"{row['bwd_bound_ms']:.4f})", flush=True)
+            rows.append(row)
+        assert not torch.equal(outs[0], outs[1]), "the offset is ignored"
+    return rows
+
+
+def _dp_rank(rank, port, tmp):
+    """16(b)'s rank ``rank`` of DP_WORLD: joins a gloo group on cuda:0,
+    takes one f32 train step of R50 at dropout 0 on its rows of the global
+    batch under DistributedDataParallel, then validates the seed-0 eval
+    model on its shard of the val refs. Writes what it got to tmp."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(DP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cris_tpu_torch import engine
+    from cris_tpu_torch.parallel import (close_distributed, data_parallel,
+                                         init_distributed, process_index)
+
+    device = init_distributed("cuda:0", backend="gloo")
+    assert process_index() == rank
+    base, batch, cfg = _dp_inputs()
+    per = DP_B // DP_WORLD
+    model = base.to(device)
+    opt, sched = engine.make_optimizer(model, cfg, steps_per_epoch=100)
+    wrapped = data_parallel(model)
+    metrics = engine.train_step(wrapped, opt, sched, {
+        k: x[rank * per:(rank + 1) * per] for k, x in batch.items()},
+        step_seed=0)
+    out = {"wrapped": type(wrapped).__name__,
+           "loss": metrics["loss"].item(),
+           "grads": {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()},
+           "stats": {n: x.detach().cpu() for n, x in model.named_buffers()}}
+    del wrapped, model, opt
+    out["validate"] = _dp_validate(device, rank)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    close_distributed()
+
+
+def _dp_inputs():
+    """(the seed-0 R50 f32 train model at dropout 0 on the CPU, the global
+    batch of DP_B on the CPU, its config)."""
+    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.profile_train import make_batches
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    cfg = cris_r50_refcoco()
+    cfg.dropout = 0.0
+    base = build_segmenter(cfg, device="cpu", seed=0, train=True)
+    batch = make_batches(1, DP_B, cfg.input_size, cfg.word_len, "cpu",
+                         seed=7)[0]
+    return base, batch, cfg
+
+
+def _dp_validate(device, rank=0):
+    """Evaluator.validate of the seed-0 R50 f32 eval model over 16
+    synthetic refs, in device batches of DP_B / DP_WORLD: with a process
+    group, rank ``rank``'s shard of them."""
+    from cris_tpu_torch.data import RefDataLoader, RefDataset
+    from cris_tpu_torch.engine import Evaluator
+    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.parallel import process_count
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    cfg = cris_r50_refcoco()
+    world = process_count()
+    model = build_segmenter(cfg, device=device, seed=0)
+    per = DP_B // DP_WORLD
+    val = RefDataset("synthetic://16?seed=2", None, cfg.dataset, "val",
+                     "val", cfg.input_size, cfg.word_len)
+    loader = RefDataLoader(val, batch_size=per, num_workers=2,
+                           process_index=rank if world > 1 else 0,
+                           process_count=world)
+    ev = Evaluator(model, cfg.input_size, None, batch_size=per)
+    iou, prec = ev.validate(loader)
+    return {"iou": iou, "prec": prec, "pairs": ev.last_run["pairs"]}
+
+
+def _one_step(base, cfg, batch, cudnn=True):
+    """One f32 train step of a copy of ``base`` on the card, one process:
+    (loss, {name: gradient}, {name: BN running statistic}) on the CPU."""
+    from cris_tpu_torch import engine
+
+    model = copy.deepcopy(base).cuda()
+    opt, sched = engine.make_optimizer(model, cfg, steps_per_epoch=100)
+    with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+        loss = engine.train_step(model, opt, sched, batch,
+                                 step_seed=0)["loss"].item()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    stats = {n: x.detach().cpu() for n, x in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats
+
+
+def _stat_faults(got, ref, alt):
+    """BN running statistics whose relative L2 from ``ref`` exceeds 1e-5
+    plus TENSOR_SPREADS times the one process's own spread ``alt``."""
+    from cris_tpu_torch.grad_spread import TENSOR_SPREADS, grad_rel
+
+    return [(n, grad_rel(got, ref, [n]), grad_rel(alt, ref, [n]))
+            for n in ref if grad_rel(got, ref, [n])
+            > 1e-5 + TENSOR_SPREADS * grad_rel(alt, ref, [n])]
+
+
+def phase_dp_ranks():
+    """16(b): DP_WORLD ranks on the one card over gloo against one process
+    on the card: the f32 R50 train step at dropout 0 and global batch
+    DP_B, then Evaluator.validate over the ranks against one process in
+    device batches of the ranks' size (IoU and every Pr and oIoU within
+    1e-6).
+
+    These random weights amplify rounding (phase 7): the one process
+    differs from itself, with cuDNN off, by a few percent in its
+    gradients. So the ranks are held to bars around that spread, as phase
+    7 holds the card to the CPU: the loss within 1e-4 relative, the
+    gradients within phase 7's bars (grad_faults), each BN running
+    statistic within 1e-5 plus TENSOR_SPREADS own spreads in relative L2,
+    the statistics equal on the ranks; the gaps are printed beside 2e-5
+    (loss), 1e-4 (gradients) and 1e-5 (statistics). A planted fault must
+    fail the bars: each rank's half stepped alone, its BN normalising
+    with its own half's statistics (DDP without the sync)."""
+    import multiprocessing
+    import socket
+
+    from cris_tpu_torch.grad_spread import grad_faults, grad_rel
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    per = DP_B // DP_WORLD
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_dp_rank, args=(r, port, tmp))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            # one process on the card beside the ranks; its own spread;
+            # the halves without the sync
+            base, batch, cfg = _dp_inputs()
+            loss, ref, stats = _one_step(base, cfg, batch)
+            alt_loss, alt, alt_stats = _one_step(base, cfg, batch,
+                                                 cudnn=False)
+            halves = [_one_step(base, cfg, {k: x[r * per:(r + 1) * per]
+                                            for k, x in batch.items()})
+                      for r in range(DP_WORLD)]
+            # what the batch size alone does to the card's kernels: the
+            # eval forward (no batch statistics) of rows 0:per as a batch
+            # of per against the same rows inside the batch of DP_B
+            with torch.no_grad():
+                ev = copy.deepcopy(base).cuda().eval()
+                img, word = batch["image"].cuda(), batch["word"].cuda()
+                batch_rel = _rel(ev(img[:per], word[:per]),
+                                 ev(img, word)[:per])
+                del ev
+            single_val = _dp_validate(torch.device("cuda"))
+        finally:
+            for p in procs:
+                p.join(DP_TIMEOUT)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * DP_WORLD, f"16(b) ranks exited {codes}"
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+    assert all(r["wrapped"] == "DistributedDataParallel" for r in ranks)
+    got = ranks[0]["grads"]
+    got_stats = {n: ranks[0]["stats"][n] for n in stats}
+    for r in ranks[1:]:
+        for n, g in r["grads"].items():
+            assert torch.equal(g, got[n]), n
+        for n, x in r["stats"].items():
+            assert torch.equal(x, ranks[0]["stats"][n]), n
+    names = list(ref)
+    head = [n for n in names if not n.startswith("backbone.")]
+
+    def rel_loss_of(x):
+        return abs(x - loss) / abs(loss)
+
+    def worst_stat(x):
+        return max(grad_rel(x, stats, [n]) for n in stats)
+
+    dp_loss = float(np.mean([r["loss"] for r in ranks]))
+    unsynced = {"loss": float(np.mean([h[0] for h in halves])),
+                "grads": {n: sum(h[1][n] for h in halves) / DP_WORLD
+                          for n in names},
+                "stats": halves[0][2]}
+    readings = {}
+    for label, (l_, g_, s_) in (("ranks", (dp_loss, got, got_stats)),
+                                ("cuDNN off", (alt_loss, alt, alt_stats)),
+                                ("halves unsynced",
+                                 tuple(unsynced.values()))):
+        readings[label] = dict(
+            rel_loss=rel_loss_of(l_), rel_grad=grad_rel(g_, ref, names),
+            rel_grad_head=grad_rel(g_, ref, head),
+            worst_stat_rel=worst_stat(s_),
+            grad_faults=len(grad_faults(g_, ref, alt, names, head)),
+            stat_faults=len(_stat_faults(s_, stats, alt_stats)))
+        print(f"16(b) R50 f32 train step b{DP_B}, {label} vs one process: "
+              f"{json.dumps(readings[label])}", flush=True)
+    mine, off = readings["ranks"], readings["cuDNN off"]
+    print(f"16(b) {DP_WORLD} gloo ranks on one card: loss {dp_loss:.7f} vs "
+          f"{loss:.7f}; against 2e-5 (loss), 1e-4 (gradients) and 1e-5 "
+          f"(statistics): {mine['rel_loss']:.3e}, {mine['rel_grad']:.3e}, "
+          f"{mine['worst_stat_rel']:.3e}, where the one process against "
+          f"itself with cuDNN off reads {off['rel_loss']:.3e}, "
+          f"{off['rel_grad']:.3e}, {off['worst_stat_rel']:.3e}; the eval "
+          f"logits of "
+          f"{per} rows as a batch of {per} against inside the batch of "
+          f"{DP_B}: rel L2 {batch_rel:.3e}; statistics and gradients equal "
+          f"on the ranks; logit_scale's gradient zero", flush=True)
+    assert mine["rel_loss"] <= 1e-4, mine
+    assert mine["grad_faults"] == 0 and mine["stat_faults"] == 0, mine
+    assert not got["backbone.logit_scale"].any()
+    bad = readings["halves unsynced"]
+    assert (bad["rel_loss"] > 1e-4 or bad["grad_faults"]
+            or bad["stat_faults"]), ("phase 16(b)'s bars let BN without "
+                                     "the sync pass", bad)
+    val = [r["validate"] for r in ranks]
+    print(f"16(b) validate over {DP_WORLD} ranks: IoU {val[0]['iou']!r} "
+          f"(pairs {[v['pairs'] for v in val]}) vs one process "
+          f"{single_val['iou']!r} ({single_val['pairs']} pairs); oIoU "
+          f"{val[0]['prec']['oIoU']!r} vs {single_val['prec']['oIoU']!r}",
+          flush=True)
+    assert sum(v["pairs"] for v in val) == single_val["pairs"] == 16
+    for v in val:
+        assert abs(v["iou"] - single_val["iou"]) <= 1e-6, (v, single_val)
+        for key, x in single_val["prec"].items():
+            assert abs(v["prec"][key] - x) <= 1e-6, (key, v, single_val)
+    seconds = time.perf_counter() - t0
+    return dict(loss=dp_loss, single_loss=loss, readings=readings,
+                batch_size_logits_rel=batch_rel, validate=val[0],
+                single_validate=single_val, seconds=seconds)
+
+
+def _run_group(cmd, timeout, **kwargs):
+    """Run cmd in a session of its own; on a timeout kill the whole
+    session (torchrun's workers with their agent) and raise."""
+    import signal
+
+    proc = subprocess.Popen(cmd, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, **kwargs)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, log
+
+
+def phase_dp_entry():
+    """16(c): torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train at
+    R50 b64 bf16 over NCCL, 1 epoch of DP_ENTRY_STEPS steps over JPEG
+    records of the bench (phase 15's), the first 64 as the val set: the
+    run line's world_size, images and per-rank K1 and K2 launches, every
+    one on the tensor cores."""
+    from cris_tpu_torch.data import write_refpack
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    n = torch.cuda.device_count()
+    cfg = cris_r50_refcoco()
+    b = cfg.batch_size
+    if n == 1:
+        print(f"16(c) one card: torchrun runs 1 rank over NCCL; no "
+              f"multi-card rate was measured", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        records = _bench_records(DP_ENTRY_STEPS * b)
+        train_pack = os.path.join(tmp, "train.refpack")
+        val_pack = os.path.join(tmp, "val.refpack")
+        write_refpack(train_pack, records)
+        write_refpack(val_pack, records[:b])
+        masks = os.path.join(tmp, "masks")
+        os.makedirs(masks)
+        for rec in records[:b]:
+            with open(os.path.join(masks, f"{rec['seg_id']}.png"), "wb") as f:
+                f.write(rec["mask"])
+        out = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={n}", "-m", "cris_tpu_torch.train",
+               "--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+               "--opts", "DATA.train_lmdb", train_pack, "DATA.val_lmdb",
+               val_pack, "DATA.mask_root", masks, "TRAIN.epochs", "1",
+               "TRAIN.print_freq", "1", "TRAIN.output_folder", out]
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        code, log = _run_group(cmd, DP_TIMEOUT, cwd=here, env=env)
+        seconds = time.perf_counter() - t0
+        assert code == 0, f"16(c) torchrun exited {code}:\n{log[-6000:]}"
+        run = _run_line(os.path.join(out, cfg.exp_name, "train.log"))
+    print(f"16(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train (R50 "
+          f"416 px, b{b}, bf16, NCCL, {DP_ENTRY_STEPS} steps): {seconds:.1f} "
+          f"s; => run: {json.dumps(run)}", flush=True)
+    assert log.count("=> run: ") == 1, "more than rank 0 logged"
+    assert run["world_size"] == n and run["steps"] == DP_ENTRY_STEPS, run
+    assert run["images"] == DP_ENTRY_STEPS * b, run
+    sites = 2 * cfg.num_layers
+    want = {"K1": DP_ENTRY_STEPS + 7, "K2 fwd": sites * DP_ENTRY_STEPS,
+            "K2 bwd": sites * DP_ENTRY_STEPS}
+    for name, per_rank in want.items():
+        by_route = run["launches"][name]
+        assert by_route == {"tensor_cores": [per_rank] * n,
+                            "scalar": [0] * n}, (name, by_route)
+    return dict(run=run, seconds=seconds, cards=n,
+                launches={name: sum(run["launches"][name]["tensor_cores"])
+                          for name in want})
+
+
+def phase_data_parallel(k2, k2_fwd, plain_k2, keep_bits_packed):
+    """16: K2 with a batch offset, two gloo ranks on the one card, and the
+    train entry under torchrun over NCCL."""
+    t0 = time.perf_counter()
+    out = {"k2_offset": phase_k2_offset(k2, k2_fwd, plain_k2,
+                                        keep_bits_packed)}
+    torch.cuda.empty_cache()
+    out["ranks"] = phase_dp_ranks()
+    torch.cuda.empty_cache()
+    out["entry"] = phase_dp_entry()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16: {out['seconds']:.1f} s on {card_line()}", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -2390,7 +2825,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 16)) if run_all else {
+    wanted = set(range(2, 17)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -2480,6 +2915,10 @@ def main() -> int:
     if 15 in wanted:
         out["host_plane"] = phase_host_plane(
             k1, k2, kernels.attention_dropout_backward)
+    if 16 in wanted:
+        out["dp"] = phase_data_parallel(
+            k2, kernels.attention_dropout_forward,
+            kernels.attention_dropout_plain, kernels.keep_bits_packed)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -2500,6 +2939,7 @@ def summary(out) -> dict:
     test_path = out["test_path"]  # phase 13
     train_py = out["train_entry"]  # phase 14 (b), all on tensor_cores
     ab_py = out["host_plane"]["launches"]  # phase 15 (d), all tensor_cores
+    dp_py = out["dp"]["entry"]["launches"]  # phase 16 (c), all tensor_cores
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -2512,7 +2952,7 @@ def summary(out) -> dict:
         with SDPA with dropout as the library call."""
         key = {"forward": "fwd", "backward": "bwd"}[part]
         entry_n = (train_py["launches"][f"K2 {key}"]
-                   + ab_py[f"K2 {key}"])
+                   + ab_py[f"K2 {key}"] + dp_py[f"K2 {key}"])
         return {
             "name": f"fused_attention_bse_dropout ({part})",
             "route": "cuda",
@@ -2521,7 +2961,8 @@ def summary(out) -> dict:
             "launches": train_n + bench_n + entry_n,
             "launches_by_path": {"train": train_n, "bench": bench_n,
                                  "train.py": train_py["launches"][f"K2 {key}"],
-                                 "train.py A/B": ab_py[f"K2 {key}"]},
+                                 "train.py A/B": ab_py[f"K2 {key}"],
+                                 "train.py torchrun": dp_py[f"K2 {key}"]},
             "launches_by_route": {r: n + (bench_n + entry_n
                                           if r == "tensor_cores" else 0)
                                   for r, n in by_route.items()},
@@ -2538,6 +2979,13 @@ def summary(out) -> dict:
                        "own Philox stream: the same work, other bits), "
                        "backend " + main_k2["sdpa_backend"],
             "site": "decoder self-attn, B 32 bf16, route " + main_k2["route"],
+            # phase 16 (a): a data-parallel rank's batch at its offsets
+            "offset_cases": [
+                {k: r[k] for k in ("site", "B", "batch_offset", "dtype",
+                                   "route", f"{key}_max_abs_err",
+                                   f"{key}_device_ms", f"{key}_bound_ms",
+                                   f"{key}_bound_by")}
+                for r in out["dp"]["k2_offset"]],
         }
     folded = out["folded_serving"]
     k1_main = out["k1_main"]
@@ -2561,18 +3009,21 @@ def summary(out) -> dict:
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
                      + bench["K1"] + test_path["K1"]
-                     + train_py["launches"]["K1"] + ab_py["K1"]),
+                     + train_py["launches"]["K1"] + ab_py["K1"]
+                     + dp_py["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
                              "bench": bench["K1"],
                              "test.py": test_path["K1"],
                              "train.py": train_py["launches"]["K1"],
-                             "train.py A/B": ab_py["K1"]},
+                             "train.py A/B": ab_py["K1"],
+                             "train.py torchrun": dp_py["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
-            + (bench["K1"] + ab_py["K1"] if r == "tensor_cores" else 0)
+            + (bench["K1"] + ab_py["K1"] + dp_py["K1"]
+               if r == "tensor_cores" else 0)
             + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
@@ -2697,7 +3148,9 @@ def summary(out) -> dict:
                                     if k != "K1_by_route"},
                       "train_entry": {k: v for k, v in train_py.items()
                                       if k != "by_route"},
-                      "host_plane": out["host_plane"]}), flush=True)
+                      "host_plane": out["host_plane"],
+                      "data_parallel": {k: v for k, v in out["dp"].items()
+                                        if k != "k2_offset"}}), flush=True)
     return {"kernels": kernels}
 
 

@@ -13,7 +13,9 @@ The training entry writes that format too, every epoch: ``epoch``,
 ``scheduler`` through ``torch.save``, to ``last_model.pth``, copied to
 ``best_model.pth`` on a new best; ``cfg.resume`` reads it back. This is
 the counterpart of cris_tpu/checkpoint/orbax_io.py:23-114, which writes
-orbax directories instead.
+orbax directories instead. Under data parallel rank 0 writes (the
+caller's rule), the unwrapped model's keys, and every rank reads a
+resume through the CPU onto its own device.
 """
 
 from __future__ import annotations
@@ -64,8 +66,11 @@ def save_checkpoint(output_dir: str, name: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, scheduler, epoch: int,
                     cur_iou: float, best_iou: float,
                     prec: Dict[str, float]) -> str:
-    """Write ``output_dir/name`` in CRIS.pytorch's format; returns its
-    path."""
+    """Write ``output_dir/name`` in CRIS.pytorch's format, with the keys
+    of the model that a DistributedDataParallel ``model`` wraps; returns
+    its path."""
+    if isinstance(model, torch.nn.parallel.DistributedDataParallel):
+        model = model.module
     os.makedirs(output_dir, exist_ok=True)
     ckpt = {"epoch": int(epoch), "cur_iou": float(cur_iou),
             "best_iou": float(best_iou),
@@ -89,7 +94,10 @@ def load_train_checkpoint(path: str, model: torch.nn.Module,
     """Restore a checkpoint of ``save_checkpoint`` into ``model`` (every
     key matched), ``optimizer`` and ``scheduler`` (its step count; the
     schedule itself is the caller's, rebuilt from the config), onto their
-    devices. Returns the file's dict (``epoch``, ``best_iou``, ...)."""
+    devices: the file is read onto the CPU (not onto the device that wrote
+    it, which another rank does not own) and each tensor is copied to its
+    parameter's device, but Adam's step counts, which stay on the CPU.
+    Returns the file's dict (``epoch``, ``best_iou``, ...)."""
     if not os.path.isfile(path):
         raise ValueError(f"=> resume failed! no checkpoint found at '{path}'")
     ckpt = _load(path)

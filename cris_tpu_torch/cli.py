@@ -5,7 +5,8 @@ VALUE ...``, and the training model with its initial weights.
 The YAML file is read with PyYAML where it is installed; without it (the
 card's machine) the RefCOCO presets of ``utils.config.config_for`` serve
 their two files. ``--opts`` takes the rest of the command line, so
-``--device`` comes before it.
+``--device`` comes before it. Under ``torchrun`` each rank joins the
+process group and takes its own card (``init_device``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from .checkpoint import load_clip_torchscript, load_cris_checkpoint
 from .models import CRIS, build_segmenter
+from .parallel import data_parallel_size, init_distributed
 from .utils.config import (CfgNode, config_for, load_cfg_from_cfg_file,
                            merge_cfg_from_list)
 from .utils.logging import logger
@@ -51,6 +53,23 @@ def get_parser(description: str = "CRIS referring expression segmentation",
         cfg = merge_cfg_from_list(cfg, args.opts)
     cfg.device = args.device
     return cfg
+
+
+def init_device(cfg, what: str) -> torch.device:
+    """This rank's device for an entry point that would ``what`` ("train",
+    "evaluate") on ``cfg.device``: with torchrun's environment the process
+    group is joined (NCCL on the card, gloo on the CPU) and a "cuda"
+    device becomes ``cuda:{LOCAL_RANK}`` (``parallel.init_distributed``);
+    then ``dp_size`` and ``tp_size`` are checked against the world (the
+    JAX ``make_mesh_from_cfg``; tensor parallel raises). No card and no
+    ``--device cpu`` is an error, never a fallback."""
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device: pass --device cpu to {what} on "
+                           "the CPU")
+    device = init_distributed(device)
+    data_parallel_size(cfg.get("dp_size", -1), cfg.get("tp_size", 1))
+    return device
 
 
 def build_model(cfg, device, train: bool = True) -> CRIS:

@@ -317,6 +317,8 @@ struct FlashDropout {
   uint32_t threshold;  // a weight is kept iff its Philox bits >= threshold
   uint32_t k0, k1;     // the Philox key (seed lo, seed hi)
   float inv_keep;      // 1 / (1 - rate)
+  int b0;              // the Philox batch word of batch row 0 (its row in
+                       // the data-parallel global batch); pointers stay local
 };
 
 // The flash-attention forward, on a grid of (64 query rows, head, batch)
@@ -409,8 +411,8 @@ __device__ __forceinline__ void flash_fwd_body(
       uint32_t mine = 0, send = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const uint4 w = keep_bits(it * 16 + 2 * j + grp_off, my_row, h, b,
-                                  dr.k0, dr.k1);
+        const uint4 w = keep_bits(it * 16 + 2 * j + grp_off, my_row, h,
+                                  b + dr.b0, dr.k0, dr.k1);
         const uint32_t k4 = (w.x >= dr.threshold ? 1u : 0u) |
                             (w.y >= dr.threshold ? 2u : 0u) |
                             (w.z >= dr.threshold ? 4u : 0u) |

@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel import local_process_count
 from . import codec
 
 ABI_VERSION = 1
@@ -61,7 +62,8 @@ def batch_preprocess(
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray], np.ndarray]:
     """Decode, warp and normalise a batch of JPEG or PNG images (and, when
     given, decode and warp their masks) on ``nthreads`` C++ threads
-    (default ``min(os.cpu_count(), n)``).
+    (default ``min(os.cpu_count() // ranks on this host, n)``: under
+    torchrun each rank's plane takes its share of the host's cores).
 
     Returns (images (N, S, S, 3) float32 NHWC RGB normalised, masks (N, S,
     S) float32 in [0, 1] or None, inverse affines (N, 2, 3) float64 or None
@@ -74,7 +76,8 @@ def batch_preprocess(
     if mask_bytes is not None and len(mask_bytes) != n:
         raise ValueError(f"{n} images but {len(mask_bytes)} masks")
     if nthreads is None:
-        nthreads = min(os.cpu_count() or 1, n)
+        share = (os.cpu_count() or 1) // local_process_count()
+        nthreads = min(max(share, 1), n)
     s = input_size
     images = np.empty((n, s, s, 3), np.float32)
     masks = np.empty((n, s, s), np.float32) if mask_bytes is not None else None

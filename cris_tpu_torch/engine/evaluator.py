@@ -22,7 +22,14 @@ The model runs in eval mode (running BN statistics, no dropout), as the
 JAX Evaluator's ``train=False``, whatever mode it is in: ``device_probs``,
 ``validate`` and ``inference`` give it back in the mode they found it in.
 
-One process: ``_allgather`` returns its inputs (data parallel comes later).
+Under data parallel each rank scores its own rows: ``validate`` the
+loader's shard (its ``valid`` mask drops the last batch's padding rows),
+``inference`` the refs ``rank, rank + world, ...``; then ``_allgather``
+concatenates every rank's per-sample IoUs and sums the intersections and
+unions, and every rank returns the same IoU, Pr@50..90 and oIoU. The
+forwards hold no collective, so a rank whose refs run out first sends
+nothing more to the card, where the JAX package's collective batches pad
+with dummy rows.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from ..data.codec import encode_jpeg, encode_png, read_mask
 from ..data.transforms import inverse_warp_prediction
 from ..ops.resize import resize2d
+from ..parallel import allgather_floats, process_count, process_index
 from ..utils.logging import logger
 from ..utils.tokenizer import tokenize
 from .metrics import EVAL_THRESHOLD, mask_inter_union, mask_iou, summarize_ious
@@ -221,9 +229,15 @@ class Evaluator:
 
     @staticmethod
     def _allgather(iou_list: List[float], inter_sum: float, union_sum: float):
-        """Per-sample IoUs and summed counts of every process; one process
-        holds them all."""
-        return iou_list, inter_sum, union_sum
+        """Every rank's per-sample IoUs, concatenated in rank order, and
+        the intersections and unions summed over the ranks (the JAX
+        Evaluator's gather, cris_tpu/engine/evaluator.py:170-197): the
+        same on every rank."""
+        if process_count() == 1:
+            return iou_list, inter_sum, union_sum
+        merged = [v for row in allgather_floats(iou_list) for v in row]
+        sums = allgather_floats([inter_sum, union_sum])
+        return (merged, sum(r[0] for r in sums), sum(r[1] for r in sums))
 
     def _finish_sample(self, probs, inv_mat, ori_size, mask_path):
         """(IoU, intersection, union) of one sample's probabilities at
@@ -244,10 +258,12 @@ class Evaluator:
         ``{seg_id}-mask.png`` and original image ``{seg_id}-img.jpg``
         (quality 95, as ``cv2.imwrite`` writes it; records prewarped without
         ``--keep-ori`` have none, which one warning says) under
-        ``vis_dir``. ``progress`` logs every tenth of the refs."""
+        ``vis_dir``. ``progress`` logs every tenth of the refs. Under data
+        parallel each rank takes refs ``rank, rank + world, ...``."""
         iou_list: List[float] = []
         sums = [0.0, 0.0]  # cumulative intersection / union (oIoU)
-        total = len(dataset)
+        mine = range(process_index(), len(dataset), process_count())
+        total = len(mine)
         step = max(1, total // 10)
 
         def write_png(name: str, img: np.ndarray) -> None:
@@ -269,9 +285,9 @@ class Evaluator:
 
         def pair_stream():
             warned_no_ori = False
-            for idx in range(total):
-                if progress and idx % step == 0:
-                    logger.info(f"Inference: {idx}/{total} refs")
+            for i, idx in enumerate(mine):
+                if progress and i % step == 0:
+                    logger.info(f"Inference: {i}/{total} refs")
                 sample = dataset[idx]
                 mask = read_mask(sample["mask_path"]) / 255.0
                 if visualize and vis_dir:

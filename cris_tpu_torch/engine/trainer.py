@@ -18,6 +18,15 @@ cris_tpu/engine/trainer.py).
 A parameter that the loss does not reach (CLIP's ``logit_scale``) gets a
 zero gradient, as ``jax.grad`` gives it, so that Adam and weight decay
 treat it as the JAX optimizer does.
+
+Data parallel: ``train_step`` and ``train_epoch`` take the model wrapped
+by ``parallel.data_parallel`` (DistributedDataParallel when there is more
+than one rank; the optimizer is built on the model it wraps). Each rank
+runs its share of the global batch; the gradients are averaged over the
+ranks in the backward, so every rank clips and steps the same global
+gradient, and the BatchNorms take the global batch's statistics.
+``train_epoch`` averages the logged metrics over the ranks, so its loss
+is the global batch's mean.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models import param_group_label, resolve_dtype
+from ..parallel import all_reduce_sum, process_count
 from ..utils.logging import AverageMeter, ExperimentTracker, ProgressMeter
 from ..utils.profiling import StepTimer
 from .evaluator import to_device
@@ -157,7 +167,9 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
     card the seconds between CUDA events recorded around each step (None
     on the CPU; they hold the card's waits for the host inside a step too,
     so they bound its busy time from above), and the profiler window's
-    ``StepTimer.window`` (None when no window closed in this epoch)."""
+    ``StepTimer.window`` (None when no window closed in this epoch).
+    Under data parallel ``images`` are this rank's, and the metrics are
+    averaged over the ranks at each drain (one all-reduce)."""
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
     timer = StepTimer(cfg.get("profile_dir") if epoch == 1 else None)
     batch_time = AverageMeter("Batch", ":2.2f")
@@ -183,7 +195,10 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
         if not pending:
             return
         values = torch.stack([torch.stack([m["loss"], m["iou"], m["prec@50"]])
-                              for _, m in pending]).tolist()
+                              for _, m in pending])
+        if process_count() > 1:
+            values = all_reduce_sum(values) / process_count()
+        values = values.tolist()
         for (n, _), (loss, iou, pr50) in zip(pending, values):
             loss_meter.update(loss, n)
             iou_meter.update(iou, n)

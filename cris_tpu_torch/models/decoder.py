@@ -13,10 +13,15 @@ two generators from it, one on the CPU and one on the model's device.
 Each attention site of each layer draws its own K2 seed from the CPU one
 (no host-device sync), as ``nn.scan(split_rngs={"dropout": True})`` gives
 each JAX layer its own stream; the elementwise dropouts draw their masks
-from the device one. Under ``remat`` a layer draws its two seeds and
-notes the device generator's state before the checkpointed call, and
-the call restores that state, so the recomputed forward in the backward
-draws the masks of the first.
+from the device one. Under data parallel, where the JAX package draws
+every mask over the global batch, each rank keeps the same K2 seeds and
+hands K2 its first global row (rank x local batch), so that K2 keys each
+global row's mask on that row; the device generator's seed has the rank
+folded in, so that no two ranks draw one elementwise mask (rank 0 and a
+single process keep the step's seed). Under ``remat`` a layer draws its
+two seeds and notes the device generator's state before the
+checkpointed call, and the call restores that state, so the recomputed
+forward in the backward draws the masks of the first.
 """
 
 from __future__ import annotations
@@ -30,15 +35,32 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.kernels.dropout_mask import MAX_SEED
 from ..ops.posenc import sincos_1d, sincos_2d
+from ..parallel import process_index
 from .layers import Dropout, LayerNormF32, remat
 
 # (CPU generator for the attention seeds, device generator for the masks)
 Rng = Tuple[torch.Generator, torch.Generator]
 
 
+# an odd 64-bit stride (the golden ratio's): rank r's elementwise seed is
+# the step seed plus r strides, mod 2**64, distinct for every rank
+_RANK_STRIDE = 0x9E3779B97F4A7C15
+
+
 def draw_seed(gen: torch.Generator) -> int:
     """One attention-dropout seed in [0, 2**63) from a CPU generator."""
     return int(torch.randint(0, MAX_SEED, (), generator=gen))
+
+
+def dropout_rng(seed: int, device, rank: int = 0) -> Rng:
+    """The decoder's generators for a step's ``seed`` on data-parallel
+    rank ``rank``: the CPU one (K2's seeds, the same on every rank) from
+    ``seed``, the device one (the elementwise masks) from ``seed`` with
+    the rank folded in."""
+    seed = int(seed)
+    return (torch.Generator().manual_seed(seed),
+            torch.Generator(device=device).manual_seed(
+                (seed + rank * _RANK_STRIDE) % 2**64))
 
 
 class MultiheadAttention(nn.Module):
@@ -60,7 +82,8 @@ class MultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                batch_offset: int = 0) -> torch.Tensor:
         w, b, e = self.in_proj_weight, self.in_proj_bias, self.d_model
         q = F.linear(query, w[:e], b[:e])
         k = F.linear(key, w[e:2 * e], b[e:2 * e])
@@ -69,7 +92,8 @@ class MultiheadAttention(nn.Module):
         out = dot_product_attention(q, k, v, self.num_heads,
                                     key_padding_mask=key_padding_mask,
                                     dropout_rate=rate,
-                                    dropout_seed=dropout_seed)
+                                    dropout_seed=dropout_seed,
+                                    batch_offset=batch_offset)
         return self.out_proj(out)
 
 
@@ -103,34 +127,40 @@ class TransformerDecoderLayer(nn.Module):
 
     def forward(self, vis: torch.Tensor, txt: torch.Tensor,
                 vis_pos: torch.Tensor, txt_pos: torch.Tensor,
-                pad_mask: torch.Tensor, rng: Optional[Rng] = None
-                ) -> torch.Tensor:
-        """rng: the decoder's generators; needed in training with dropout."""
+                pad_mask: torch.Tensor, rng: Optional[Rng] = None,
+                batch_offset: int = 0) -> torch.Tensor:
+        """rng: the decoder's generators; needed in training with dropout.
+        batch_offset: the global row of batch row 0, for K2's masks."""
         seeds, gen = (None, None), None
         if rng is not None:
             seeds = (draw_seed(rng[0]), draw_seed(rng[0]))
             gen = rng[1]
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen)
+            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen,
+                              batch_offset)
         start = None if gen is None else gen.get_state()
 
         def body(vis, txt, vis_pos, txt_pos):
             if start is not None:
                 gen.set_state(start)
-            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen)
+            return self._body(vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen,
+                              batch_offset)
 
         return remat(body, vis, txt, vis_pos, txt_pos)
 
-    def _body(self, vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen):
+    def _body(self, vis, txt, vis_pos, txt_pos, pad_mask, seeds, gen,
+              batch_offset):
         y = self.norm1(vis)
         q = y + vis_pos
-        y = self.self_attn(q, q, y, dropout_seed=seeds[0])
+        y = self.self_attn(q, q, y, dropout_seed=seeds[0],
+                           batch_offset=batch_offset)
         vis = vis + self.dropout1(self.self_attn_norm(y), gen)
 
         y = self.norm2(vis)
         y = self.multihead_attn(y + vis_pos, txt + txt_pos, txt,
                                 key_padding_mask=pad_mask,
-                                dropout_seed=seeds[1])
+                                dropout_seed=seeds[1],
+                                batch_offset=batch_offset)
         vis = vis + self.dropout2(self.cross_attn_norm(y), gen)
 
         fc1, relu, drop, norm, fc2 = self.ffn
@@ -154,19 +184,19 @@ class TransformerDecoder(nn.Module):
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         """vis (B, D, H, W), txt (B, L, D), pad_mask (B, L) True = padding
         -> (B, D, H, W). In training with dropout the masks come from
-        ``dropout_seed``, which is then required."""
+        ``dropout_seed``, which is then required; under data parallel this
+        batch is rows ``rank x B ..`` of the global batch."""
         b, d, h, w = vis.shape
         vis_pos = torch.from_numpy(sincos_2d(d, h, w)).to(vis.device)
         txt_pos = torch.from_numpy(sincos_1d(d, txt.shape[1])).to(vis.device)
-        rng = None
+        rng, offset = None, 0
         if self.training and self.dropout > 0.0:
             if dropout_seed is None:
                 raise ValueError("decoder dropout in training needs a dropout_seed")
-            seed = int(dropout_seed)
-            rng = (torch.Generator().manual_seed(seed),
-                   torch.Generator(device=vis.device).manual_seed(seed))
+            rank = process_index()
+            rng, offset = dropout_rng(dropout_seed, vis.device, rank), rank * b
         x = vis.flatten(2).transpose(1, 2)
         for layer in self.layers:
             x = layer(x, txt, vis_pos.to(x.dtype), txt_pos.to(x.dtype),
-                      pad_mask, rng)
+                      pad_mask, rng, offset)
         return self.norm(x).transpose(1, 2).reshape(b, d, h, w)

@@ -2,7 +2,8 @@
 match (counterpart of cris_tpu/models/layers.py:358-460,463-507,707-760).
 
 BatchNorm normalises with the batch statistics in training (and updates
-its running statistics) and with the running statistics in eval; with
+its running statistics), those of the global batch under data parallel,
+and with the running statistics in eval; with
 ``fold_bn`` (inference only) a conv or linear carries the BN's affine in
 its weight and bias and the BN is gone. ``Dropout`` draws its mask from an
 explicit generator. ``remat`` runs a block under activation checkpointing.
@@ -43,6 +44,7 @@ def remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
         context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 from ..ops.resize import upsample2x
+from ..parallel import all_reduce_sum, process_count
 
 
 class BatchNorm(nn.Module):
@@ -56,7 +58,15 @@ class BatchNorm(nn.Module):
     unbiased ``n / (n - 1)`` correction on the variance (once a step:
     not when ``remat`` recomputes the forward). In eval the
     running statistics normalise. Either way the per-channel affine is
-    prepared in f32 and applied in the input's dtype."""
+    prepared in f32 and applied in the input's dtype.
+
+    With more than one data-parallel rank, training normalises with the
+    global batch's statistics (the JAX package's cross-replica mean over
+    the data axis): the per-channel sums of x and x^2 and the count are
+    summed over the ranks in one differentiable all-reduce, and the mean
+    and E[x^2] - E[x]^2 are taken from them in f32. The gradient flows
+    back through that sum, and the running statistics, updated with the
+    global n / (n - 1), are equal on every rank."""
 
     momentum = 0.1
 
@@ -73,17 +83,28 @@ class BatchNorm(nn.Module):
             with torch.autocast(x.device.type, enabled=False):
                 dims = [0] + list(range(2, x.dim()))
                 x32 = x.float()
-                mean = x32.mean(dims)
-                var = torch.clamp(x32.square().mean(dims) - mean.square(),
-                                  min=0.0)
-            n = x.numel() // x.shape[1]
+                n = x.numel() // x.shape[1]
+                if process_count() == 1:
+                    mean = x32.mean(dims)
+                    var = torch.clamp(x32.square().mean(dims) - mean.square(),
+                                      min=0.0)
+                    unbias = n / max(n - 1, 1)
+                else:
+                    c = x.shape[1]
+                    sums = all_reduce_sum(torch.cat([
+                        x32.sum(dims), x32.square().sum(dims),
+                        x32.new_full((1,), float(n))]))
+                    n = sums[2 * c]  # the global count, kept on the device
+                    mean = sums[:c] / n
+                    var = torch.clamp(sums[c:2 * c] / n - mean.square(),
+                                      min=0.0)
+                    unbias = n / (n - 1).clamp(min=1.0)
             # remat's second forward: the first one updated them
             if not getattr(_recompute, "active", False):
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.mul_(1.0 - m).add_(m * mean)
-                    self.running_var.mul_(1.0 - m).add_(
-                        m * var * (n / max(n - 1, 1)))
+                    self.running_var.mul_(1.0 - m).add_(m * var * unbias)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var.float() + self.eps) * self.weight.float()

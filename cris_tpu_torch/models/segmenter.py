@@ -34,6 +34,11 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 class CRIS(nn.Module):
+    # CLIP's contrastive temperature, which CRIS's loss never reaches: its
+    # gradient is the zeros that ``apply_gradients`` fills in, and data
+    # parallel leaves it out of the gradient all-reduce
+    unreached_params = ("backbone.logit_scale",)
+
     def __init__(self, clip_config: CLIPConfig,
                  fpn_in: Sequence[int] = (512, 1024, 1024),
                  fpn_out: Sequence[int] = (256, 512, 1024),

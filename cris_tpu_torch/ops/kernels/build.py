@@ -153,7 +153,8 @@ def load_library() -> ctypes.CDLL:
             dropout_tail = [
                 ll, ll, ll, ll, ll, ll,  # q/k/v batch and row strides
                 f, f,                   # scale, 1 / (1 - rate)
-                u, u, u, p,             # keep threshold, seed words, stream
+                u, u, u,                # keep threshold, seed words
+                i, p,                   # batch offset, stream
             ]
             lib.cris_attention_dropout_fwd.argtypes = [
                 p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, bits

@@ -16,7 +16,11 @@ head ``h`` in batch row ``b``:
     key     = (seed mod 2**32, seed >> 32)     (seed in [0, 2**63))
     bits    = philox4x32_10(counter, key)[j & 3]
 
-so four neighbouring key columns share one Philox call. The CUDA kernel
+so four neighbouring key columns share one Philox call. Under data
+parallel ``b`` is the row's place in the global batch: a process whose
+batch starts at global row ``batch_offset`` draws rows
+``batch_offset + 0, 1, ...``, the JAX package's per-(global row, head)
+seeding (attention_train.py:66-68), so that no two ranks share a mask. The CUDA kernel
 (``cris_tpu_torch/csrc/attention_bse_dropout.cu``) computes the same bits
 with the same definition; the two must agree bit for bit. Its tensor-core
 forward also stores the mask packed to bits for its backward
@@ -73,26 +77,41 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
+def check_batch_offset(batch_offset: int, batch: int) -> int:
+    """``batch_offset`` as an int, when rows ``batch_offset .. + batch``
+    fit the counter's 32-bit batch word as the CUDA kernels' int."""
+    batch_offset = int(batch_offset)
+    if batch_offset < 0 or batch_offset + batch > 2**31 - 1:
+        raise ValueError(f"batch rows {batch_offset}..{batch_offset + batch}"
+                         " outside [0, 2**31)")
+    return batch_offset
+
+
 def keep_bits(seed: int, batch: int, heads: int, rows: int, cols: int,
-              device=None) -> torch.Tensor:
-    """(batch, heads, rows, cols) int64 tensor of the 32-bit keep bits."""
+              device=None, batch_offset: int = 0) -> torch.Tensor:
+    """(batch, heads, rows, cols) int64 tensor of the 32-bit keep bits of
+    global batch rows ``batch_offset .. batch_offset + batch - 1``: rows
+    ``o:o + batch`` of ``keep_bits(seed, o + batch, ...)``, bit for bit."""
     k0, k1 = seed_words(seed)
+    batch_offset = check_batch_offset(batch_offset, batch)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     groups = (cols + 3) // 4
     words = philox4x32_10(
         ar(groups)[None, None, None, :], ar(rows)[None, None, :, None],
-        ar(heads)[None, :, None, None], ar(batch)[:, None, None, None],
-        k0, k1)
+        ar(heads)[None, :, None, None],
+        (ar(batch) + batch_offset)[:, None, None, None], k0, k1)
     words = [w.expand(batch, heads, rows, groups) for w in words]
     return torch.stack(words, dim=-1).reshape(batch, heads, rows,
                                               4 * groups)[..., :cols]
 
 
 def keep_mask(seed: int, batch: int, heads: int, rows: int, cols: int,
-              rate: float, device=None) -> torch.Tensor:
+              rate: float, device=None, batch_offset: int = 0
+              ) -> torch.Tensor:
     """(batch, heads, rows, cols) bool: True = the weight is kept."""
     threshold = keep_threshold(rate)
-    return keep_bits(seed, batch, heads, rows, cols, device) >= threshold
+    return keep_bits(seed, batch, heads, rows, cols, device,
+                     batch_offset) >= threshold
 
 
 def mask_words(cols: int) -> int:
@@ -101,12 +120,14 @@ def mask_words(cols: int) -> int:
 
 
 def keep_bits_packed(seed: int, batch: int, heads: int, rows: int, cols: int,
-                     rate: float, device=None) -> torch.Tensor:
+                     rate: float, device=None, batch_offset: int = 0
+                     ) -> torch.Tensor:
     """The keep mask packed to bits, as the tensor-core kernels write it:
     (batch, heads, rows, mask_words(cols)) int32 holding the uint32 words,
     bit ``j % 32`` of word ``j // 32`` set iff key column j is kept; the
     bits past ``cols`` are 0."""
-    keep = keep_mask(seed, batch, heads, rows, cols, rate, device)
+    keep = keep_mask(seed, batch, heads, rows, cols, rate, device,
+                     batch_offset)
     nw = mask_words(cols)
     keep = torch.nn.functional.pad(keep, (0, 32 * nw - cols))
     weights = 1 << torch.arange(32, dtype=torch.int64, device=keep.device)

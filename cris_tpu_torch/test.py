@@ -3,6 +3,8 @@ repository's test.py):
 
     python3 -m cris_tpu_torch.test --config config/refcoco/cris_r50.yaml \\
         [--device cpu] --opts TEST.test_split val-test TEST.test_lmdb <uri>
+    torchrun --nproc_per_node=N -m cris_tpu_torch.test --config ... \\
+        [--device cpu] --opts ...
 
 Evaluates every sentence of every ref of ``test_lmdb`` (a ``.refpack``
 file or a ``synthetic://COUNT?seed=S`` URI) with the weights of
@@ -10,12 +12,15 @@ file or a ``synthetic://COUNT?seed=S`` URI) with the weights of
 without that file it raises. BN is folded into the convs when
 ``fold_bn_eval`` is set, and the forward runs at the config's precision,
 on the card unless ``--device cpu`` is given (no card and no
-``--device cpu`` is an error). Logs to stderr and ``test.log`` in the
-output directory: IoU, Pr@50..90 and oIoU as the JAX package's test.py
-does, then a line ``=> run: {...}`` with the pairs scored, the device
-batches, the seconds on the host clock, the pairs per second, on the card
-the seconds its batches took between CUDA events, and the card's name and
-power limit.
+``--device cpu`` is an error). Under torchrun each rank takes
+``cuda:{LOCAL_RANK}``, scores the refs ``rank, rank + N, ...`` and the
+IoUs are gathered at the end (``Evaluator.inference``); rank 0 logs.
+Logs to stderr and ``test.log`` in the output directory: IoU, Pr@50..90
+and oIoU as the JAX package's test.py does, then a line ``=> run:
+{...}`` with the pairs scored (summed over the ranks), the device batches,
+the seconds on the host clock, the pairs per second, on the card the
+seconds its batches took between CUDA events (those three rank 0's), the
+card's name and power limit, and ``world_size``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from .checkpoint import BEST_NAME, fold_batchnorm, load_cris_checkpoint
 from .data import RefDataset
 from .engine import Evaluator
 from .models import build_segmenter, resolve_dtype
+from .parallel import (allgather_floats, close_distributed, process_count,
+                       process_index)
 from .utils.logging import log_exceptions, logger, setup_logger
 
 
@@ -52,16 +59,13 @@ def load_model(cfg, path: str, device: torch.device) -> torch.nn.Module:
 def main(argv=None):
     """Run the evaluation; returns (mean IoU, {Pr@50..Pr@90, oIoU})."""
     cfg = cli.get_parser("CRIS evaluation (PyTorch port)", argv)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to evaluate on "
-                           "the CPU")
+    device = cli.init_device(cfg, "evaluate")
     cfg.output_dir = os.path.join(cfg.output_folder, cfg.exp_name)
     if cfg.get("visualize"):
         cfg.vis_dir = os.path.join(cfg.output_dir, "vis")
         os.makedirs(cfg.vis_dir, exist_ok=True)
-    setup_logger(cfg.output_dir, process_index=0, filename="test.log",
-                 mode="a")
+    setup_logger(cfg.output_dir, process_index=process_index(),
+                 filename="test.log", mode="a")
     logger.info(cfg)
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
 
@@ -79,6 +83,8 @@ def main(argv=None):
                                     visualize=bool(cfg.get("visualize")),
                                     vis_dir=cfg.get("vis_dir"))
     run = dict(evaluator.last_run)
+    run["pairs"] = int(sum(r[0] for r in allgather_floats([run["pairs"]])))
+    run["world_size"] = process_count()
     run["pairs_per_s"] = run["pairs"] / run["seconds"]
     run["card"] = card(device)
     logger.info(f"=> run: {json.dumps(run)}")
@@ -86,4 +92,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        close_distributed()

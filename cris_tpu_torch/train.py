@@ -1,8 +1,19 @@
 """Training entry point of the port (counterpart of the repository's
-train.py:40-229), one process:
+train.py:40-229), on one process or data parallel over several:
 
     python3 -m cris_tpu_torch.train --config config/refcoco/cris_r50.yaml \\
         [--device cpu] --opts TRAIN.epochs 2 ...
+    torchrun --nproc_per_node=N -m cris_tpu_torch.train --config ... \\
+        [--device cpu] --opts ...
+
+Under torchrun each rank takes ``cuda:{LOCAL_RANK}`` and joins the
+process group (NCCL; gloo with ``--device cpu``). ``batch_size`` and
+``batch_size_val`` are the global batches: each rank loads its 1 / N
+share of every batch (a batch that does not divide raises), the model
+trains under DistributedDataParallel with the BatchNorms synced over
+the global batch, and validation gathers every rank's IoUs. Rank 0
+alone logs, tracks, profiles and writes the checkpoints; every rank
+resumes from them.
 
 Seeds the run, builds CRIS (CLIP from the TorchScript archive
 ``clip_pretrain`` when that file exists, else the seeded preset; then
@@ -18,14 +29,16 @@ Logs to stderr and ``train.log`` in the output directory, ending with
 the best IoU, the training time and a line ``=> run: {...}``: the train
 steps, images, host seconds in the train epochs (less the profiler
 window's own start, stop and trace export, ``profiler_seconds``), images
-per second, the seconds spent validating, on the card the seconds between CUDA events
-around each step and their share of the host seconds (the events hold
-the card's waits for the host inside a step too: an upper bound on its
-busy share), the peak memory, the card's name and power limit, and
+per second (the images summed over the ranks, the seconds rank 0's,
+and ``world_size``), the seconds spent validating, on the card the
+seconds between CUDA events around each step and their share of the
+host seconds (the events hold the card's waits for the host inside a
+step too: an upper bound on its busy share), the peak memory, the card's name and power limit, and
 under ``traced`` the profiler window's ``StepTimer.window`` when
 ``profile_dir`` is set and epoch 1 runs more than 10 steps: the card's
 busy time over steps 10-15 (the union of its kernels and copies) and its
-share of the window's wall time.
+share of the window's wall time; and under ``launches`` each rank's
+K1 and K2 (forward and backward) launches in this run, by route.
 """
 
 from __future__ import annotations
@@ -44,25 +57,57 @@ from .checkpoint import (LAST_NAME, load_train_checkpoint, promote_best,
 from .data import RefDataLoader, RefDataset
 from .engine import Evaluator, make_optimizer, train_epoch
 from .models import resolve_dtype
+from .ops.kernels import (attention_dropout_backward, fused_attention_bse,
+                          fused_attention_bse_dropout)
+from .parallel import (allgather_floats, barrier, close_distributed,
+                       data_parallel, process_count, process_index)
 from .utils import ExperimentTracker, init_random_seed
 from .utils.logging import log_exceptions, logger, setup_logger
+
+# the kernels of the train path, whose launches the run line reports
+KERNELS = {"K1": fused_attention_bse, "K2 fwd": fused_attention_bse_dropout,
+           "K2 bwd": attention_dropout_backward}
+
+
+def _launches() -> list:
+    """The kernels' launch counts by route, flat, in KERNELS' order."""
+    return [n for fn in KERNELS.values()
+            for n in fn.launches_by_route.values()]
+
+
+def _launches_by_rank(start: list) -> dict:
+    """Each rank's launches since ``start``: {kernel: {route: [count of
+    rank 0, 1, ...]}}."""
+    counts = allgather_floats([b - a for a, b in zip(start, _launches())])
+    out, i = {}, 0
+    for name, fn in KERNELS.items():
+        out[name] = {}
+        for route in fn.launches_by_route:
+            out[name][route] = [int(c[i]) for c in counts]
+            i += 1
+    return out
 
 
 @log_exceptions
 def main(argv=None):
     """Train; returns (best IoU, the last epoch trained)."""
     cfg = cli.get_parser("CRIS training (PyTorch port)", argv)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
-                           "the CPU")
+    device = cli.init_device(cfg, "train")
+    rank, world = process_index(), process_count()
+    if cfg.batch_size % world or cfg.batch_size_val % world:
+        raise ValueError(f"batch sizes ({cfg.batch_size}/"
+                         f"{cfg.batch_size_val}) must divide evenly over "
+                         f"{world} processes")
+    launches = _launches()
     cfg.manual_seed = init_random_seed(cfg.get("manual_seed"))
     cfg.output_dir = os.path.join(cfg.output_folder, cfg.exp_name)
-    setup_logger(cfg.output_dir, process_index=0, filename="train.log",
+    setup_logger(cfg.output_dir, process_index=rank, filename="train.log",
                  mode="a")
-    logger.info(f"device: {device} ({card(device)})")
+    logger.info(f"device: {device} ({card(device)}), rank {rank} of {world}")
+    if rank != 0:  # the profiler window is rank 0's
+        cfg.profile_dir = None
     tracker = ExperimentTracker(
-        enabled=cfg.get("wandb", False), job_type="training",
+        enabled=cfg.get("wandb", False) and rank == 0, job_type="training",
         config=dict(cfg), project="CRIS", name=cfg.exp_name,
         tags=[cfg.dataset, cfg.clip_pretrain])
 
@@ -75,18 +120,22 @@ def main(argv=None):
                             cfg.word_len)
     val_data = RefDataset(cfg.val_lmdb, cfg.mask_root, cfg.dataset,
                           cfg.val_split, "val", cfg.input_size, cfg.word_len)
-    train_loader = RefDataLoader(train_data, batch_size=cfg.batch_size,
+    train_loader = RefDataLoader(train_data,
+                                 batch_size=cfg.batch_size // world,
                                  shuffle=True, seed=cfg.manual_seed,
                                  drop_last=True,
-                                 num_workers=cfg.get("workers", 8))
-    val_loader = RefDataLoader(val_data, batch_size=cfg.batch_size_val,
+                                 num_workers=cfg.get("workers", 8),
+                                 process_index=rank, process_count=world)
+    val_loader = RefDataLoader(val_data,
+                               batch_size=cfg.batch_size_val // world,
                                shuffle=False,
-                               num_workers=cfg.get("workers_val", 4))
+                               num_workers=cfg.get("workers_val", 4),
+                               process_index=rank, process_count=world)
 
     optimizer, scheduler = make_optimizer(model, cfg, len(train_loader))
     evaluator = Evaluator(model, cfg.input_size,
                           resolve_dtype(cfg.get("precision", "bf16")),
-                          batch_size=cfg.batch_size_val)
+                          batch_size=cfg.batch_size_val // world)
 
     best_iou = 0.0
     start_epoch = last_epoch = cfg.get("start_epoch", 0)
@@ -97,6 +146,7 @@ def main(argv=None):
         best_iou = float(ckpt["best_iou"])
         logger.info(f"=> loaded checkpoint '{cfg.resume}' (epoch "
                     f"{start_epoch})")
+    trained = data_parallel(model)  # the model itself on one process
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -108,7 +158,7 @@ def main(argv=None):
     for epoch in range(start_epoch, cfg.epochs):
         last_epoch = epoch + 1
         train_loader.set_epoch(last_epoch)
-        stats = train_epoch(model, optimizer, scheduler, train_loader,
+        stats = train_epoch(trained, optimizer, scheduler, train_loader,
                             last_epoch, cfg, seed=cfg.manual_seed,
                             tracker=tracker)
         traced = stats["run"].pop("traced") or traced
@@ -120,17 +170,22 @@ def main(argv=None):
         # update best BEFORE saving so a resume restores the true best
         is_best = iou >= best_iou
         best_iou = max(best_iou, iou)
-        save_checkpoint(cfg.output_dir, LAST_NAME, model, optimizer,
-                        scheduler, epoch=last_epoch, cur_iou=iou,
-                        best_iou=best_iou, prec=prec)
-        if is_best:
-            promote_best(cfg.output_dir)
+        barrier()
+        if rank == 0:
+            save_checkpoint(cfg.output_dir, LAST_NAME, model, optimizer,
+                            scheduler, epoch=last_epoch, cur_iou=iou,
+                            best_iou=best_iou, prec=prec)
+            if is_best:
+                promote_best(cfg.output_dir)
+        barrier()
 
     tracker.finish()
     logger.info(f"* Best IoU={best_iou} *")
     total = str(datetime.timedelta(seconds=int(time.time() - start_time)))
     logger.info(f"* Training time {total} *")
     run = dict(totals)
+    run["images"] = int(sum(r[0] for r in allgather_floats([run["images"]])))
+    run["world_size"] = world
     run["images_per_s"] = (run["images"] / run["seconds"] if run["seconds"]
                            else None)
     if device.type == "cuda":
@@ -142,9 +197,13 @@ def main(argv=None):
                    peak_gib=None)
     run["card"] = card(device)
     run["traced"] = traced
+    run["launches"] = _launches_by_rank(launches)
     logger.info(f"=> run: {json.dumps(run)}")
     return best_iou, last_epoch
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        close_distributed()
