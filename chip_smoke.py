@@ -197,6 +197,24 @@ Phases (any failure raises, and the script exits non-zero):
    world_size and images, and per rank K1 11 and K2 24 + 24 launches, all
    on the tensor cores (on one card it says that no multi-card rate was
    measured).
+17. the HTTP front and the predict entry (cris_tpu_torch.serving,
+   python3 -m cris_tpu_torch.predict): (a) the committed fixtures of
+   tests/torch_codec_fixtures (a 640 x 480 progressive 4:2:0 JPEG and its
+   baseline twin, RGBA, 4-bit palette, 16-bit gray and Adam7 PNGs) decode
+   to the sha256 digests OpenCV gave (digests.json) under both flags, and
+   the progressive fixture's host decode time beside its twin's; (b)
+   make_server over an R50 PredictService (416 px, bf16, BN folded,
+   seed-0 weights read from best_model.pth) on a thread: /healthz, the
+   progressive JPEG with 3 sentences (rle), the RGBA PNG with 1 (png_b64),
+   an image_path request, {} and undecodable bytes (400 each), then 20
+   requests of 1 and 20 of 4 sentences (median and p90 on the host clock);
+   K1 7 times a device batch, all on the tensor cores; every mask equal to
+   PredictService.predict on the decoded image; predict alone on this
+   thread and from a fresh thread a call, and a b1 device batch on one
+   thread against a fresh thread a call; (c) python3 -m
+   cris_tpu_torch.predict at R50 on the card with the same weights: two
+   masks (0 / 255, the image's size) and two overlays, each the JPEG of
+   its mask's blend.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -218,6 +236,8 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # the host metric, the train A/B
     python3 chip_smoke.py --phases 16     # data parallel: K2's offset, 2
                                           # gloo ranks, torchrun over NCCL
+    python3 chip_smoke.py --phases 17     # the decoder fixtures, the HTTP
+                                          # front, the predict entry
 """
 
 import argparse
@@ -2814,6 +2834,303 @@ def phase_data_parallel(k2, k2_fwd, plain_k2, keep_bits_packed):
     return out
 
 
+FIXTURES = os.path.join("tests", "torch_codec_fixtures")
+
+
+def _http(url, payload=None, path="/predict"):
+    """(status, reply JSON) of a GET (payload None) or a POST (a dict or
+    raw bytes) to the front."""
+    import urllib.error
+    import urllib.request
+
+    data = payload
+    if isinstance(payload, dict):
+        data = json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 method="GET" if payload is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _rle_mask(rle) -> np.ndarray:
+    """COCO uncompressed RLE (column-major runs from zeros) -> bool mask."""
+    h, w = rle["size"]
+    flat = np.zeros(h * w, bool)
+    pos, value = 0, False
+    for n in rle["counts"]:
+        flat[pos:pos + n] = value
+        pos, value = pos + n, not value
+    return flat.reshape(w, h).T
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def _times_ms(call, n: int) -> list:
+    """Host-clock ms of n calls (each ends with its results on the
+    host)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _on_fresh_thread(fn, *args):
+    """fn(*args) on a new thread, as ThreadingHTTPServer runs a request."""
+    import threading
+
+    out = []
+    thread = threading.Thread(target=lambda: out.append(fn(*args)))
+    thread.start()
+    thread.join()
+    assert out, "the call on the fresh thread failed"
+    return out[0]
+
+
+def phase_front(k1):
+    """17: (a) the committed decoder fixtures to OpenCV's digests, and the
+    progressive fixture's host decode time against its baseline twin; (b)
+    the HTTP front (serving.make_server) over an R50 PredictService at 416
+    px, bf16, BN folded, seed-0 weights from best_model.pth: /healthz, a
+    progressive JPEG with 3 sentences (rle), an RGBA PNG with 1 (png_b64),
+    an image_path request, {} and undecodable bytes (400 each), then 20
+    requests of 1 and 20 of 4 sentences timed on the host clock; K1 7 times
+    a device batch, all on the tensor cores; every mask equal to
+    PredictService.predict on the decoded pixels; (c) python3 -m
+    cris_tpu_torch.predict on the card with the same weights: its masks
+    and overlays."""
+    import threading
+
+    from cris_tpu_torch.data import codec
+    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.predict import overlay
+    from cris_tpu_torch.serving import PredictService, make_server
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    card = card_line()
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        table = json.load(f)
+    data = {}
+    for name, want in sorted(table["files"].items()):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data[name] = f.read()
+        for key, decode in (("color", codec.decode_image),
+                            ("gray", codec.decode_mask)):
+            img = decode(data[name])
+            digest = hashlib.sha256(img.tobytes()).hexdigest()
+            assert list(img.shape) == want[key]["shape"], (name, img.shape)
+            assert digest == want[key]["sha256"], (name, key, digest)
+    print(f"17(a) {len(data)} fixtures decode to OpenCV {table['opencv']}'s "
+          f"digests under both flags: {sorted(data)}", flush=True)
+    prog, base = (data[f"{k}_420_640x480.jpg"]
+                  for k in ("progressive", "baseline"))
+    decode_ms = {"progressive": [], "baseline": []}
+    for _ in range(20):
+        for kind, buf in (("progressive", prog), ("baseline", base)):
+            t0 = time.perf_counter()
+            codec.decode_image(buf)
+            decode_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    decode = {k: {"median_ms": _pct(v, 50), "p90_ms": _pct(v, 90)}
+              for k, v in decode_ms.items()}
+    print(f"17(a) host decode of the 640x480 4:2:0 fixture, 20 each in "
+          f"turns: progressive median {decode['progressive']['median_ms']:.3f}"
+          f" ms (p90 {decode['progressive']['p90_ms']:.3f}), baseline "
+          f"{decode['baseline']['median_ms']:.3f} ms (p90 "
+          f"{decode['baseline']['p90_ms']:.3f}); {os.cpu_count()} host cores;"
+          f" card {card}", flush=True)
+
+    cfg = cris_r50_refcoco()
+    assert (cfg.input_size, cfg.precision) == (416, "bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        torch.save({"state_dict": build_segmenter(cfg, device="cpu",
+                                                  seed=0).state_dict()},
+                   os.path.join(ckpt, "best_model.pth"))
+        t0 = time.perf_counter()
+        service = PredictService(cfg, model_dir=ckpt, device="cuda",
+                                 max_batch=16)
+        build_s = time.perf_counter() - t0
+        batches = []
+        inner = service.evaluator.predict_probs
+
+        def counted(image, word):
+            batches.append(image.shape[0])
+            return inner(image, word)
+
+        service.evaluator.predict_probs = counted
+        server = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        path = os.path.abspath(os.path.join(FIXTURES, "adam7_rgb_160x120.png"))
+        b64 = {n: base64.b64encode(b).decode() for n, b in data.items()}
+        requests = [
+            ("progressive", {"image_b64": b64["progressive_420_640x480.jpg"],
+                             "sentences": ["the man on the left",
+                                           "a red car", "the sky"],
+                             "format": "rle"}),
+            ("rgba", {"image_b64": b64["rgba_160x120.png"],
+                      "sentence": "the bright patch", "format": "png_b64"}),
+            ("path", {"image_path": path, "sentences": ["a", "the b"],
+                      "format": "rle"}),
+        ]
+        try:
+            reset_counts(k1)
+            status, health = _http(url, path="/healthz")
+            assert status == 200 and health == {"status": "ok",
+                                                "input_size": 416}, health
+            replies = {}
+            for name, req in requests:
+                status, replies[name] = _http(url, req)
+                assert status == 200, (name, replies[name])
+            for bad in ({}, {"image_b64": base64.b64encode(
+                    b"GIF89a, not a JPEG or PNG").decode(), "sentence": "x"}):
+                status, reply = _http(url, bad)
+                assert status == 400, (bad, status, reply)
+            print(f"17(b) the front: /healthz, 3 requests answered 200, {{}} "
+                  f"and undecodable bytes 400 ({reply['error']!r})",
+                  flush=True)
+            latency = {}
+            for n in (1, 4):
+                req = {"image_b64": b64["progressive_420_640x480.jpg"],
+                       "sentences": [f"the person number {i}"
+                                     for i in range(n)], "format": "rle"}
+                times = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    status, _ = _http(url, req)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    assert status == 200
+                latency[n] = {"median_ms": _pct(times, 50),
+                              "p90_ms": _pct(times, 90)}
+                print(f"17(b) 20 /predict requests of {n} sentence(s), 640x480"
+                      f" progressive JPEG, R50 416 px bf16 folded: median "
+                      f"{latency[n]['median_ms']:.2f} ms, p90 "
+                      f"{latency[n]['p90_ms']:.2f} ms (host clock, client to "
+                      f"reply); card {card}", flush=True)
+            launches, by_route = k1.launches, dict(k1.launches_by_route)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        # 3 + 40 requests: buckets 4, 1, 2, then 20 x 1 and 20 x 4
+        assert batches == [4, 1, 2] + [1] * 20 + [4] * 20, batches
+        want = 7 * len(batches)  # 3 decoder layers x 2 sites + attnpool
+        assert launches == want, (launches, want)
+        assert by_route == {"tensor_cores": want, "scalar": 0}, by_route
+        print(f"17(b) K1 on the front: {launches} launches in "
+              f"{len(batches)} device batches ({launches / len(batches):.0f} "
+              f"a batch), by route {by_route}", flush=True)
+
+        # every mask equals PredictService.predict on the decoded pixels
+        service.evaluator.predict_probs = inner
+        with open(path, "rb") as f:
+            on_disk = f.read()
+        for name, req in requests:
+            buf = (base64.b64decode(req["image_b64"]) if "image_b64" in req
+                   else on_disk)
+            sents = req.get("sentences") or [req["sentence"]]
+            direct = service.predict(codec.decode_image(buf), sents)
+            reply = replies[name]
+            assert [r["sentence"] for r in reply["results"]] == sents
+            for got, ref in zip(reply["results"], direct):
+                if req["format"] == "rle":
+                    mask = _rle_mask(got["rle"])
+                else:
+                    png = codec.decode_mask(base64.b64decode(
+                        got["mask_png_b64"]))
+                    assert set(np.unique(png)) <= {0, 255}
+                    mask = png == 255
+                assert mask.shape == (reply["height"], reply["width"])
+                assert np.array_equal(mask, ref["mask"]), name
+                assert got["foreground_px"] == ref["foreground_px"]
+        print("17(b) every mask of the front equals PredictService.predict "
+              f"on the decoded image; the service built and warmed in "
+              f"{build_s:.1f} s", flush=True)
+        # the same requests' predict alone, on this thread and on a fresh
+        # thread a call as the front's handlers run it, to split a
+        # request's time between the front (transfer, JSON, base64,
+        # decode, RLE) and the service
+        image = codec.decode_image(prog)
+        for n in (1, 4):
+            sents = [f"the person number {i}" for i in range(n)]
+            for key, call in (
+                    ("predict", lambda: service.predict(image, sents)),
+                    ("predict_fresh_thread", lambda: _on_fresh_thread(
+                        service.predict, image, sents))):
+                times = _times_ms(call, 20)
+                latency[n][f"{key}_median_ms"] = _pct(times, 50)
+                latency[n][f"{key}_p90_ms"] = _pct(times, 90)
+            print(f"17(b) PredictService.predict alone, {n} sentence(s), 20 "
+                  f"calls: median {latency[n]['predict_median_ms']:.2f} ms "
+                  f"(p90 {latency[n]['predict_p90_ms']:.2f}) on this thread, "
+                  f"{latency[n]['predict_fresh_thread_median_ms']:.2f} ms "
+                  f"(p90 {latency[n]['predict_fresh_thread_p90_ms']:.2f}) "
+                  f"from a fresh thread a call; the front adds "
+                  f"{latency[n]['median_ms'] - latency[n]['predict_median_ms']:.2f}"
+                  f" ms at the median; card {card}", flush=True)
+        # why the service keeps one device thread: a b1 device batch on
+        # this thread against one on a fresh thread a call
+        word = np.ones((1, cfg.word_len), np.int64)
+        zeros = np.zeros((1, 3, 416, 416), np.float32)
+        batch = {key: _times_ms(call, 10) for key, call in (
+            ("this_thread", lambda: inner(zeros, word)),
+            ("fresh_thread", lambda: _on_fresh_thread(inner, zeros, word)))}
+        batch = {k: {"median_ms": _pct(v, 50), "p90_ms": _pct(v, 90)}
+                 for k, v in batch.items()}
+        print(f"17(b) Evaluator.predict_probs at b1, 10 calls: median "
+              f"{batch['this_thread']['median_ms']:.2f} ms on one thread, "
+              f"{batch['fresh_thread']['median_ms']:.2f} ms on a fresh "
+              f"thread a call; card {card}", flush=True)
+        del service
+        torch.cuda.empty_cache()
+
+        # (c) the predict entry, on the card
+        image = os.path.abspath(os.path.join(FIXTURES,
+                                             "progressive_420_640x480.jpg"))
+        out = os.path.join(tmp, "out")
+        os.makedirs(out)
+        cmd = [sys.executable, "-m", "cris_tpu_torch.predict", "--config",
+               os.path.join("config", "refcoco", "cris_r50.yaml"), "--image",
+               image, "--sent", "the man on the left", "--sent", "a red car",
+               "--out", os.path.join(out, "mask.png"), "--overlay",
+               os.path.join(out, "overlay.jpg"), "--checkpoint", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        predict_s = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        bgr = codec.decode_image(data["progressive_420_640x480.jpg"])
+        assert sorted(os.listdir(out)) == ["mask_0.png", "mask_1.png",
+                                           "overlay_0.jpg", "overlay_1.jpg"]
+        foreground = []
+        for i in range(2):
+            with open(os.path.join(out, f"mask_{i}.png"), "rb") as f:
+                mask = codec.decode_mask(f.read())
+            assert mask.shape == bgr.shape[:2]
+            assert set(np.unique(mask)) <= {0, 255}
+            foreground.append(int((mask > 0).sum()))
+            with open(os.path.join(out, f"overlay_{i}.jpg"), "rb") as f:
+                written = f.read()
+            assert written == codec.encode_jpeg(overlay(bgr, mask), 95)
+        print(f"17(c) python3 -m cris_tpu_torch.predict at R50 on the card: "
+              f"2 masks of {bgr.shape[:2]} ({foreground} px foreground) and "
+              f"2 overlays (each the JPEG of the blend of its mask) in "
+              f"{predict_s:.1f} s with the process start", flush=True)
+    return {"K1": launches, "K1_by_route": by_route,
+            "device_batches": len(batches), "latency": latency,
+            "b1_batch_by_thread": batch,
+            "decode": decode, "service_build_s": build_s,
+            "predict_entry_s": predict_s, "card": card}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -2825,7 +3142,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 17)) if run_all else {
+    wanted = set(range(2, 18)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -2919,6 +3236,8 @@ def main() -> int:
         out["dp"] = phase_data_parallel(
             k2, kernels.attention_dropout_forward,
             kernels.attention_dropout_plain, kernels.keep_bits_packed)
+    if 17 in wanted:
+        out["front"] = phase_front(k1)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -2940,6 +3259,7 @@ def summary(out) -> dict:
     train_py = out["train_entry"]  # phase 14 (b), all on tensor_cores
     ab_py = out["host_plane"]["launches"]  # phase 15 (d), all tensor_cores
     dp_py = out["dp"]["entry"]["launches"]  # phase 16 (c), all tensor_cores
+    front = out["front"]  # phase 17 (b)
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -3010,7 +3330,7 @@ def summary(out) -> dict:
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
                      + bench["K1"] + test_path["K1"]
                      + train_py["launches"]["K1"] + ab_py["K1"]
-                     + dp_py["K1"]),
+                     + dp_py["K1"] + front["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
@@ -3018,13 +3338,15 @@ def summary(out) -> dict:
                              "test.py": test_path["K1"],
                              "train.py": train_py["launches"]["K1"],
                              "train.py A/B": ab_py["K1"],
-                             "train.py torchrun": dp_py["K1"]},
+                             "train.py torchrun": dp_py["K1"],
+                             "HTTP front": front["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
             + (bench["K1"] + ab_py["K1"] + dp_py["K1"]
                if r == "tensor_cores" else 0)
             + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
+            + front["K1_by_route"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
         # on the device alone: the tensor-core body runs shorter than the
@@ -3150,7 +3472,9 @@ def summary(out) -> dict:
                                       if k != "by_route"},
                       "host_plane": out["host_plane"],
                       "data_parallel": {k: v for k, v in out["dp"].items()
-                                        if k != "k2_offset"}}), flush=True)
+                                        if k != "k2_offset"},
+                      "front": {k: v for k, v in front.items()
+                                if k != "K1_by_route"}}), flush=True)
     return {"kernels": kernels}
 
 

@@ -1,11 +1,16 @@
 // Host image coding for the data path, with a plain C interface for ctypes:
-// baseline / extended-sequential Huffman JPEG decoding with the EXIF
-// orientation, PNG decoding (the chunk walk, a self-contained inflate and
-// the row filters), and a baseline JPEG encoder.
+// Huffman JPEG decoding (baseline, extended-sequential and progressive) with
+// the EXIF orientation, PNG decoding of every colour type, bit depth and
+// interlace (the chunk walk, a self-contained inflate, the row filters,
+// Adam7), and a baseline JPEG encoder.
 //
 // The JPEG decoder follows libjpeg-turbo's default decompression (the
 // library behind cv2.imdecode) operation for operation, so that its output
 // equals OpenCV's bit for bit:
+//   - jdhuff.c / jdphuff.c entropy decoding: sequential scans, and the four
+//     progressive scan kinds (DC first, DC refinement, AC first with
+//     end-of-band runs, AC refinement) into a whole-image coefficient
+//     buffer, each component's quantization table latched at its first scan;
 //   - jidctint.c jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, the
 //     post-IDCT range-limit table indexed by value & 1023);
 //   - jdsample.c fancy upsampling: h2v1_fancy_upsample and
@@ -14,16 +19,31 @@
 //     jdmainct.c does), and box replication when a component is at most
 //     two samples wide, as jinit_upsampler picks it;
 //   - jdcolor.c's YCbCr -> RGB tables in 16-bit fixed point.
-// Only integer arithmetic is used, so the bits do not depend on the compiler.
-// Progressive, lossless, arithmetic-coded and hierarchical frames, 12-bit
-// samples, CMYK and RGB-coded JPEGs, and corrupt streams are refused with a
+// A progressive file is absorbed whole before the output pass, as libjpeg
+// does it outside buffered-image mode; when its scans leave every
+// coefficient exact, libjpeg's block smoothing has nothing to do and the
+// IDCT of the final coefficients is its output. One whose scans leave
+// low-frequency coefficients approximate (which libjpeg would smooth) is
+// refused.
+// Only integer arithmetic is used for JPEG, so its bits do not depend on
+// the compiler.
+// Lossless, arithmetic-coded and hierarchical frames, 12-bit samples, CMYK
+// and RGB-coded JPEGs, and corrupt or truncated streams are refused with a
 // message that names the marker or the fault. The APP1 orientation tag is
 // applied as OpenCV's ApplyExifOrientation applies it.
 //
-// PNG: 8-bit gray and RGB, not interlaced, as libpng reads them: an
-// ancillary chunk with a bad CRC is dropped, a critical one refused. The
-// inflate is RFC 1950/1951 (stored, fixed and dynamic blocks, Adler-32),
-// written here because the zlib header is not known to exist on every host.
+// PNG: colour types 0, 2, 3, 4 and 6 at every bit depth they allow, with or
+// without Adam7, read as OpenCV asks libpng to read them (decode_png says
+// how: palette to RGB, low depths to 8 bits, 16 bits to their high byte,
+// alpha dropped, gray replicated, colour to gray by libpng's fixed-point
+// weights, through its gamma tables when a gAMA or sRGB chunk gives a file
+// gamma); an eXIf orientation is applied. An ancillary chunk with a bad
+// CRC is dropped, a critical one refused; a critical chunk other than
+// IHDR, PLTE, IDAT and IEND is refused. 16-bit colour read as gray under a
+// file gamma is refused (libpng's 16-bit gamma tables are not reproduced).
+// The inflate is RFC 1950/1951 (stored, fixed and dynamic blocks,
+// Adler-32), written here because the zlib header is not known to exist on
+// every host.
 //
 // The encoder writes baseline JPEG (SOF0) as libjpeg's defaults do: a JFIF
 // APP0, the Annex K tables scaled by IJG quality, 4:2:0 for color, the
@@ -35,6 +55,7 @@
 #include "image_codec.h"
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -201,6 +222,10 @@ struct Component {
   int dw = 0, dh = 0;       // downsampled_width / downsampled_height
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
   std::vector<uint8_t> plane;  // (bw * 8) x (bh * 8) samples after the IDCT
+  // The quantization table as the component's first scan found it
+  // (jdinput.c latch_quant_tables); all zero if it never had a scan.
+  uint16_t q[64] = {};
+  bool latched = false;
 };
 
 struct Jpeg {
@@ -210,7 +235,11 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcux = 0, mcuy = 0;
   int restart = 0;
-  bool frame = false, scanned = false;
+  bool frame = false, scanned = false, progressive = false;
+  int scans = 0;
+  // Progressive: the Al of each coefficient's (zigzag index) last scan,
+  // -1 before its first, as libjpeg's coef_bits.
+  int coef_bits[3][64];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   long long app1_off = -1, app1_len = 0;
@@ -219,7 +248,11 @@ struct Jpeg {
   Huffman dc[4], ac[4];
   Component comp[3];
 
-  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
+  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {
+    for (auto& bits : coef_bits) {
+      for (int& b : bits) b = -1;
+    }
+  }
 
   int u8() {
     if (pos >= size) fail("JPEG: unexpected end of data");
@@ -277,6 +310,7 @@ struct Jpeg {
       }
     }
     if (pos != stop) fail("SOF%d: bad segment length", marker - 0xC0);
+    progressive = marker == 0xC2;
     hmax = vmax = 1;
     for (int i = 0; i < ncomp; ++i) {
       hmax = comp[i].h > hmax ? comp[i].h : hmax;
@@ -343,41 +377,89 @@ struct Jpeg {
     pos = stop;
   }
 
-  void read_sos() {
-    size_t stop = segment(0xDA);
-    if (!frame) fail("SOS: no frame header before the scan");
-    int ns = u8();
-    if (ns < 1 || ns > ncomp) fail("SOS: bad component count %d", ns);
-    Component* sc[3];
-    int td[3], ta[3];
-    for (int i = 0; i < ns; ++i) {
-      int id = u8(), t = u8();
-      sc[i] = nullptr;
-      for (int j = 0; j < ncomp; ++j) {
-        if (comp[j].id == id) sc[i] = &comp[j];
-      }
-      if (!sc[i]) fail("SOS: unknown component id %d", id);
-      td[i] = t >> 4;
-      ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined || !ac[ta[i]].defined) {
-        fail("SOS: Huffman table not defined");
-      }
-    }
-    int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) {
-      fail("SOS: spectral selection %d..%d is not sequential", ss, se);
-    }
-    if (pos != stop) fail("SOS: bad segment length");
-    for (int i = 0; i < ncomp; ++i) {
-      Component& c = comp[i];
-      if (c.coef.empty()) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
-    }
+  void latch(Component& c) {
+    if (c.latched) return;
+    if (!qt_defined[c.tq]) fail("DQT: quantization table %d not defined", c.tq);
+    std::memcpy(c.q, qt[c.tq], sizeof c.q);
+    c.latched = true;
+  }
 
-    BitReader br(data + pos, data + size);
+  // jdphuff.c start_pass_phuff_decoder's checks of a progressive scan, and
+  // the coefficients' progression (which libjpeg only warns about).
+  void check_progression(Component* const* sc, int ns, int ss, int se,
+                         int ah, int al) {
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) {
+      char msg[128];
+      std::snprintf(msg, sizeof msg,
+                    "SOS: bad progression parameters Ss %d, Se %d, Ah %d, "
+                    "Al %d", ss, se, ah, al);
+      throw Fault(msg);
+    }
+    for (int i = 0; i < ns; ++i) {
+      const int ci = (int)(sc[i] - comp);
+      int* bits = coef_bits[ci];
+      if (ss > 0 && bits[0] < 0) {
+        fail("SOS: an AC scan of component %d before its DC scan", ci);
+      }
+      for (int k = ss; k <= se; ++k) {
+        if (ah != (bits[k] < 0 ? 0 : bits[k])) {
+          fail("SOS: component %d, coefficient %d refined out of order", ci, k);
+        }
+        bits[k] = al;
+      }
+    }
+  }
+
+  // Calls block(i, coefficients) for every block of the scan in stream
+  // order: a one-component scan covers that component's own
+  // ceil(dw / 8) x ceil(dh / 8) blocks, an interleaved one whole MCUs. At
+  // each restart interval it reads RSTn and calls reset().
+  template <class Block, class Reset>
+  void each_block(Component* const* sc, int ns, BitReader& br, Block&& block,
+                  Reset&& reset) {
+    long long units, across;
+    if (ns == 1) {
+      const Component& c = *sc[0];
+      across = (c.dw + 7) / 8;
+      units = across * ((c.dh + 7) / 8);
+    } else {
+      across = mcux;
+      units = (long long)mcux * mcuy;
+    }
+    auto at = [](Component& c, int bx, int by) {
+      return &c.coef[((size_t)by * c.bw + bx) * 64];
+    };
+    int rst = 0;
+    for (long long u = 0; u < units; ++u) {
+      if (restart && u > 0 && u % restart == 0) {
+        br.restart(rst);
+        rst = (rst + 1) & 7;
+        reset();
+      }
+      const int ux = (int)(u % across), uy = (int)(u / across);
+      if (ns == 1) {
+        block(0, at(*sc[0], ux, uy));
+        continue;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *sc[i];
+        for (int y = 0; y < c.v; ++y) {
+          for (int x = 0; x < c.h; ++x) {
+            block(i, at(c, ux * c.h + x, uy * c.v + y));
+          }
+        }
+      }
+    }
+  }
+
+  // A baseline / extended-sequential scan: all 64 coefficients of each
+  // block (jdhuff.c).
+  void sequential_scan(Component* const* sc, int ns, const int* td,
+                       const int* ta, BitReader& br) {
     int pred[3] = {0, 0, 0};
-    auto block = [&](int i, int bx, int by) {
-      Component& c = *sc[i];
-      int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+    each_block(sc, ns, br, [&](int i, int16_t* blk) {
       int s = br.decode(dc[td[i]]);
       if (s > 15) fail("SOS: corrupt entropy-coded data (DC size %d)", s);
       pred[i] += extend(br.bits(s), s);
@@ -397,50 +479,177 @@ struct Jpeg {
           break;
         }
       }
-    };
+    }, [&] { pred[0] = pred[1] = pred[2] = 0; });
+  }
 
-    long long units, across;
-    if (ns == 1) {  // non-interleaved: the component's own block grid
-      Component& c = *sc[0];
-      across = (c.dw + 7) / 8;
-      units = across * ((c.dh + 7) / 8);
+  // One scan of a progressive frame, as jdphuff.c decodes it: DC first
+  // (the difference shifted up by Al), DC refinement (one bit), AC first
+  // over Ss..Se with end-of-band runs, AC refinement (a correction bit for
+  // each coefficient already nonzero, new coefficients of +-2^Al). The
+  // predictors and the end-of-band run restart at each RSTn.
+  void progressive_scan(Component* const* sc, int ns, const int* td,
+                        const int* ta, int ss, int se, int ah, int al,
+                        BitReader& br) {
+    int pred[3] = {0, 0, 0};
+    int eobrun = 0;
+    const int p1 = 1 << al, m1 = -p1;
+    auto reset = [&] { pred[0] = pred[1] = pred[2] = eobrun = 0; };
+    // a run of 2^r plus r more bits of end-of-band, this block included
+    auto eob_run = [&](int r) { return (1 << r) + br.bits(r); };
+    auto refine = [&](int16_t& c) {  // a correction bit of a nonzero c
+      if (br.bits(1) && (c & p1) == 0) c = (int16_t)(c + (c >= 0 ? p1 : m1));
+    };
+    if (ss == 0 && ah == 0) {
+      each_block(sc, ns, br, [&](int i, int16_t* blk) {
+        int s = br.decode(dc[td[i]]);
+        if (s > 15) fail("SOS: corrupt entropy-coded data (DC size %d)", s);
+        pred[i] += extend(br.bits(s), s);
+        blk[0] = (int16_t)(pred[i] * (1 << al));
+      }, reset);
+    } else if (ss == 0) {
+      each_block(sc, ns, br, [&](int, int16_t* blk) {
+        if (br.bits(1)) blk[0] = (int16_t)(blk[0] | p1);
+      }, reset);
+    } else if (ah == 0) {
+      const Huffman& h = ac[ta[0]];
+      each_block(sc, ns, br, [&](int, int16_t* blk) {
+        if (eobrun > 0) {
+          --eobrun;
+          return;
+        }
+        for (int k = ss; k <= se; ++k) {
+          const int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            if (k > se) fail("SOS: corrupt entropy-coded data (AC index)");
+            blk[kZigzag[k]] = (int16_t)(extend(br.bits(s), s) * (1 << al));
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = eob_run(r) - 1;
+            break;
+          }
+        }
+      }, reset);
     } else {
-      across = mcux;
-      units = (long long)mcux * mcuy;
-    }
-    int rst = 0;
-    for (long long u = 0; u < units; ++u) {
-      if (restart && u > 0 && u % restart == 0) {
-        br.restart(rst);
-        rst = (rst + 1) & 7;
-        pred[0] = pred[1] = pred[2] = 0;
-      }
-      int ux = (int)(u % across), uy = (int)(u / across);
-      if (ns == 1) {
-        block(0, ux, uy);
-      } else {
-        for (int i = 0; i < ns; ++i) {
-          for (int y = 0; y < sc[i]->v; ++y) {
-            for (int x = 0; x < sc[i]->h; ++x) {
-              block(i, ux * sc[i]->h + x, uy * sc[i]->v + y);
+      const Huffman& h = ac[ta[0]];
+      each_block(sc, ns, br, [&](int, int16_t* blk) {
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; ++k) {
+            int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+            if (s) {
+              if (s != 1) fail("SOS: corrupt entropy-coded data (refinement)");
+              s = br.bits(1) ? p1 : m1;
+            } else if (r != 15) {
+              eobrun = eob_run(r);
+              break;
+            }
+            // skip r zero coefficients, refining the nonzero ones on the way
+            for (; k <= se; ++k) {
+              int16_t& c = blk[kZigzag[k]];
+              if (c != 0) {
+                refine(c);
+              } else if (--r < 0) {
+                break;
+              }
+            }
+            if (s) {
+              if (k > se) fail("SOS: corrupt entropy-coded data (AC index)");
+              blk[kZigzag[k]] = (int16_t)s;
             }
           }
         }
+        if (eobrun > 0) {  // the rest of the band: only refinement bits
+          for (; k <= se; ++k) {
+            if (blk[kZigzag[k]] != 0) refine(blk[kZigzag[k]]);
+          }
+          --eobrun;
+        }
+      }, reset);
+    }
+  }
+
+  void read_sos() {
+    size_t stop = segment(0xDA);
+    if (!frame) fail("SOS: no frame header before the scan");
+    int ns = u8();
+    if (ns < 1 || ns > ncomp) fail("SOS: bad component count %d", ns);
+    Component* sc[3];
+    int td[3], ta[3];
+    for (int i = 0; i < ns; ++i) {
+      int id = u8(), t = u8();
+      sc[i] = nullptr;
+      for (int j = 0; j < ncomp; ++j) {
+        if (comp[j].id == id) sc[i] = &comp[j];
+      }
+      if (!sc[i]) fail("SOS: unknown component id %d", id);
+      td[i] = t >> 4;
+      ta[i] = t & 15;
+    }
+    int ss = u8(), se = u8(), ahal = u8(), ah = ahal >> 4, al = ahal & 15;
+    if (pos != stop) fail("SOS: bad segment length");
+    // the tables the scan decodes with
+    const bool dc_coded = !progressive || (ss == 0 && ah == 0);
+    const bool ac_coded = !progressive || ss > 0;
+    for (int i = 0; i < ns; ++i) {
+      if (td[i] > 3 || ta[i] > 3 || (dc_coded && !dc[td[i]].defined) ||
+          (ac_coded && !ac[ta[i]].defined)) {
+        fail("SOS: Huffman table not defined");
+      }
+    }
+    if (!progressive && (ss != 0 || se != 63 || ahal != 0)) {
+      fail("SOS: spectral selection %d..%d is not sequential", ss, se);
+    }
+    if (progressive) check_progression(sc, ns, ss, se, ah, al);
+    for (int i = 0; i < ns; ++i) latch(*sc[i]);
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      if (c.coef.empty()) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+    }
+
+    BitReader br(data + pos, data + size);
+    if (!progressive) {
+      sequential_scan(sc, ns, td, ta, br);
+    } else {
+      try {
+        progressive_scan(sc, ns, td, ta, ss, se, ah, al, br);
+      } catch (const Fault& f) {
+        char where[96];
+        std::snprintf(where, sizeof where,
+                      "scan %d (Ss %d, Se %d, Ah %d, Al %d): ", scans + 1, ss,
+                      se, ah, al);
+        throw Fault(where + std::string(f.what()));
       }
     }
     pos = (size_t)(br.p - data);
     scanned = true;
+    ++scans;
+  }
+
+  // jdcoefct.c smoothing_ok: after the whole file, would libjpeg smooth the
+  // blocks of a progressive image? Only when every component's DC is known
+  // and some coefficient of zigzag index 1..9 is still approximate.
+  bool smoothing_on() const {
+    static const int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      if (!comp[i].latched) return false;
+      for (int k : kQ) {
+        if (comp[i].q[k] == 0) return false;
+      }
+      if (coef_bits[i][0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= coef_bits[i][k] != 0;
+    }
+    return useful;
   }
 
   // A frame or coding marker this decoder refuses, named in the message.
   static bool is_sof(int m) {
-    return m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC;
+    return m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC;
   }
 
   [[noreturn]] static void refuse(int m) {
-    if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-      fail("SOF%d: progressive JPEG is not supported", m - 0xC0);
-    }
     if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
       fail("SOF%d: lossless JPEG is not supported", m - 0xC0);
     }
@@ -453,9 +662,24 @@ struct Jpeg {
   void parse() {
     if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail("JPEG: no SOI marker");
     pos = 2;
+    try {
+      segments();
+    } catch (const Fault& f) {
+      if (!progressive) throw;
+      throw Fault(std::string("SOF2: progressive JPEG: ") + f.what());
+    }
+    if (!frame) fail("JPEG: no SOF marker");
+    if (!scanned) fail("JPEG: no SOS marker");
+    if (progressive && smoothing_on()) {
+      fail("SOF2: progressive JPEG: its scans leave coefficients approximate, "
+           "which libjpeg would smooth; that is not supported");
+    }
+  }
+
+  void segments() {
     for (;;) {
       int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         read_sof(m);
       } else if (is_sof(m) || m == 0xCC || m == 0xC8) {
         refuse(m);
@@ -487,8 +711,6 @@ struct Jpeg {
         fail("marker 0x%02X: unexpected", m);
       }
     }
-    if (!frame) fail("JPEG: no SOF marker");
-    if (!scanned) fail("JPEG: no SOS marker");
   }
 
   // libjpeg's default_decompress_parms: is a 3-component image YCbCr?
@@ -600,15 +822,14 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
   }
 }
 
-void inverse_dct(Jpeg& j, Component& c) {
-  if (!j.qt_defined[c.tq]) fail("DQT: quantization table %d not defined", c.tq);
+void inverse_dct(Component& c) {
   static const RangeLimit rl;
   int stride = c.bw * 8;
   c.plane.assign((size_t)stride * c.bh * 8, 0);
   if (c.coef.empty()) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
   for (int by = 0; by < c.bh; ++by) {
     for (int bx = 0; bx < c.bw; ++bx) {
-      idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], j.qt[c.tq],
+      idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
                  &c.plane[(size_t)by * 8 * stride + bx * 8], stride, rl);
     }
   }
@@ -691,7 +912,7 @@ void decode_jpeg(Jpeg& j, cris::Image& img, int channels) {
   uint8_t* out = img.pixels.data();
   if (j.ncomp == 3 && !j.ycbcr()) fail("APP14: RGB-coded JPEG is not supported");
   int used = channels == 1 ? 1 : j.ncomp;
-  for (int i = 0; i < used; ++i) inverse_dct(j, j.comp[i]);
+  for (int i = 0; i < used; ++i) inverse_dct(j.comp[i]);
   std::vector<uint8_t> y = upsample(j, j.comp[0]);
   if (channels == 1) {
     std::memcpy(out, y.data(), n);
@@ -736,13 +957,12 @@ inline uint32_t get32(const uint8_t* p, bool le) {
                (uint32_t)p[2] << 8 | p[3]);
 }
 
-// The orientation tag (0x0112) of an APP1 payload, read as OpenCV's EXIF
-// reader reads it: a TIFF header 6 bytes in, IFD0's entries; 1 when there
-// is none or the header is not TIFF.
-int exif_orientation(const uint8_t* payload, size_t len) {
-  if (len < 6 + 8) return 1;
-  const uint8_t* t = payload + 6;
-  const uint64_t n = len - 6;
+// The orientation tag (0x0112) of a TIFF-structured EXIF block, read as
+// OpenCV's EXIF reader reads it: IFD0's entries; 1 when there is none or
+// the header is not TIFF.
+int exif_orientation_tiff(const uint8_t* t, size_t len) {
+  if (len < 8) return 1;
+  const uint64_t n = len;
   bool le;
   if (t[0] == 'I' && t[1] == 'I') {
     le = true;
@@ -761,6 +981,12 @@ int exif_orientation(const uint8_t* payload, size_t len) {
     if (get16(t + e, le) == 0x0112) return (int)get16(t + e + 8, le);
   }
   return 1;
+}
+
+// The orientation of an APP1 payload: its TIFF header 6 bytes in (after
+// "Exif\0\0").
+int exif_orientation(const uint8_t* payload, size_t len) {
+  return len < 6 ? 1 : exif_orientation_tiff(payload + 6, len - 6);
 }
 
 // OpenCV's ApplyExifOrientation: flips for 2-4, a transpose then the flips
@@ -1089,45 +1315,110 @@ inline int paeth(int a, int b, int c) {
   return pb <= pc ? b : c;
 }
 
-void png_unfilter(const uint8_t* raw, size_t n, int height, int width,
-                  int bpp, uint8_t* out) {
-  size_t stride = (size_t)width * bpp;
-  if (n < (size_t)height * (stride + 1)) fail("IDAT: not enough image data");
-  std::vector<uint8_t> zero(stride, 0);
-  const uint8_t* prev = zero.data();
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* src = raw + (size_t)y * (stride + 1);
-    int filter = src[0];
-    ++src;
-    uint8_t* cur = out + (size_t)y * stride;
-    for (size_t i = 0; i < stride; ++i) {
-      int a = i >= (size_t)bpp ? cur[i - bpp] : 0;
-      int b = prev[i];
-      int c = i >= (size_t)bpp ? prev[i - bpp] : 0;
-      int v = src[i];
-      switch (filter) {
-        case 0: break;
-        case 1: v += a; break;
-        case 2: v += b; break;
-        case 3: v += (a + b) >> 1; break;
-        case 4: v += paeth(a, b, c); break;
-        default: fail("IDAT: unknown PNG filter type %d in row %d", filter, y);
-      }
-      cur[i] = (uint8_t)v;
+// One row of a PNG (or of an Adam7 pass) with its filter undone; prev is
+// the row above in the same pass (zeros for its first row).
+void png_unfilter_row(const uint8_t* src, int filter, const uint8_t* prev,
+                      size_t stride, int bpp, int y, uint8_t* cur) {
+  for (size_t i = 0; i < stride; ++i) {
+    int a = i >= (size_t)bpp ? cur[i - bpp] : 0;
+    int b = prev[i];
+    int c = i >= (size_t)bpp ? prev[i - bpp] : 0;
+    int v = src[i];
+    switch (filter) {
+      case 0: break;
+      case 1: v += a; break;
+      case 2: v += b; break;
+      case 3: v += (a + b) >> 1; break;
+      case 4: v += paeth(a, b, c); break;
+      default: fail("IDAT: unknown PNG filter type %d in row %d", filter, y);
     }
-    prev = cur;
+    cur[i] = (uint8_t)v;
   }
 }
 
 inline uint32_t be32(const uint8_t* p) { return get32(p, false); }
 
-// 8-bit gray or RGB PNG -> gray (1 channel) or BGR (3 channels).
+// OpenCV reads a PNG through libpng with png_set_strip_16,
+// png_set_strip_alpha, png_set_palette_to_rgb,
+// png_set_expand_gray_1_2_4_to_8, and then png_set_bgr (IMREAD_COLOR of a
+// colour image), png_set_gray_to_rgb (IMREAD_COLOR of a gray one) or
+// png_set_rgb_to_gray(png, 1, 0.299, 0.587) (IMREAD_GRAYSCALE). libpng runs
+// them in this order: palette and low-depth gray expanded to 8 bits (tRNS
+// has no effect once alpha is stripped), alpha dropped without
+// compositing, colour to gray on the 8- or 16-bit samples, 16 bits cut to
+// their high byte.
+//
+// png_set_rgb_to_gray_fixed truncates the weights to 32768ths; blue takes
+// the rest.
+constexpr uint32_t kGrayR = 9797, kGrayG = 19234, kGrayB = 32768 - 9797 - 19234;
+
+// png.c's fixed-point gamma helpers (PNG_FP_1 = 100000).
+int32_t png_reciprocal(int32_t a) {
+  const double r = std::floor(1e10 / a + .5);
+  return r <= 2147483647. && r >= -2147483648. ? (int32_t)r : 0;
+}
+
+bool png_gamma_significant(int32_t g) { return g < 95000 || g > 105000; }
+
+// png_build_8bit_table with png_gamma_8bit_correct's floating-point form.
+void png_gamma_table(int32_t g, uint8_t* t) {
+  for (int i = 0; i < 256; ++i) {
+    t[i] = (uint8_t)i;
+    if (png_gamma_significant(g) && i > 0 && i < 255) {
+      t[i] = (uint8_t)std::floor(255 * std::pow(i / 255., g * .00001) + .5);
+    }
+  }
+}
+
+// png_do_rgb_to_gray on 8-bit samples. With a significant file gamma (gAMA
+// or sRGB) libpng builds gamma_to_1 and gamma_from_1 and converts the
+// linearised samples; a pixel with r == g == b passes unchanged either way
+// (its gamma_table is the identity here).
+struct RgbToGray {
+  bool gamma = false;
+  uint8_t to1[256], from1[256];
+
+  explicit RgbToGray(int32_t file_gamma) {
+    if (file_gamma <= 0) return;
+    const int32_t screen = png_reciprocal(file_gamma);
+    if (!png_gamma_significant(file_gamma) && !png_gamma_significant(screen)) {
+      return;
+    }
+    gamma = true;
+    png_gamma_table(screen, to1);
+    png_gamma_table(png_reciprocal(screen), from1);
+  }
+
+  uint8_t operator()(uint32_t r, uint32_t g, uint32_t b) const {
+    if (r == g && r == b) return (uint8_t)r;
+    if (!gamma) return (uint8_t)((kGrayR * r + kGrayG * g + kGrayB * b) >> 15);
+    return from1[(kGrayR * to1[r] + kGrayG * to1[g] + kGrayB * to1[b] + 16384) >>
+                 15];
+  }
+};
+
+// The 16-bit form: rounded, then the high byte (png_set_strip_16 runs
+// after it). Without a file gamma only; decode_png refuses the other case.
+inline uint8_t rgb16_to_gray(uint32_t r, uint32_t g, uint32_t b) {
+  return (uint8_t)(((kGrayR * r + kGrayG * g + kGrayB * b + 16384) >> 15) >> 8);
+}
+
+// Adam7: (x0, y0, dx, dy) of each pass.
+const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                          {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+
+// Any PNG (colour types 0, 2, 3, 4 and 6 at every depth PNG allows, Adam7
+// or not) -> gray (1 channel) or BGR (3 channels), as cv2.imdecode reads it.
 cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
   static const Crc32 crc32;
   size_t pos = sizeof kPngMagic;
-  bool header = false;
+  bool header = false, have_plte = false, srgb = false;
   uint32_t width = 0, height = 0;
   int depth = 0, color = 0, method = 0, filter = 0, interlace = 0;
+  int32_t gamma = 0;  // gAMA's value, 0 when there is none
+  uint8_t palette[256][3] = {};  // libpng's: entries past PLTE's are black
+  const uint8_t* exif = nullptr;
+  size_t exif_len = 0;
   std::vector<uint8_t> idat;
   for (;;) {
     if (pos + 12 > size) fail("PNG: truncated data (no IEND chunk)");
@@ -1142,6 +1433,7 @@ cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
       if (critical) fail_chunk(kind, "CRC mismatch");
       continue;  // libpng drops an ancillary chunk with a bad CRC
     }
+    const bool before_idat = idat.empty();
     if (std::memcmp(kind, "IHDR", 4) == 0) {
       if (length != 13) fail("PNG IHDR: bad length %d", (int)length);
       width = be32(data);
@@ -1152,61 +1444,134 @@ cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
       filter = data[11];
       interlace = data[12];
       header = true;
+    } else if (std::memcmp(kind, "PLTE", 4) == 0) {
+      if (have_plte) fail_chunk(kind, "duplicate chunk");
+      if (length == 0 || length % 3 || length > 768) {
+        fail_chunk(kind, "invalid length");
+      }
+      for (uint32_t i = 0; i < length / 3; ++i) {
+        std::memcpy(palette[i], data + 3 * i, 3);
+      }
+      have_plte = true;
     } else if (std::memcmp(kind, "IDAT", 4) == 0) {
       idat.insert(idat.end(), data, data + length);
     } else if (std::memcmp(kind, "IEND", 4) == 0) {
       break;
     } else if (critical) {
-      fail_chunk(kind, "chunk not supported (palette images are not)");
+      fail_chunk(kind, "critical chunk not supported");
+    } else if (std::memcmp(kind, "eXIf", 4) == 0) {  // OpenCV reads it anywhere
+      if (!exif) exif = data, exif_len = length;
+    } else if (!before_idat) {
+      // libpng sets up its transformations at the first IDAT
+    } else if (std::memcmp(kind, "gAMA", 4) == 0) {
+      const uint32_t g = length == 4 ? be32(data) : 0;
+      if (gamma == 0 && g >= 16 && g <= 625000000) gamma = (int32_t)g;
+    } else if (std::memcmp(kind, "sRGB", 4) == 0) {
+      srgb = srgb || length == 1;
     }
   }
   if (!header) fail("PNG: no IHDR chunk");
-  if (depth != 8 || (color != 0 && color != 2) || interlace || method ||
-      filter) {
-    char msg[160];
-    std::snprintf(msg, sizeof msg,
-                  "PNG IHDR: bit depth %d, color type %d, interlace %d: only "
-                  "8-bit gray or RGB, not interlaced, is supported",
-                  depth, color, interlace);
-    throw Fault(msg);
+  if (srgb) gamma = 45455;  // sRGB's gamma takes precedence over gAMA
+  static const int kSamples[7] = {1, 0, 3, 1, 2, 0, 4};
+  const bool valid =
+      color <= 6 && kSamples[color] &&
+      (depth == 8 || (depth == 16 && color != 3) ||
+       ((depth == 1 || depth == 2 || depth == 4) && (color == 0 || color == 3)));
+  char what[96];
+  std::snprintf(what, sizeof what, "%u x %u, bit depth %d, color type %d, "
+                "interlace %d", width, height, depth, color, interlace);
+  if (!valid || method || filter || interlace > 1) {
+    throw Fault(std::string("PNG IHDR: ") + what + " is not a valid PNG");
   }
   if (width == 0 || height == 0 ||
       (unsigned long long)width * height > (unsigned long long)kMaxPixels) {
     fail("PNG IHDR: %d x %d pixels is not supported", (int)width, (int)height);
   }
-  if (gray && color == 2) fail("PNG: RGB to grayscale is not supported");
-  const int bpp = color == 0 ? 1 : 3;
-  const size_t stride = (size_t)width * bpp;
+  if (color == 3 && !have_plte) {
+    throw Fault(std::string("PNG PLTE: missing for ") + what);
+  }
+  const bool colour = color & 2;
+  if (gray && colour && depth == 16 && png_gamma_significant(gamma ? gamma : 100000)) {
+    fail("PNG gAMA: 16-bit RGB to grayscale under a file gamma is not "
+         "supported");
+  }
+  const int spp = kSamples[color], bits = spp * depth;
+  const int bpp = bits < 8 ? 1 : bits / 8;  // the filters' bytes per pixel
+  const int npass = interlace ? 7 : 1;
+  int pass[7][4] = {{0, 0, 1, 1}};
+  if (interlace) std::memcpy(pass, kAdam7, sizeof pass);
+  size_t need = 0;  // filter bytes and rows of every non-empty pass
+  int pw[7], ph[7];
+  for (int k = 0; k < npass; ++k) {
+    pw[k] = (int)(((long long)width - pass[k][0] + pass[k][2] - 1) / pass[k][2]);
+    ph[k] = (int)(((long long)height - pass[k][1] + pass[k][3] - 1) / pass[k][3]);
+    if (pw[k] > 0 && ph[k] > 0) {
+      need += (size_t)ph[k] * (1 + ((size_t)pw[k] * bits + 7) / 8);
+    }
+  }
   std::vector<uint8_t> raw;
   try {
-    raw = cris::zlib_inflate(idat.data(), idat.size(),
-                             (size_t)height * (stride + 1));
+    raw = cris::zlib_inflate(idat.data(), idat.size(), need);
   } catch (const Fault& f) {
     throw Fault(std::string("PNG IDAT: ") + f.what());
   }
+  if (raw.size() < need) {
+    throw Fault(std::string("PNG IDAT: not enough image data for ") + what);
+  }
+
   cris::Image img;
   img.height = (int)height;
   img.width = (int)width;
   img.channels = gray ? 1 : 3;
-  std::vector<uint8_t> rows((size_t)height * stride);
-  png_unfilter(raw.data(), raw.size(), (int)height, (int)width, bpp,
-               rows.data());
-  if (bpp == img.channels) {
-    img.pixels.swap(rows);
-    if (bpp == 3) {  // RGB -> BGR
-      uint8_t* p = img.pixels.data();
-      for (size_t i = 0; i < (size_t)width * height; ++i) {
-        uint8_t r = p[3 * i];
-        p[3 * i] = p[3 * i + 2];
-        p[3 * i + 2] = r;
+  img.pixels.resize((size_t)width * height * img.channels);
+  const RgbToGray to_gray(gamma);
+  const unsigned low_scale = depth < 8 ? 255 / ((1 << depth) - 1) : 1;
+  auto sample = [&](const uint8_t* row, size_t j) -> uint32_t {
+    if (depth == 8) return row[j];
+    if (depth == 16) return (uint32_t)row[2 * j] << 8 | row[2 * j + 1];
+    const int per = 8 / depth, shift = 8 - depth * (int)(j % per + 1);
+    return (row[j / per] >> shift) & ((1u << depth) - 1);
+  };
+  const uint8_t* src = raw.data();
+  std::vector<uint8_t> prev, cur;
+  for (int k = 0; k < npass; ++k) {
+    if (pw[k] <= 0 || ph[k] <= 0) continue;
+    const size_t stride = ((size_t)pw[k] * bits + 7) / 8;
+    prev.assign(stride, 0);
+    cur.assign(stride, 0);
+    for (int r = 0; r < ph[k]; ++r, src += stride + 1) {
+      png_unfilter_row(src + 1, src[0], prev.data(), stride, bpp, r, cur.data());
+      const int y = pass[k][1] + r * pass[k][3];
+      for (int i = 0; i < pw[k]; ++i) {
+        const int x = pass[k][0] + i * pass[k][2];
+        uint8_t* o = &img.pixels[((size_t)y * width + x) * img.channels];
+        const size_t j = (size_t)i * spp;
+        if (!colour) {  // gray or gray + alpha
+          uint32_t v = sample(cur.data(), j);
+          v = depth == 16 ? v >> 8 : v * low_scale;
+          o[0] = (uint8_t)v;
+          if (!gray) o[1] = o[2] = (uint8_t)v;
+          continue;
+        }
+        uint32_t rgb[3];
+        if (color == 3) {
+          const uint8_t* p = palette[sample(cur.data(), j)];
+          rgb[0] = p[0], rgb[1] = p[1], rgb[2] = p[2];
+        } else {
+          for (int c = 0; c < 3; ++c) rgb[c] = sample(cur.data(), j + c);
+        }
+        if (gray) {
+          o[0] = depth == 16 ? rgb16_to_gray(rgb[0], rgb[1], rgb[2])
+                             : to_gray(rgb[0], rgb[1], rgb[2]);
+        } else {
+          const int shift = depth == 16 ? 8 : 0;
+          for (int c = 0; c < 3; ++c) o[2 - c] = (uint8_t)(rgb[c] >> shift);
+        }
       }
+      prev.swap(cur);
     }
-    return img;
   }
-  img.pixels.resize((size_t)width * height * 3);  // gray -> BGR
-  for (size_t i = 0; i < (size_t)width * height; ++i) {
-    img.pixels[3 * i] = img.pixels[3 * i + 1] = img.pixels[3 * i + 2] = rows[i];
-  }
+  if (exif) apply_orientation(img, exif_orientation_tiff(exif, exif_len));
   return img;
 }
 

@@ -2,18 +2,29 @@
 
 ``decode_image`` and ``decode_mask`` are the port's ``cv2.imdecode`` with
 ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``: the format is sniffed from the
-bytes, a JPEG's EXIF orientation is applied as OpenCV applies it, and the
-output is BGR (gray replicated to 3 channels) or gray uint8.
+bytes, an EXIF orientation (a JPEG's APP1, a PNG's eXIf) is applied as
+OpenCV applies it, and the output is BGR (gray replicated to 3 channels)
+or gray uint8. ``csrc/image_codec.cc`` decodes along the libraries behind
+OpenCV (libjpeg-turbo, libpng), so the pixels equal ``cv2.imdecode``'s
+bit for bit.
 
-- JPEG: baseline and extended-sequential Huffman frames (SOF0/SOF1), 1 or
-  3 components, 4:4:4, 4:2:2 and 4:2:0 sampling, restart intervals.
-  ``csrc/image_codec.cc`` decodes them along libjpeg-turbo's default path,
-  so the pixels equal OpenCV's bit for bit. Anything else (progressive,
-  arithmetic-coded, 12-bit, CMYK, corrupt data) raises ``ValueError``
-  naming the marker or the fault.
-- PNG: 8-bit gray and RGB, not interlaced. The same library walks the
-  chunks (an ancillary chunk with a bad CRC is dropped, a critical one
-  raises), inflates the data and undoes the row filters.
+- JPEG: Huffman-coded baseline, extended-sequential and progressive frames
+  (SOF0, SOF1, SOF2), 8-bit, 1 or 3 components, 4:4:4, 4:2:2 and 4:2:0
+  sampling, restart intervals. Refused with a ``ValueError`` naming the
+  marker or the fault: arithmetic-coded, lossless, hierarchical and 12-bit
+  frames, CMYK / YCCK and RGB-coded files, a progressive file whose scans
+  leave low-frequency coefficients approximate (libjpeg would smooth
+  them), corrupt or truncated data.
+- PNG: colour types 0, 2, 3, 4 and 6 at every bit depth PNG allows (1, 2,
+  4, 8, 16), with or without Adam7 interlace, with or without tRNS: the
+  palette expanded, low depths scaled to 8 bits, 16 bits cut to their high
+  byte, alpha dropped without compositing, colour turned to gray under
+  ``IMREAD_GRAYSCALE`` by libpng's fixed-point weights (and its gamma
+  tables when gAMA or sRGB gives a file gamma). The chunk walk drops an
+  ancillary chunk with a bad CRC and refuses a critical one, or a critical
+  chunk other than IHDR, PLTE, IDAT and IEND. Refused: 16-bit colour read
+  as gray under a file gamma.
+- Any other format (WebP, BMP, TIFF, JPEG 2000, AVIF, ...) is refused.
 
 ``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
 with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
@@ -158,7 +169,7 @@ def decode_image(buf) -> np.ndarray:
 
 
 def decode_mask(buf) -> np.ndarray:
-    """JPEG or gray PNG bytes -> (H, W) uint8, as ``cv2.imdecode`` with
+    """JPEG or PNG bytes -> (H, W) uint8, as ``cv2.imdecode`` with
     ``IMREAD_GRAYSCALE`` gives it."""
     return _decode(buf, gray=True)
 

@@ -1,25 +1,46 @@
-"""Warm predictor: the model and tokenizer stay resident across requests
-(counterpart of cris_tpu/serving.py:43-48,65-186).
+"""Warm predictor and its HTTP front: the model and tokenizer stay
+resident across requests (counterpart of cris_tpu/serving.py).
 
-Request flow per (image, N sentences): one letterbox warp, one tokenize,
-device batches padded to the next bucket >= N (the JAX package's static
-shapes; here they bound the shapes the card sees), one inverse warp per
-sentence. By default the service folds BatchNorm into the convs once at
-construction and pre-resizes the attnpool embedding to the input grid,
-as the JAX package serves; ``fused_bottleneck`` and ``fused_stem`` turn
-on K5 and K7 on that folded model. The HTTP front comes later.
+- ``PredictService``: request flow per (image, N sentences): one letterbox
+  warp, one tokenize, device batches padded to the next bucket >= N (the
+  JAX package's static shapes; here they bound the shapes the card sees),
+  one inverse warp per sentence. By default the service folds BatchNorm
+  into the convs once at construction and pre-resizes the attnpool
+  embedding to the input grid, as the JAX package serves;
+  ``fused_bottleneck`` and ``fused_stem`` turn on K5 and K7 on that
+  folded model.
+- ``make_server`` / ``serve``: a stdlib ThreadingHTTPServer with the JAX
+  front's routes, request keys and reply JSON (``python3 -m
+  cris_tpu_torch.serve``):
+
+      GET  /healthz, /health -> {"status": "ok", "input_size": ...}
+      POST /predict  <- {"image_b64" | "image_path", "sentence" |
+                         "sentences": [...], "format": "png_b64" | "rle"}
+                     -> {"height", "width", "results": [{"sentence",
+                         "foreground_px", "mask_png_b64" | "rle"}]}
+
+  Uploads are decoded by ``data.codec.decode_image`` (``cv2.imdecode``'s
+  bits for JPEG and PNG). A request without an image or a sentence, an
+  unreadable ``image_path``, or bytes the decoder refuses get 400 (the
+  decoder's message in ``error``); any other failure 500; another route
+  404. Requests are handled on threads of their own; their device
+  batches run one at a time on the service's one device thread.
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import os
-import threading
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .checkpoint import BEST_NAME, fold_batchnorm, load_cris_checkpoint
+from .data.codec import decode_image, encode_png
 from .data.transforms import (get_transform_mats, inverse_warp_prediction,
                               normalize_image, warp_image)
 from .engine import EVAL_THRESHOLD, Evaluator
@@ -34,6 +55,19 @@ def _buckets(max_batch: int) -> List[int]:
         out.append(b)
         b *= 2
     return out + [max_batch]
+
+
+def encode_rle(mask: np.ndarray) -> Dict[str, Any]:
+    """Binary (h, w) mask -> COCO uncompressed RLE (column-major runs
+    starting with zeros), as cris_tpu/serving.py:51-63 writes it."""
+    h, w = mask.shape
+    flat = np.asarray(mask, bool).T.reshape(-1)  # column-major
+    change = np.flatnonzero(np.diff(flat)) + 1
+    bounds = np.concatenate(([0], change, [flat.size]))
+    counts = np.diff(bounds).tolist()
+    if flat.size and flat[0]:  # runs must start with a zero-run
+        counts = [0] + counts
+    return {"counts": counts, "size": [int(h), int(w)]}
 
 
 class PredictService:
@@ -66,7 +100,13 @@ class PredictService:
         self.input_size = int(cfg.input_size)
         self.word_len = int(cfg.word_len)
         self.max_batch = int(max_batch)
-        self._lock = threading.Lock()  # one device batch at a time
+        # One device batch at a time, always on this one thread: PyTorch
+        # keeps cuDNN's execution plans per thread, so a batch on a thread
+        # that never ran one (each request's thread, under the HTTP
+        # front's ThreadingHTTPServer) builds them all again
+        # (chip_smoke.py phase 17(b) times both).
+        self._device_thread = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="predict-device")
         if state_dict is None:
             model_dir = model_dir or os.path.join(cfg.output_folder,
                                                   cfg.exp_name)
@@ -99,7 +139,12 @@ class PredictService:
         for b in _buckets(self.max_batch):
             img = np.zeros((b, 3, size, size), np.float32)
             word = np.zeros((b, self.word_len), np.int64)
-            self.evaluator.predict_probs(img, word)
+            self._device_batch(img, word)
+
+    def _device_batch(self, image: np.ndarray, word: np.ndarray) -> np.ndarray:
+        """``Evaluator.predict_probs`` on the service's device thread."""
+        return self._device_thread.submit(self.evaluator.predict_probs,
+                                          image, word).result()
 
     def predict(self, image_bgr: np.ndarray, sentences: Sequence[str],
                 threshold: float = EVAL_THRESHOLD) -> List[Dict[str, Any]]:
@@ -121,8 +166,7 @@ class PredictService:
             images = np.repeat(net_in[None], b, axis=0)
             word_batch = np.zeros((b, self.word_len), chunk.dtype)
             word_batch[:n] = chunk
-            with self._lock:
-                probs = self.evaluator.predict_probs(images, word_batch)
+            probs = self._device_batch(images, word_batch)
             for i in range(n):
                 warped = inverse_warp_prediction(probs[i], inv, rgb.shape[:2])
                 mask = warped > threshold
@@ -130,3 +174,98 @@ class PredictService:
                                 "mask": mask,
                                 "foreground_px": int(mask.sum())})
         return results
+
+
+class _Handler(BaseHTTPRequestHandler):
+    service: PredictService = None  # class attribute, set by make_server
+
+    def log_message(self, fmt, *args):  # to the package logger, not stderr
+        logger.info("serve: " + fmt % args)
+
+    def _reply(self, code: int, payload: Dict[str, Any]) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path in ("/healthz", "/health"):
+            self._reply(200, {"status": "ok",
+                              "input_size": self.service.input_size})
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def do_POST(self):
+        if self.path != "/predict":
+            self._reply(404, {"error": f"no route {self.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            buf = self._image_bytes(req)
+            image = None
+            if buf is not None:
+                try:
+                    image = decode_image(buf)
+                except ValueError as e:  # the decoder refused the bytes
+                    self._reply(400, {"error": str(e)})
+                    return
+            sents = req.get("sentences") or (
+                [req["sentence"]] if req.get("sentence") else [])
+            if image is None or not sents:
+                self._reply(400, {"error": "need image_b64|image_path and "
+                                           "sentence|sentences"})
+                return
+            fmt = req.get("format", "png_b64")
+            out = []
+            for r in self.service.predict(image, sents):
+                entry = {"sentence": r["sentence"],
+                         "foreground_px": r["foreground_px"]}
+                if fmt == "rle":
+                    entry["rle"] = encode_rle(r["mask"])
+                else:
+                    png = encode_png(r["mask"].astype(np.uint8) * 255)
+                    entry["mask_png_b64"] = base64.b64encode(png).decode()
+                out.append(entry)
+            self._reply(200, {"height": int(image.shape[0]),
+                              "width": int(image.shape[1]),
+                              "results": out})
+        except Exception as e:  # noqa: BLE001 -- serving must not die
+            logger.warning(f"serve: request failed: {e!r}")
+            self._reply(500, {"error": repr(e)})
+
+    @staticmethod
+    def _image_bytes(req) -> Optional[bytes]:
+        """The request's image bytes; None without an image or when
+        ``image_path`` cannot be read (``cv2.imread`` gives None there)."""
+        if req.get("image_b64"):
+            return base64.b64decode(req["image_b64"])
+        if req.get("image_path"):
+            try:
+                with open(req["image_path"], "rb") as f:
+                    return f.read()
+            except OSError:
+                return None
+        return None
+
+
+def make_server(service: PredictService, host: str = "127.0.0.1",
+                port: int = 8080) -> ThreadingHTTPServer:
+    """The HTTP server, built but not started (the caller owns
+    ``serve_forever``; port 0 takes a free port)."""
+    handler = type("BoundHandler", (_Handler,), {"service": service})
+    return ThreadingHTTPServer((host, port), handler)
+
+
+def serve(service: PredictService, host: str = "127.0.0.1",
+          port: int = 8080) -> None:
+    server = make_server(service, host, port)
+    logger.info(f"serving on http://{host}:{server.server_address[1]}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()

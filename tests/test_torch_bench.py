@@ -6,8 +6,9 @@
   model) equals the JAX expression that ``bench.py:174-182`` scans
   (``model.apply`` on the JAX-folded weights, ``jax.nn.sigmoid``,
   ``resize2d`` bicubic with ``align_corners``) at 1e-4, in f32.
-- The marginal rate and its refusal, the seeded batch makers, and
-  ``decide``'s rules on made-up turns.
+- The marginal rate and its refusal, a turn retried on a clock whose long
+  loop was not slower, the seeded batch makers, and ``decide``'s rules on
+  made-up turns.
 - ``bench.main`` and ``latency.main`` end to end with ``--device cpu``,
   and their default device, the card, which this machine lacks.
 """
@@ -152,6 +153,43 @@ def test_measure_takes_the_marginal_rate_of_a_timed_loop():
     assert 100 < out["value"] < 220
     assert out["spread"] == pytest.approx(
         (max(out["trials"]) - min(out["trials"])) / out["value"])
+
+
+def _fake_clock(monkeypatch, seconds):
+    """bench.timed replaced by a clock that gives ``seconds(n, call)`` for
+    the call-th loop (from 0) of n batches; returns the calls' lengths."""
+    calls = []
+
+    def timed(run, batches, device):
+        calls.append(len(batches))
+        return seconds(len(batches), len(calls) - 1), torch.zeros(())
+
+    monkeypatch.setattr(bench, "timed", timed)
+    return calls
+
+
+def test_measure_retries_a_turn_whose_long_loop_was_not_slower(monkeypatch):
+    """The first trial's long loop (6 batches) takes no longer than its
+    short one (2 batches), as on a loaded host: the turn times both again
+    and keeps each length's minimum, so the metric still comes out, at
+    4 x (6 - 2) / (1.5 - 1.0) = 32 images a second."""
+    script = {2: 2.0, 3: 1.5, 4: 1.0, 5: 3.0}  # after the two warm-up loops
+    calls = _fake_clock(monkeypatch, lambda n, i: script.get(i, 1.0 + n / 4))
+    out = bench.measure(None, [None] * 2, [None] * 6, 4, 2,
+                        torch.device("cpu"))
+    assert out["trials"][0] == pytest.approx(32.0)
+    assert out["trials"][1] == pytest.approx(4 * 4 / 1.0)
+    assert out["value"] > 0
+    assert calls == [2, 6] + [2, 6] * 2 + [2, 6]
+
+
+def test_measure_still_refuses_a_flat_clock(monkeypatch):
+    """A long loop that is never slower: the turn tries ATTEMPTS times and
+    then refuses, as marginal_rate does."""
+    calls = _fake_clock(monkeypatch, lambda n, i: 1.0)
+    with pytest.raises(ValueError, match="no marginal rate"):
+        bench.measure(None, [None] * 2, [None] * 6, 4, 3, torch.device("cpu"))
+    assert calls == [2, 6] * (1 + bench.ATTEMPTS)
 
 
 def test_measure_refuses_non_finite_output():

@@ -182,7 +182,10 @@ def test_host_bench_paths_agree():
 
 
 def _progressive():
-    return _jpeg(_photo(16, 24, seed=2), 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
+    """A progressive JPEG cut in the middle of its third scan."""
+    buf = _jpeg(_photo(16, 24, seed=2), 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
+    sos = [i for i in range(len(buf) - 1) if buf[i:i + 2] == b"\xff\xda"]
+    return buf[: (sos[2] + sos[3]) // 2]
 
 
 def _corrupt_png():

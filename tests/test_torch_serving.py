@@ -256,6 +256,7 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.data.records, cris_tpu_torch.data.synthetic\n"
         "import cris_tpu_torch.engine.evaluator, cris_tpu_torch.engine.metrics\n"
         "import cris_tpu_torch.cli, cris_tpu_torch.test\n"
+        "import cris_tpu_torch.serve, cris_tpu_torch.predict\n"
         "import cris_tpu_torch.train, cris_tpu_torch.checkpoint.pth\n"
         "import cris_tpu_torch.checkpoint.torch_convert\n"
         "import cris_tpu_torch.utils.seed, cris_tpu_torch.utils.profiling\n"

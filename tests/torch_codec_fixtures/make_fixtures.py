@@ -1,0 +1,94 @@
+"""Write the decoder fixtures that ``chip_smoke.py`` phase 17 decodes on
+the card's machine (which has no OpenCV), and the digests OpenCV gives.
+
+    python3 tests/torch_codec_fixtures/make_fixtures.py
+
+Needs cv2, PIL and pytest (the Adam7 writer of
+``tests/test_torch_codec_formats.py``). Writes beside this script:
+
+- ``progressive_420_640x480.jpg``: a 640 x 480 progressive 4:2:0 JPEG
+  (libjpeg's default script, quality 90) of the bench's first test image
+  (``data/host_bench.draw_test_images(1, seed=0)``), and
+  ``baseline_420_640x480.jpg``, the same image as baseline JPEG;
+- ``rgba_160x120.png`` (8-bit RGBA), ``palette_160x120.png`` (4-bit
+  palette with a tRNS), ``gray16_160x120.png`` (16-bit gray) and
+  ``adam7_rgb_160x120.png`` (8-bit RGB, Adam7), from the same image at
+  half size;
+- ``digests.json``: for each file, the shape and the sha256 of the pixel
+  bytes of ``cv2.imdecode`` under IMREAD_COLOR ("color") and
+  IMREAD_GRAYSCALE ("gray"), with the OpenCV version.
+
+``tests/test_torch_codec_formats.py::test_committed_fixtures_match_their_digests``
+holds the committed files to the digests and to cv2.imdecode.
+"""
+
+import hashlib
+import io
+import json
+import os
+import sys
+
+import cv2
+import numpy as np
+from PIL import Image
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+
+sys.path.insert(0, os.path.dirname(HERE))
+
+from cris_tpu_torch.data.host_bench import draw_test_images  # noqa: E402
+from test_torch_codec_formats import _png  # noqa: E402  (writes Adam7)
+
+
+def digest(img: np.ndarray) -> dict:
+    return {"shape": list(img.shape),
+            "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
+            .hexdigest()}
+
+
+def files() -> dict:
+    bgr, _ = next(draw_test_images(1, seed=0))
+    out = {}
+    for name, progressive in (("progressive_420_640x480.jpg", 1),
+                              ("baseline_420_640x480.jpg", 0)):
+        out[name] = cv2.imencode(".jpg", bgr, [
+            cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE,
+            progressive, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+    small = cv2.resize(bgr, (160, 120), interpolation=cv2.INTER_AREA)
+    yy, xx = np.mgrid[0:120, 0:160]
+    alpha = ((xx + yy) % 256).astype(np.uint8)
+    out["rgba_160x120.png"] = cv2.imencode(
+        ".png", np.dstack([small, alpha]))[1].tobytes()
+    rgb = Image.fromarray(small[:, :, ::-1].copy())
+    buf = io.BytesIO()
+    palette = rgb.quantize(16)
+    palette.info["transparency"] = bytes(range(0, 256, 32))
+    palette.save(buf, "PNG", bits=4, transparency=bytes(range(0, 256, 32)))
+    out["palette_160x120.png"] = buf.getvalue()
+    gray16 = cv2.cvtColor(small, cv2.COLOR_BGR2GRAY).astype(np.uint16) * 257
+    gray16 += (xx * 300).astype(np.uint16)
+    out["gray16_160x120.png"] = cv2.imencode(".png", gray16)[1].tobytes()
+    out["adam7_rgb_160x120.png"] = _png(small[:, :, ::-1], 2, 8,
+                                        interlace=True)
+    return out
+
+
+def main():
+    table = {"opencv": cv2.__version__, "files": {}}
+    for name, data in files().items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+        arr = np.frombuffer(data, np.uint8)
+        table["files"][name] = {
+            "color": digest(cv2.imdecode(arr, cv2.IMREAD_COLOR)),
+            "gray": digest(cv2.imdecode(arr, cv2.IMREAD_GRAYSCALE))}
+        print(f"{name}: {len(data)} bytes")
+    with open(os.path.join(HERE, "digests.json"), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    main()
