@@ -215,6 +215,32 @@ Phases (any failure raises, and the script exits non-zero):
    cris_tpu_torch.predict at R50 on the card with the same weights: two
    masks (0 / 255, the image's size) and two overlays, each the JPEG of
    its mask's blend.
+18. int8 serving (precision int8: bf16 with the three graph rewrites and
+   the int8 sites on K8, cris_tpu_torch/csrc/int8_conv.cu): (b) python3 -m
+   cris_tpu_torch.quantize over synthetic://32 at R50 seed-0 weights (2
+   batches of 16, the default gates: plain-conv sites at 64 channels,
+   pooled and upfold ones at 256) writes quant_scales.npz; PredictService
+   at precision int8 loads it (every site of the file engaged) and
+   answers 3 requests (1, 5, 16 sentences): K8 at every engaged site of
+   each device batch (a phase site four times), K1 7 a batch on the
+   tensor cores, the plain version never called, the request times, and
+   the masks' IoU against the bf16 service's on the same weights; (a)
+   K8 against its plain version at every int8 site shape of that B 16
+   forward (the input's dtype and memory layout as the model hands it
+   over), bit-equal, a flipped weight bit caught at each, with CUDA-event
+   times of K8 (on the device alone and back to back), the plain
+   version, cuDNN's bf16 conv of the shape and torch._int_mm at the 1x1
+   sites, and the bound (bytes over 3.35 TB/s or operations over 1,979
+   int8 TOPS); (c) the R50 int8 forward at f32 compute (no autocast) on
+   the card against the CPU's, whose int8 convs are the plain version, on
+   the same scales: the share of int8 levels that differ at the sites and
+   the logits' relative L2 under bars set from the measured flip rates,
+   and a planted fault (one site's scale x 1.05) that exceeds them; (d)
+   the bench at short lengths (n1 2, n2 4, 2 trials): the R50 bf16 eval
+   metric, the int8 pair (cris_r50_eval_int8_throughput_416px_b32, _b16)
+   with K8's launches per batch, --ab rewrites at one round, and each
+   rewrite against the reference order at its b16 shapes (the stem,
+   layer2_0, the four upsample folds in both up-core forms).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -238,6 +264,8 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # gloo ranks, torchrun over NCCL
     python3 chip_smoke.py --phases 17     # the decoder fixtures, the HTTP
                                           # front, the predict entry
+    python3 chip_smoke.py --phases 18     # int8 serving: quantize, K8 at
+                                          # every site, f32 card vs CPU
 """
 
 import argparse
@@ -3131,6 +3159,458 @@ def phase_front(k1):
             "predict_entry_s": predict_s, "card": card}
 
 
+# phase 18: int8 serving. K8's bound: the card's dense int8 tensor-core
+# rate (NVIDIA's data sheet, H100 SXM), and HBM_BYTES_PER_S
+INT8_OPS_PER_S = 1979e12
+# (c)'s free-running bars, set from the flip rates measured on the card
+# (PERF.md §6: 6.3e-2 of the levels and 0.13 rel L2 at seed 0, from
+# f32 rounding at the first flip cascading through 78 int8 sites), about
+# twice the measurement: the share of int8 levels that differ between
+# the card's f32 forward and the CPU's, and the logits' relative L2. The
+# teacher-forced replay is exact.
+INT8_FLIP_BAR = 0.15
+INT8_LOGIT_BAR = 0.3
+# (c)'s planted fault: one site's scale off by 5% on the card
+INT8_FAULT_SITE = "backbone.visual.layer3.0.conv2"
+INT8_FAULT_SCALE = 1.05
+PHASE_SITES = ("f2_cat.0", "aggr.0", "vis.1.0", "vis.3.0")
+
+
+@contextlib.contextmanager
+def _k8_calls(layers_mod, record):
+    """models.layers' K8 wrapper patched to pass every call's arguments to
+    ``record`` before launching it."""
+    real = layers_mod.int8_conv
+
+    def recorded(x, wq, k_scale, act_scale, bias=None, stride=1,
+                 padding=((0, 0), (0, 0)), relu=False, out_dtype=None,
+                 out=None):
+        record(x, wq, k_scale, act_scale, bias, stride, padding, relu,
+               out_dtype, out)
+        return real(x, wq, k_scale, act_scale, bias, stride, padding, relu,
+                    out_dtype, out)
+
+    layers_mod.int8_conv = recorded
+    try:
+        yield
+    finally:
+        layers_mod.int8_conv = real
+
+
+def _site_signature(x, wq, stride, padding, relu, bias, out_dtype, out):
+    return (tuple(x.shape), str(x.dtype).replace("torch.", ""),
+            "nhwc" if x.stride(3) == 1 else "nchw", tuple(wq.shape), stride,
+            tuple(map(tuple, padding)), bool(relu), bias is not None,
+            str(out_dtype).replace("torch.", ""), out is not None)
+
+
+def _int8_site_row(sig, n, plain):
+    """K8 at one site shape against its plain version (bit-equal, a
+    planted fault caught), with CUDA-event times of K8, the plain
+    version, cuDNN's bf16 conv and, at the 1x1 sites, torch._int_mm."""
+    from cris_tpu_torch.ops.kernels import int8_conv
+
+    shape, dtype, layout, wshape, stride, pads, relu, has_bias, odt, strided \
+        = sig
+    b, h, w, c = shape
+    kh, kw, _, co = wshape
+    gen = torch.Generator(device="cuda").manual_seed(hash(sig) % 2 ** 31)
+    dt, out_dt = getattr(torch, dtype), getattr(torch, odt)
+    x = torch.randn(b, c, h, w, device="cuda", generator=gen).to(dt)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    xn = x.permute(0, 2, 3, 1)
+    wq = torch.randint(-127, 128, wshape, device="cuda", generator=gen,
+                       dtype=torch.int8)
+    ks = torch.rand(co, device="cuda", generator=gen) * 1e-2 + 1e-3
+    bias = (torch.randn(co, device="cuda", generator=gen) if has_bias
+            else None)
+    s = torch.tensor([0.05], device="cuda")
+    (pt, pb), (pl, pr) = pads
+    ho, wo = (h + pt + pb - kh) // stride + 1, (w + pl + pr - kw) // stride + 1
+    out = (torch.empty(b, 2 * ho, 2 * wo, co, device="cuda", dtype=out_dt)
+           [:, 1::2, ::2] if strided else None)
+    args = (ks, s, bias, stride, pads, relu, out_dt)
+
+    def k8():
+        return int8_conv(xn, wq, *args, out=out)
+    got = k8().clone()
+    ref = plain(xn, wq, *args)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref)
+    err = (got.float() - ref.float()).abs().max().item()
+    bad = wq.clone()
+    bad.view(-1)[:1] ^= 1
+    caught = not torch.equal(int8_conv(xn, bad, *args, out=out), ref)
+    assert equal, (sig, (got.float() - ref.float()).abs().max().item())
+    assert caught, sig
+    m, k = b * ho * wo, kh * kw * c
+    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * co * 2
+              + m * co * torch.empty((), dtype=out_dt).element_size())
+    mem, ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * k * co / INT8_OPS_PER_S
+    xp = torch.nn.functional.pad(x, (pl, pr, pt, pb))
+    wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16)
+    bb = None if bias is None else bias.to(torch.bfloat16)
+    row = {
+        "site": f"{b}x{h}x{w}x{c} -> {co}, k{kh}x{kw} s{stride} pads {pads}"
+                f" {dtype} {layout}" + (" relu" if relu else "")
+                + (" strided out" if strided else ""),
+        "per_forward": n, "equal": equal, "max_abs_err": err,
+        "planted_fault_caught": caught,
+        "device_ms": device_ms(k8), "ms": cuda_ms(k8),
+        "plain_ms": cuda_ms(lambda: plain(xn, wq, *args), iters=2),
+        "cudnn_bf16_ms": device_ms(lambda: torch.nn.functional.conv2d(
+            xp.to(torch.bfloat16), wb, bb, stride)),
+        "bound_ms": max(mem, ops) * 1e3,
+        "bound_by": "bytes" if mem >= ops else "operations",
+        "int_mm_ms": None}
+    if kh == kw == 1 and stride == 1 and pads == ((0, 0), (0, 0)):
+        xq = (xn.float() / s).round().clamp(-127, 127).to(torch.int8)
+        a = xq.reshape(m, c).contiguous()
+        bm = wq.reshape(c, co).t().contiguous().t()
+        try:
+            acc = torch._int_mm(a, bm)
+            assert torch.equal(acc.double(), a.double() @ bm.double())
+            row["int_mm_ms"] = device_ms(lambda: torch._int_mm(a, bm))
+        except RuntimeError as e:  # the library refuses the shape
+            row["int_mm_error"] = str(e)[:120]
+    print(f"18(a) K8 {row['site']} x{n} a forward: equal {equal}, fault "
+          f"caught {caught}; {row['device_ms']:.4f} ms on the device "
+          f"({row['ms']:.4f} back to back), plain {row['plain_ms']:.2f}, "
+          f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f}, _int_mm "
+          f"{row['int_mm_ms']}, bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+def _rewrite_parts(bench, cfg, b=16):
+    """Each bf16 graph rewrite against the reference order at the R50
+    shapes of a b16 forward, under bf16 autocast on the folded seed-0
+    model: CUDA-event ms back to back (host launches included: several
+    parts enqueue more slowly than the card runs them). The stem
+    (s2d against the three convs and the pool), layer2_0 (fused pools
+    against the standalone ones) and the four upsample folds in each
+    up-core form against upsample2x + the conv."""
+    from cris_tpu_torch.ops import upsample_conv
+
+    model = bench.eval_model(cfg, torch.device("cuda"),
+                             bench.folded_state(cfg), rewrites=True)
+    vis, neck, proj = model.backbone.visual, model.neck, model.proj
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(b, *shape, device="cuda", generator=gen)
+
+    img, x104 = randn(3, 416, 416), randn(256, 104, 104)
+    x26, x52 = randn(512, 26, 26), randn(512, 52, 52)
+    f5, f4, fq = randn(1024, 13, 13), randn(512, 26, 26), randn(512, 13, 13)
+    parts = {
+        "stem": (lambda: vis.stem(img), vis, "rewrites"),
+        "layer2_0": (lambda: vis.layer2[0](x104), vis.layer2[0],
+                     "fuse_pool"),
+        "proj vis_conv1 26->52": (lambda: proj.vis[1](x26), proj.vis[1],
+                                  "fuse"),
+        "proj vis_conv2 52->104": (lambda: proj.vis[3](x52), proj.vis[3],
+                                   "fuse"),
+        "neck f2_cat 13->26": (lambda: neck.f2_cat([f4], f5), neck.f2_cat,
+                               "fuse"),
+        "neck aggr 13->26": (lambda: neck.aggr([f4, f4], fq), neck.aggr,
+                             "fuse"),
+    }
+    rows = []
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for name, (fn, mod, flag) in parts.items():
+            forms = [("off", False, None), ("on", True, None)]
+            if flag == "fuse":
+                forms = [("off", False, None), ("on, transpose core", True,
+                                               "transpose"),
+                         ("on, phase core", True, "phase")]
+            for form, on, core in forms:
+                setattr(mod, flag, on)
+                if core:
+                    upsample_conv.UP_CORE = core
+                rows.append({"part": name, "form": form,
+                             "ms": cuda_ms(fn, iters=10)})
+            setattr(mod, flag, True)
+            upsample_conv.UP_CORE = "transpose"
+    for r in rows:
+        print(f"18(d) rewrite part {r['part']}, {r['form']}: "
+              f"{r['ms']:.4f} ms back to back (b{b} bf16)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8(k1, k8):
+    """18: int8 serving. (b) python3 -m cris_tpu_torch.quantize over
+    synthetic:// at R50 seed-0 weights, then PredictService at precision
+    int8 answering 3 requests (K8 at every engaged site a device batch,
+    K1 7, never the plain version), its masks against the bf16
+    service's; (a) K8 against its plain version at every int8 site shape
+    of the B 16 forward; (c) the R50 int8 forward at f32 on the card
+    against the CPU's plain int8 forward on the same scales, with a
+    planted fault; (d) the bench's int8 pair, its bf16 eval metric and
+    the rewrites' A/B at short lengths."""
+    import importlib
+
+    from cris_tpu_torch import bench, quantize
+    from cris_tpu_torch.checkpoint import (attach_act_scales,
+                                           fold_batchnorm, load_act_scales,
+                                           load_cris_checkpoint)
+    from cris_tpu_torch.models import build_segmenter, int8_sites
+    from cris_tpu_torch.models import layers as layers_mod
+    from cris_tpu_torch.serving import PredictService
+    from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
+
+    k8mod = importlib.import_module("cris_tpu_torch.ops.kernels.int8_conv")
+    plain = k8mod.int8_conv_plain
+    plain_calls = []
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+
+    k8mod.int8_conv_plain = counted_plain
+    out, t_phase = {}, time.perf_counter()
+    cfg = cris_r50_refcoco()
+    cfg8 = copy.deepcopy(cfg)
+    cfg8.precision = "int8"
+    tmp = tempfile.mkdtemp()
+    try:
+        out_dir = os.path.join(tmp, cfg.exp_name)
+        os.makedirs(out_dir)
+        weights = os.path.join(out_dir, "best_model.pth")
+        torch.save({"state_dict": build_segmenter(cfg, device="cpu",
+                                                  seed=0).state_dict()},
+                   weights)
+        t0 = time.perf_counter()
+        path = quantize.main([
+            "--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+            "--batches", "2", "--batch-size", "16", "--opts",
+            "TRAIN.output_folder", tmp, "DATA.val_lmdb",
+            "synthetic://32?seed=0", "DATA.mask_root", ""])
+        _close_log()
+        quantize_s = time.perf_counter() - t0
+        scales, gates = load_act_scales(path)
+        per_batch = sum(4 if n.endswith(PHASE_SITES) else 1 for n in scales)
+        print(f"18(b) python3 -m cris_tpu_torch.quantize (synthetic://32, "
+              f"R50 seed 0, 2 x 16, bf16) wrote {len(scales)} scales, gates "
+              f"{gates}, in {quantize_s:.1f} s; {per_batch} K8 launches a "
+              f"device batch expected", flush=True)
+        svc8 = PredictService(cfg8, device="cuda", max_batch=16,
+                              model_dir=out_dir)
+        assert svc8.act_scales == len(scales), (svc8.act_scales, len(scales))
+        engaged = {n for n, m in int8_sites(svc8.model).items()
+                   if m.act_scale is not None}
+        assert engaged == set(scales), engaged ^ set(scales)
+        rng = np.random.RandomState(0)
+        words = ["the", "man", "left", "red", "shirt", "dog", "on", "a"]
+        requests = []
+        for (h, w), n in [((480, 640), 1), ((427, 640), 5), ((640, 480), 16)]:
+            requests.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+                             [" ".join(rng.choice(words, 1 + i % 6))
+                              for i in range(n)]))
+        sigs, latency, masks8 = {}, [], []
+        reset_counts(k1, k8)
+        del plain_calls[:]
+
+        def record(x, wq, k_scale, s, bias, stride, padding, relu,
+                   out_dtype, o):
+            if x.shape[0] == 16:
+                sig = _site_signature(x, wq, stride, padding, relu, bias,
+                                      out_dtype, o)
+                sigs[sig] = sigs.get(sig, 0) + 1
+
+        with _k8_calls(layers_mod, record):
+            for image, sents in requests:
+                t0 = time.perf_counter()
+                res = svc8.predict(image, sents)
+                latency.append((time.perf_counter() - t0) * 1e3)
+                masks8.append([r["mask"] for r in res])
+        launches = {"K8": k8.launches, "K1": k1.launches}
+        k1_routes = dict(k1.launches_by_route)
+        assert launches == {"K8": 3 * per_batch, "K1": 21}, launches
+        assert k1_routes["tensor_cores"] == 21, k1_routes
+        assert not plain_calls, "the plain version ran on the card path"
+        assert sum(sigs.values()) == per_batch, (sum(sigs.values()),
+                                                 per_batch)
+        svc16 = PredictService(cfg, device="cuda", max_batch=16,
+                               model_dir=out_dir)
+        ious = []
+        for (image, sents), m8 in zip(requests, masks8):
+            for a, r in zip(m8, svc16.predict(image, sents)):
+                union = (a | r["mask"]).sum()
+                ious.append(float((a & r["mask"]).sum() / union)
+                            if union else 1.0)
+        print(f"18(b) PredictService precision int8 ({len(scales)} sites "
+              f"with scales): requests of 1, 5, 16 sentences in "
+              f"{', '.join(f'{v:.2f}' for v in latency)} ms; K8 "
+              f"{launches['K8']} launches (3 device batches x {per_batch}), "
+              f"K1 {launches['K1']} by route {k1_routes}, no plain call; "
+              f"masks against the bf16 service's: IoU mean "
+              f"{np.mean(ious):.4f}, min {min(ious):.4f} over {len(ious)}",
+              flush=True)
+        out["serving"] = {"latency_ms": latency, "K8": launches["K8"],
+                          "K1": launches["K1"], "K8_per_batch": per_batch,
+                          "sites": len(scales), "gates": gates,
+                          "iou_vs_bf16_mean": float(np.mean(ious)),
+                          "iou_vs_bf16_min": min(ious),
+                          "quantize_s": quantize_s}
+        del svc16
+
+        # (a) every site shape of the B 16 forward
+        rows = [_int8_site_row(sig, n, plain) for sig, n in sigs.items()]
+        fwd = {key: sum(r[key] * r["per_forward"] for r in rows)
+               for key in ("device_ms", "ms", "plain_ms", "cudnn_bf16_ms",
+                           "bound_ms")}
+        print(f"18(a) K8 at {len(rows)} site shapes, {per_batch} launches a "
+              f"B 16 forward, all bit-equal to the plain version, every "
+              f"planted fault caught; summed over the forward: "
+              f"{fwd['device_ms']:.3f} ms on the device, plain "
+              f"{fwd['plain_ms']:.1f}, cuDNN bf16 {fwd['cudnn_bf16_ms']:.3f},"
+              f" bound {fwd['bound_ms']:.3f}", flush=True)
+        out["sites"], out["forward"] = rows, fwd
+        del svc8
+        torch.cuda.empty_cache()
+
+        # (c) f32 on the card against the CPU's plain int8 forward
+        sd = fold_batchnorm(load_cris_checkpoint(weights), cfg.input_size)
+        gen = torch.Generator().manual_seed(2)
+        img = torch.randn(1, 3, cfg.input_size, cfg.input_size, generator=gen)
+        word = torch.from_numpy(tokenize(["the man in the red shirt"],
+                                         cfg.word_len, True)).long()
+
+        def int8_model(device, scale_fault=1.0):
+            model = build_segmenter(cfg8, device="meta", fold_bn=True,
+                                    pos_grid=cfg.input_size // 32)
+            model.load_state_dict(sd, assign=True)
+            model = model.to(device)
+            attach_act_scales(model, path)
+            if scale_fault != 1.0:
+                site = int8_sites(model)[INT8_FAULT_SITE]
+                site.act_scale = site.act_scale * scale_fault
+            return model
+
+        def forward(model, device):
+            """Logits, and every K8 call in order: its arguments, its
+            input's int8 levels and its output (on the CPU)."""
+            calls = []
+
+            def keep(x, *args):
+                calls.append([x.cpu(), args, k8mod.quantize_static(
+                    x, args[2]).cpu()])
+            with torch.no_grad(), _k8_calls(layers_mod, keep):
+                t0 = time.perf_counter()
+                logits = model(img.to(device), word.to(device)).cpu()
+                seconds = time.perf_counter() - t0
+            return logits, calls, seconds
+
+        def replay(model, calls):
+            """Teacher forcing: each of ``model``'s K8 calls on the CPU
+            forward's input to that call; the sites whose output differs
+            from the CPU's (the plain version's) output."""
+            _, card_calls, _ = forward(model, "cuda")
+            differ = []
+            for i, ((x, args, _), (_, cargs, _)) in enumerate(
+                    zip(calls, card_calls)):
+                wq, ks, s, bias, stride, pads, relu, odt, o = cargs
+                xc = x.cuda()
+                if x.stride(3) == 1:  # channels-last, as the model hands it
+                    xc = xc.permute(0, 3, 1, 2).contiguous(
+                        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+                got = k8(xc, wq, ks, s, bias, stride, pads, relu, odt).cpu()
+                ref = plain(x, *[a.cpu() if torch.is_tensor(a) else a
+                                 for a in args[:3]],
+                            None if bias is None else bias.cpu(), stride,
+                            pads, relu, odt)
+                if not torch.equal(got, ref):
+                    differ.append(i)
+            return differ
+
+        del plain_calls[:]
+        card = int8_model("cuda")
+        got, lv_card, _ = forward(card, "cuda")
+        assert not plain_calls
+        ref, lv_cpu, cpu_s = forward(int8_model("cpu"), "cpu")
+        shares = [float((a[2] != b[2]).float().mean())
+                  for a, b in zip(lv_card, lv_cpu)]
+        total = sum(v[2].numel() for v in lv_cpu)
+        flip = sum(s * v[2].numel() for s, v in zip(shares, lv_cpu)) / total
+        rel = _rel(got, ref)
+        agree = ((got > 0) == (ref > 0)).float().mean().item()
+        first = next((i for i, s in enumerate(shares) if s > 0), None)
+        del plain_calls[:]
+        differ = replay(card, lv_cpu)
+        bad = replay(int8_model("cuda", INT8_FAULT_SCALE), lv_cpu)
+        del card
+        print(f"18(c) R50 int8 at f32, B 1, card against the CPU's plain "
+              f"version (same weights and scales): free-running, "
+              f"{flip * total:.0f} of {total} int8 levels differ "
+              f"({flip:.3e}; bar {INT8_FLIP_BAR}), the first at K8 call "
+              f"{first} of {len(shares)}; per call "
+              f"{['%.1e' % s for s in shares]}; logits rel L2 {rel:.3e} "
+              f"(bar {INT8_LOGIT_BAR}), sign agreement {agree:.4f}; "
+              f"teacher-forced (each card call on the CPU's input to it): "
+              f"{len(differ)} of {len(shares)} calls differ from the plain "
+              f"output; with {INT8_FAULT_SITE}'s scale x {INT8_FAULT_SCALE}"
+              f": calls {bad} differ, caught; CPU forward {cpu_s:.1f} s",
+              flush=True)
+        assert torch.isfinite(got).all()
+        assert flip <= INT8_FLIP_BAR and rel <= INT8_LOGIT_BAR, (flip, rel)
+        assert not differ, differ
+        assert bad, "the planted fault was not caught"
+        out["f32_card_vs_cpu"] = {
+            "flip_share": flip, "levels": total, "first_flip_call": first,
+            "flip_share_per_call": shares, "rel_l2": rel,
+            "sign_agreement": agree, "teacher_forced_differ": differ,
+            "fault_calls_differ": bad}
+        del lv_card, lv_cpu
+        torch.cuda.empty_cache()
+
+        # (d) the bench at short lengths
+        device = torch.device("cuda")
+        n1, n2, trials = 2, 4, 2
+        r50 = bench.config_for(bench.R50)
+        metrics = [("cris_r50_eval_throughput_416px_b32", "eval", r50, 32)] + [
+            (name, "int8", bench.config_for(p), b)
+            for name, p, b in bench.INT8_METRICS]
+        out["bench"], bench_k8 = [], 0
+        for name, step, mcfg, b in metrics:
+            reset_counts(k1, k8)
+            del plain_calls[:]
+            r = bench.run_metric(name, step, mcfg, device, b, n1, n2, trials)
+            bench.free(device)
+            want = per_batch * r["batches"] if step == "int8" else 0
+            assert k8.launches == r["k8_launches"] == want, (
+                name, k8.launches, want)
+            # the int8 model's calibration forwards run K1 too
+            calib = bench.CALIB_BATCHES if step == "int8" else 0
+            assert k1.launches == 7 * (r["batches"] + calib), (
+                name, k1.launches)
+            assert not plain_calls
+            bench_k8 += k8.launches
+            print(f"18(d) bench {name}: {r['value']:.2f} img/s (trials "
+                  f"{['%.2f' % v for v in r['trials']]}, spread "
+                  f"{r['spread']:.4f}), {r['batches']} batches of {b}, K8 "
+                  f"{k8.launches // max(r['batches'], 1)} and K1 7 a batch",
+                  flush=True)
+            out["bench"].append({"metric": name, "batch": b, **r})
+        ab = bench.ab_rewrites(r50, device, 32, n1, n2, rounds=1)
+        bench.free(device)
+        out["ab_rewrites"] = ab
+        out["rewrite_parts"] = _rewrite_parts(bench, r50)
+        out["bench_K8"] = bench_k8
+        print(f"18(d) bench --ab rewrites at one round: median img/s "
+              f"{ab['ab']['median_img_s']}, rewrites on by default: "
+              f"{ab['ab']['rewrites_on']}", flush=True)
+    finally:
+        k8mod.int8_conv_plain = plain
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -3142,7 +3622,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 18)) if run_all else {
+    wanted = set(range(2, 19)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -3238,6 +3718,8 @@ def main() -> int:
             kernels.attention_dropout_plain, kernels.keep_bits_packed)
     if 17 in wanted:
         out["front"] = phase_front(k1)
+    if 18 in wanted:
+        out["int8"] = phase_int8(k1, kernels.int8_conv)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -3416,6 +3898,34 @@ def summary(out) -> dict:
         "site": f"R50 stem 416^2, B 16 bf16, route {k7_main['route']}",
         "library": "cuDNN chain: 3 convs + biases, ReLUs, 2x2 avg pool",
     }]
+    i8 = out["int8"]
+    # K8's headline site: the 1x1 site of most work, where torch._int_mm
+    # computes the same int8 product
+    site = max((r for r in i8["sites"] if r["int_mm_ms"] is not None),
+               key=lambda r: r["bound_ms"])
+    kernels.append({
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "cris_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "cris_tpu/ops/quant.py:64",
+        "launches": i8["serving"]["K8"] + i8["bench_K8"],
+        "launches_by_path": {"int8 serving": i8["serving"]["K8"],
+                             "bench int8 pair": i8["bench_K8"]},
+        "max_abs_err": max(r["max_abs_err"] for r in i8["sites"]),
+        "ms": site["device_ms"],
+        "plain_ms": site["plain_ms"],
+        "bound_ms": site["bound_ms"],
+        "bound_by": site["bound_by"],
+        "library_ms": site["int_mm_ms"],
+        "back_to_back_ms": site["ms"],
+        "library": "torch._int_mm on the same int8 operands (the product "
+                   "without the quantise and the epilogue)",
+        "cudnn_bf16_ms": site["cudnn_bf16_ms"],
+        "site": site["site"],
+        "forward_b16": i8["forward"],
+        "replaces_note": "no Pallas kernel: the XLA int8 conv of "
+                         "int8_conv2d_static",
+    })
     api = out["api"]
     # K3, K4 and K6 at their main sites, B 16 bf16
     for name, kernel, site, src, replaces, library in (
@@ -3474,7 +3984,10 @@ def summary(out) -> dict:
                       "data_parallel": {k: v for k, v in out["dp"].items()
                                         if k != "k2_offset"},
                       "front": {k: v for k, v in front.items()
-                                if k != "K1_by_route"}}), flush=True)
+                                if k != "K1_by_route"},
+                      "int8": {k: v for k, v in i8.items()
+                               if k != "ab_rewrites"},
+                      "int8_ab_rewrites": i8["ab_rewrites"]}), flush=True)
     return {"kernels": kernels}
 
 

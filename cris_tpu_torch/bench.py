@@ -3,6 +3,8 @@ metrics on one CUDA card.
 
     python3 -m cris_tpu_torch.bench [--trials N] [--n1 N] [--n2 N]
     python3 -m cris_tpu_torch.bench --ab [--rounds N]
+    python3 -m cris_tpu_torch.bench --ab rewrites [--rounds N]
+    python3 -m cris_tpu_torch.bench --int8 [--trials N] [--n1 N] [--n2 N]
 
 One JSON line per metric, under ``bench.py``'s names, in images per
 second: ``{"metric", "value", "unit", "trials", "spread", "card"}``.
@@ -26,13 +28,21 @@ second: ``{"metric", "value", "unit", "trials", "spread", "card"}``.
   to 416 x 416 (``Evaluator.device_probs``). The probabilities are summed
   into one device scalar, which the host reads once per loop. K5 and K7
   stay off, as the JAX package's env gates default. The port has none of
-  the JAX package's bf16 graph rewrites (the s2d stem, the fused pools,
-  the upsample folds), so this is not the graph that ``bench.py`` times.
+  graph rewrites (the s2d stem, the fused pools, the upsample folds) stay
+  off until ``--ab rewrites`` decides, so this is not the graph that
+  ``bench.py`` times.
 - ``cris_r50_train_throughput_416px_b32``: ``engine.train_step`` with
   ``make_optimizer`` on ``bench.py:203-204``'s settings, bf16 autocast,
   dropout 0.1, dropout seeds ``engine.step_seed(42, i)``. Nothing in the
   loop waits for the card; the losses are checked finite after it.
 - ``cris_r101_eval_throughput_416px_b32``: the eval step at R101.
+- ``--int8``: ``bench.py:429-466``'s pair instead,
+  ``cris_r50_eval_int8_throughput_416px_b32`` and ``_b16``: the eval
+  step at ``precision: int8`` (bf16 autocast, the three rewrites on, the
+  int8 sites on K8 with ``min_ch`` 64, pooled and upfold sites at 256),
+  its scales calibrated on the bench's own batches as ``bench.py:129-150``
+  does (2 batches of 8 N(0, 1) images, seed 100). Each line also gives
+  K8's launches per batch.
 
 Weights are random from seed 0 (``bench.py:117``). Batches are made on
 the device from a ``torch.Generator`` seed (images N(0, 1), token ids in
@@ -53,6 +63,12 @@ entry points run without them. Before each metric's line, a line gives
 the device-busy share of one loop of n2 batches under ``torch.profiler``
 (``profile_serving.profile``): near 1 the card sets the number, well
 below it the host does.
+
+``--ab rewrites`` runs the R50 bf16 eval step at the bench's batch on two
+arms, the graph rewrites off and on (the folded model, K5 and K7 off),
+in turns off on on off per round; the rewrites become the bf16 default
+only if "on" beats "off" in every round (mean over its two turns) and
+its median gain exceeds the larger of the two arms' (max - min).
 
 ``--ab`` runs the R50 eval step at the bench's batch on four arms, each
 model built once: (a) folded; (b) + K5 on every tail; (c) + K5 on the
@@ -87,11 +103,11 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from . import engine
-from .checkpoint import fold_batchnorm
+from .checkpoint import calibrate_act_scales, fold_batchnorm, set_act_scales
 from .data.host_bench import cores_to_feed, measure_host_pipeline
 from .engine import Evaluator
-from .models import build_segmenter, resolve_dtype
-from .ops.kernels import fused_bottleneck, fused_stem_pool
+from .models import QuantConfig, build_segmenter, resolve_dtype
+from .ops.kernels import fused_bottleneck, fused_stem_pool, int8_conv
 from .profile_serving import NVSMI, profile
 from .utils import CfgNode, config_for
 
@@ -107,6 +123,12 @@ METRICS = (("cris_r50_eval_throughput_416px_b32", "eval", R50),
 # bench.py:203-204's optimizer
 TRAIN_OPT = dict(base_lr=1e-4, lr_multi=0.1, milestones=[35], lr_decay=0.1,
                  weight_decay=0.0, max_norm=0.0)
+# bench.py:429-466's int8 pair: (metric, config, batch)
+INT8_METRICS = (("cris_r50_eval_int8_throughput_416px_b32", R50, 32),
+                ("cris_r50_eval_int8_throughput_416px_b16", R50, 16))
+# bench.py:129-150: the int8 sites' gate and the calibration batches
+INT8_QUANT = QuantConfig(min_ch=64)
+CALIB_BATCHES, CALIB_B, CALIB_SEED = 2, 8, 100
 ARMS = {"a": {}, "b": {"fused_bottleneck": "every"},
         "c": {"fused_bottleneck": "narrow"}}
 HOST_METRIC = "host_input_pipeline_640x480"
@@ -155,6 +177,19 @@ def eval_model(cfg, device, folded_sd, **switches) -> torch.nn.Module:
                             pos_grid=cfg.input_size // 32, **switches)
     model.load_state_dict(folded_sd, assign=True)
     return model.to(device)
+
+
+def int8_model(cfg, device) -> torch.nn.Module:
+    """The R50 eval model at precision int8 with its sites' scales
+    calibrated on the bench's own batches (``bench.py:129-150``)."""
+    cfg = CfgNode({**cfg, "precision": "int8"})
+    model = eval_model(cfg, device, folded_state(cfg), quant=INT8_QUANT)
+    calib = [(b["image"], b["word"]) for b in make_batches(
+        CALIB_BATCHES, CALIB_B, cfg.input_size, cfg.word_len, device,
+        CALIB_SEED)]
+    set_act_scales(model, calibrate_act_scales(model, calib,
+                                               dtype=torch.bfloat16))
+    return model
 
 
 def eval_loop(model, cfg) -> Callable[[Sequence[Dict]], torch.Tensor]:
@@ -254,8 +289,12 @@ def run_metric(name: str, step: str, cfg, device: torch.device, b: int,
                    for k, n in ((1000, n1), (2000, n2)))
     if step == "train":
         run = train_loop(cfg, device)
+    elif step == "int8":
+        run = eval_loop(int8_model(cfg, device),
+                        CfgNode({**cfg, "precision": "int8"}))
     else:
         run = eval_loop(eval_model(cfg, device, folded_state(cfg)), cfg)
+    k8_before = int8_conv.launches
     result = measure(run, short, long, b, trials, device)
     result["batches"] = (n1 + n2) * (trials + 1)
     if device.type == "cuda":
@@ -266,6 +305,7 @@ def run_metric(name: str, step: str, cfg, device: torch.device, b: int,
                           "device_busy_ms": prof["device_busy_ms"],
                           "device_busy_share": prof["device_busy_share"],
                           "card": card(device)}), flush=True)
+    result["k8_launches"] = int8_conv.launches - k8_before
     return result
 
 
@@ -341,6 +381,44 @@ def decide(turns: Sequence[Dict], k5_arm: str) -> Dict:
             "fused_stem_on": clears("d", k5_arm), "d_k5_arm": k5_arm}
 
 
+def ab_rewrites(cfg, device: torch.device, b: int, n1: int, n2: int,
+                rounds: int, seed: int = 0) -> Dict:
+    """The bf16 folded eval step with the graph rewrites off and on, in
+    turns off on on off, ``rounds`` rounds; every turn printed, then the
+    decision (``rewrites_on``: whether they become the bf16 default)."""
+    short, long = (make_batches(n, b, cfg.input_size, cfg.word_len, device,
+                                seed + k) for k, n in ((1000, n1), (2000, n2)))
+    sd = folded_state(cfg)
+    line = {"card": card(device), "batch": b, "n1": n1, "n2": n2}
+    runs = {}
+    for arm in ("off", "on"):
+        runs[arm] = eval_loop(eval_model(cfg, device, sd,
+                                         rewrites=arm == "on"), cfg)
+        for batches in (short, long):
+            timed(runs[arm], batches, device)
+    turns = []
+    for r in range(rounds):
+        for arm in ("off", "on", "on", "off"):
+            row = {"arm": arm, "round": r,
+                   "img_s": turn(runs[arm], short, long, b, device), **line}
+            print(json.dumps(row), flush=True)
+            turns.append(row)
+    rates = {a: [t["img_s"] for t in turns if t["arm"] == a]
+             for a in ("off", "on")}
+    per_round = {a: [statistics.mean(t["img_s"] for t in turns
+                                     if t["arm"] == a and t["round"] == r)
+                     for r in range(rounds)] for a in ("off", "on")}
+    median = {a: statistics.median(v) for a, v in rates.items()}
+    width = {a: max(v) - min(v) for a, v in rates.items()}
+    on = (beats(per_round, "on", "off")
+          and median["on"] - median["off"] > max(width.values()))
+    decision = {"median_img_s": median, "max_minus_min": width,
+                "per_round_mean": per_round, "rewrites_on": on,
+                "gain": median["on"] / median["off"] - 1.0}
+    print(json.dumps(decision), flush=True)
+    return {"ab": decision, "turns": turns, **line}
+
+
 def ab(cfg, device: torch.device, b: int, n1: int, n2: int, rounds: int,
        seed: int = 0) -> Dict:
     """Arms (a)-(d) in turns a b c d d c b a, ``rounds`` rounds; every
@@ -390,8 +468,12 @@ def main(argv=None) -> int:
     parser.add_argument("--n1", type=int, default=N1)
     parser.add_argument("--n2", type=int, default=N2)
     parser.add_argument("--trials", type=int, default=TRIALS)
-    parser.add_argument("--ab", action="store_true",
-                        help="the K5/K7 switch A/B on the R50 eval step")
+    parser.add_argument("--ab", nargs="?", const="kernels",
+                        choices=("kernels", "rewrites"),
+                        help="the K5/K7 switch A/B (default) or the graph "
+                             "rewrites' A/B on the R50 eval step")
+    parser.add_argument("--int8", action="store_true",
+                        help="the int8 pair instead of the three metrics")
     parser.add_argument("--rounds", type=int, default=ROUNDS,
                         help="rounds of the A/B (a b c d d c b a each)")
     args = parser.parse_args(argv)
@@ -402,8 +484,21 @@ def main(argv=None) -> int:
         return 1
     print(f"card: {card(device)}; torch {torch.__version__}", flush=True)
     if args.ab:
-        ab(config_for(R50), device, args.batch, args.n1, args.n2,
-           args.rounds)
+        run_ab = ab_rewrites if args.ab == "rewrites" else ab
+        run_ab(config_for(R50), device, args.batch, args.n1, args.n2,
+               args.rounds)
+        return 0
+    if args.int8:
+        for name, path, b in INT8_METRICS:
+            result = run_metric(name, "int8", config_for(path), device, b,
+                                args.n1, args.n2, args.trials)
+            free(device)
+            print(json.dumps({"metric": name, "value": result["value"],
+                              "unit": "img/s", "trials": result["trials"],
+                              "spread": result["spread"],
+                              "k8_per_batch": result["k8_launches"]
+                              / result["batches"],
+                              "card": card(device)}), flush=True)
         return 0
     try:
         host = run_host_metric(device)

@@ -11,6 +11,13 @@ imported; its layout rules are mirrored here:
   axis (``cris_tpu/checkpoint/stacking.py:94-114``) and are unstacked;
 - conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 - the decoder's separate q/k/v projections are packed into ``in_proj_*``.
+
+The "quant" collection (the int8 sites' calibrated ``act_scale``) maps
+onto the port's sites by ``site_path`` / ``sites_of``: a site is the
+port's conv module, the JAX one the module that sowed the scale (the
+conv, its ``QuantConv`` child ``conv`` in a ConvBNReLU, or the upsample
+fold itself); a stage tail's scales are stacked along axis 0 like its
+parameters. ``quant_from_jax`` carries a whole collection across.
 """
 
 from __future__ import annotations
@@ -215,3 +222,74 @@ def load_jax_variables(model, variables: Mapping[str, Any]):
           for k, v in from_jax(variables).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+_VIS_SITES = {"1": "proj/vis_conv1", "3": "proj/vis_conv2", "4": "proj/vis_out"}
+
+
+def site_path(name: str):
+    """A port int8 site's module name -> (the JAX module path of its
+    "quant" entry, its index along a stage tail's stacked axis or None)."""
+    parts = name.split(".")
+    if parts[:2] == ["backbone", "visual"]:
+        rest = parts[2:]
+        if len(rest) == 1:  # the s2d stem's conv2 / conv3
+            return f"backbone/visual/{rest[0]}", None
+        stage, block = rest[0], int(rest[1])
+        conv = "downsample_conv" if rest[2] == "downsample" else rest[2]
+        if block == 0:
+            return f"backbone/visual/{stage}_0/{conv}", None
+        return f"backbone/visual/{stage}_tail/{conv}", block - 1
+    if parts[0] == "neck":
+        if parts[1] in ("f2_cat", "aggr"):
+            return f"neck/{parts[1]}", None
+        if parts[1] == "coordconv":
+            return ("neck/coordconv_0/conv1/conv" if parts[2] == "0"
+                    else "neck/coordconv_1/conv"), None
+        return f"neck/{parts[1]}/conv", None
+    if parts[0] == "proj" and parts[1] == "vis":
+        return _VIS_SITES[parts[2]], None
+    raise KeyError(f"no JAX int8 site for {name!r}")
+
+
+def sites_of(path: str, value) -> Dict[str, np.ndarray]:
+    """A JAX "quant" entry (module path, act_scale) -> {port site name:
+    scalar}; a stage tail's stacked entry gives one site per block."""
+    value = np.asarray(value, np.float32)
+    parts = path.split("/")
+    if parts[:2] == ["backbone", "visual"]:
+        if len(parts) == 3:
+            return {f"backbone.visual.{parts[2]}": value}
+        stage, block = parts[2].rsplit("_", 1)
+        conv = "downsample.0" if parts[3] == "downsample_conv" else parts[3]
+        if block == "tail":
+            return {f"backbone.visual.{stage}.{i + 1}.{conv}": value[i]
+                    for i in range(value.shape[0])}
+        return {f"backbone.visual.{stage}.{block}.{conv}": value}
+    if parts[0] == "neck":
+        if parts[1] in ("f2_cat", "aggr"):
+            return {f"neck.{parts[1]}.0": value}
+        if parts[1] == "coordconv_0":
+            return {"neck.coordconv.0.conv1.0": value}
+        if parts[1] == "coordconv_1":
+            return {"neck.coordconv.1.0": value}
+        return {f"neck.{parts[1]}.0": value}
+    if parts[0] == "proj":
+        return {f"proj.vis.{k}" + ("" if k == "4" else ".0"): value
+                for k, v in _VIS_SITES.items() if v == path}
+    raise KeyError(f"no port int8 site for {path!r}")
+
+
+def quant_from_jax(quant: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX "quant" collection (nested dicts of ``act_scale`` leaves) ->
+    {port site name: f32 scalar}."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            if key == "act_scale":
+                out.update(sites_of("/".join(prefix), value))
+            else:
+                walk(value, prefix + (key,))
+    walk(quant, ())
+    return out

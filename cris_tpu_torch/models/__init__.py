@@ -8,6 +8,15 @@ BN-folded inference variant; ``clip_config`` (a CLIP archive's, from
 ``cfg.clip_pretrain`` names. Weights from the JAX package load through
 ``cris_tpu_torch.checkpoint.from_jax``. ``param_group_label`` splits the
 parameters into the optimizer's backbone and head groups.
+
+Precision (cris_tpu/models/__init__.py:48-66): "bf16" (autocast) or
+"fp32", and "int8": bf16 autocast, the three exact bf16 graph rewrites
+on (the fused pools, the s2d stem, the upsample folds), and on the
+BN-folded eval model the int8 sites (``layers.QuantConfig``,
+``checkpoint.calibrate`` for their scales). An unknown precision raises.
+At bf16 the rewrites stay off: the bench's A/B (``python3 -m
+cris_tpu_torch.bench --ab rewrites``) decides whether they become the
+default.
 """
 
 from __future__ import annotations
@@ -23,22 +32,32 @@ from .clip_resnet import AttentionPool2d, Bottleneck, ModifiedResNet
 from .clip_text import PackedAttention, ResidualAttentionBlock, Transformer
 from .decoder import (MultiheadAttention, TransformerDecoder,
                       TransformerDecoderLayer)
-from .layers import (BatchNorm, ConvBNReLU, CoordConv, Dropout, LayerNormF32,
-                     LinearBNReLU, quick_gelu)
+from .layers import (BatchNorm, Calibration, CatUpConvBNReLU, ConvBNReLU,
+                     CoordConv, Dropout, LayerNormF32, LinearBNReLU,
+                     QuantConfig, QuantConv, UpConvBNReLU, calibrating,
+                     enable_int8, int8_sites, quick_gelu)
 from .neck import FPN
 from .projector import Projector
 from .segmenter import CRIS, bce_with_logits
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "int8": torch.bfloat16,
            "fp32": None, "float32": None, "f32": None}
 
 
 def resolve_dtype(name) -> Optional[torch.dtype]:
-    """Config precision -> autocast dtype (None = plain f32)."""
+    """Config precision -> autocast dtype (None = plain f32; int8 computes
+    in bf16 around its int8 convs)."""
     key = str(name).lower()
     if key not in _DTYPES:
-        raise ValueError(f"unknown or not yet ported precision {name!r}")
+        raise ValueError(f"unknown precision {name!r}")
     return _DTYPES[key]
+
+
+def is_int8(cfg) -> bool:
+    """``precision: int8`` (or the JAX package's ``quant_int8: true``)."""
+    return (str(cfg.get("precision", "bf16")).lower() == "int8"
+            or bool(cfg.get("quant_int8", False)))
 
 
 @torch.no_grad()
@@ -76,7 +95,9 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
                     fold_bn: bool = False, pos_grid: Optional[int] = None,
                     fused_bottleneck: Union[bool, str] = False,
                     fused_stem: bool = False,
-                    clip_config: Optional[CLIPConfig] = None) -> CRIS:
+                    clip_config: Optional[CLIPConfig] = None,
+                    rewrites: Optional[bool] = None,
+                    quant: Optional[QuantConfig] = None) -> CRIS:
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
     train mode (batch-statistics BN, dropout) with ``train=True``, on the
     card unless ``device`` says otherwise. The CLIP architecture is
@@ -96,12 +117,26 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
     ``ops.kernels.bottleneck.TAIL_RULES``: under that rule), ``fused_stem``
     the stem and its pool as K7. Both need ``fold_bn`` and eval.
 
+    ``rewrites`` (None: on exactly when the precision is int8) builds the
+    exact bf16 graph rewrites: the fused pools and the s2d stem
+    (``clip_resnet``), the upsample folds (``neck``, ``projector``); the
+    parameters and keys are unchanged. ``quant``: the int8 sites' gates
+    (``layers.QuantConfig``; None: its defaults when the precision is
+    int8), set on the BN-folded eval model only, as the JAX package sets
+    ``quant_int8`` (``layers.enable_int8``).
+
     On ``device="meta"`` the parameters have shapes and no storage;
     otherwise they are initialised on the CPU from ``seed`` and moved."""
     if (fused_bottleneck or fused_stem) and train:
         raise ValueError("fused_bottleneck and fused_stem are inference "
                          "kernels: need train=False")
     clip_config = clip_config or preset_from_name(cfg.clip_pretrain)
+    resolve_dtype(cfg.get("precision", "bf16"))  # an unknown one raises
+    int8 = is_int8(cfg)
+    if rewrites is None:
+        rewrites = int8
+    if quant is None and int8:
+        quant = QuantConfig()
     meta = torch.device(device).type == "meta"
     with torch.device("meta" if meta else "cpu"):
         model = CRIS(
@@ -117,7 +152,10 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
             pos_grid=pos_grid,
             fused_bottleneck=fused_bottleneck,
             fused_stem=fused_stem,
+            rewrites=rewrites,
         )
+    if fold_bn and not train:
+        enable_int8(model, quant)
     if cfg.get("remat", False):
         for mod in model.modules():
             if isinstance(mod, (Bottleneck, ResidualAttentionBlock,
@@ -139,11 +177,12 @@ def param_group_label(name: str) -> str:
 
 __all__ = [
     "AttentionPool2d", "BatchNorm", "Bottleneck", "CLIP", "CLIPConfig",
-    "CLIP_PRESETS", "CRIS", "ConvBNReLU", "CoordConv", "Dropout", "FPN",
-    "LayerNormF32", "LinearBNReLU", "ModifiedResNet", "MultiheadAttention",
-    "Projector",
-    "ResidualAttentionBlock", "Transformer", "TransformerDecoder",
-    "TransformerDecoderLayer", "bce_with_logits", "build_segmenter",
-    "init_weights", "param_group_label", "preset_from_name", "quick_gelu",
-    "resolve_dtype",
+    "CLIP_PRESETS", "CRIS", "Calibration", "CatUpConvBNReLU", "ConvBNReLU",
+    "CoordConv", "Dropout", "FPN", "LayerNormF32", "LinearBNReLU",
+    "ModifiedResNet", "MultiheadAttention", "Projector", "QuantConfig",
+    "QuantConv", "ResidualAttentionBlock", "Transformer",
+    "TransformerDecoder", "TransformerDecoderLayer", "UpConvBNReLU",
+    "bce_with_logits", "build_segmenter", "calibrating", "enable_int8",
+    "init_weights", "int8_sites", "is_int8", "param_group_label",
+    "preset_from_name", "quick_gelu", "resolve_dtype",
 ]

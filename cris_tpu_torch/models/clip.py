@@ -55,7 +55,7 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, fold_bn: bool = False,
                  pos_grid: Optional[int] = None,
                  fused_bottleneck: Union[bool, str] = False,
-                 fused_stem: bool = False):
+                 fused_stem: bool = False, rewrites: bool = False):
         super().__init__()
         self.visual = ModifiedResNet(
             layers=cfg.vision_layers,
@@ -67,6 +67,7 @@ class CLIP(nn.Module):
             pos_grid=pos_grid,
             fused_bottleneck=fused_bottleneck,
             fused_stem=fused_stem,
+            rewrites=rewrites,
         )
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
         self.positional_embedding = nn.Parameter(

@@ -15,6 +15,20 @@ tails) that K5's tail gate takes through K5, ``fused_stem`` sends the
 stem and its pool through K7.
 Both kernels take NHWC views of the model's NCHW tensors and write NCHW
 memory, so nothing is transposed around them.
+
+``rewrites`` turns on two of the JAX package's exact bf16 graph rewrites
+(``_auto_fuse_pool``, ``_auto_s2d``, clip_resnet.py:33-57): the
+anti-aliasing average pools fused into the 1x1 convs after them
+(``QuantConv.pooled``: a strided block's conv3 and downsample, and
+layer1_0's conv1 and downsample, which take the stem's pool), and the
+space-to-depth stem (ops/s2d.py: conv1 writes the s2d layout, conv2 and
+conv3 stay in it, layer1_0's pooled convs leave it, ``s2d_pooled``).
+The s2d stem needs H, W % 4 == 0; K7 keeps priority over it, as
+``use_pallas_stem`` does. The JAX package's opt-in tier 2
+(``CRIS_S2D_L1``, layer1 s2d-resident) is not ported. On a model given a
+``QuantConfig`` (``layers.enable_int8``) the bottlenecks' convs are int8
+sites of family "backbone" and the s2d stem's conv2 and conv3 of family
+"stem" (clip_resnet.py:129-160, 380-440).
 """
 
 from __future__ import annotations
@@ -30,7 +44,8 @@ from ..ops.kernels.bottleneck import (K5_TAILS, TAIL_RULES, bottleneck_takes,
                                      compute_dtype, fused_bottleneck)
 from ..ops.kernels.stem import fused_stem_pool
 from ..ops.resize import resize2d
-from .layers import norm, remat
+from ..ops.s2d import stem_conv1_s2d
+from .layers import QuantConv, norm, remat
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +79,12 @@ class Bottleneck(nn.Module):
     the rule "every" takes every such block, so layer1's mid-64 tails run
     K5 here and XLA in the JAX package.
 
+    ``fuse_pool``: the stride's pools are fused into conv3 and the
+    downsample conv (``QuantConv.pooled``). ``forward``'s ``entry`` is
+    layer1_0's input when the stem's pool is fused too: "pool" (conv1 and
+    the downsample pool by 2) or "s2d" (the input is the s2d stem's,
+    conv1 and the downsample are ``s2d_pooled``).
+
     ``remat`` (set by ``build_segmenter`` from ``cfg.remat``): in training
     with gradients on, the block's activations are recomputed in the
     backward (cris_tpu/models/clip_resnet.py:451, 475-476)."""
@@ -72,7 +93,8 @@ class Bottleneck(nn.Module):
     remat = False
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 fold_bn: bool = False, fused: Optional[str] = None):
+                 fold_bn: bool = False, fused: Optional[str] = None,
+                 fuse_pool: bool = False):
         super().__init__()
         out_planes = planes * self.expansion
         identity = stride == 1 and inplanes == out_planes
@@ -81,12 +103,15 @@ class Bottleneck(nn.Module):
         if fused and fused not in TAIL_RULES:
             raise ValueError(f"unknown K5 tail rule {fused!r}")
         self.fused = fused
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=fold_bn)
+        self.stride = stride
+        self.fuse_pool = fuse_pool
+        conv = dict(bias=fold_bn, family="backbone")
+        self.conv1 = QuantConv(inplanes, planes, 1, **conv)
         self.bn1 = norm(planes, fold_bn)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=fold_bn)
+        self.conv2 = QuantConv(planes, planes, 3, padding=1, **conv)
         self.bn2 = norm(planes, fold_bn)
         self.avgpool = nn.AvgPool2d(stride) if stride > 1 else nn.Identity()
-        self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=fold_bn)
+        self.conv3 = QuantConv(planes, out_planes, 1, **conv)
         self.bn3 = norm(out_planes, fold_bn)
         self.downsample = None
         if not identity:
@@ -95,11 +120,12 @@ class Bottleneck(nn.Module):
             self.downsample.add_module(
                 "-1", nn.AvgPool2d(stride) if stride > 1 else nn.Identity())
             self.downsample.add_module(
-                "0", nn.Conv2d(inplanes, out_planes, 1, bias=fold_bn))
+                "0", QuantConv(inplanes, out_planes, 1, **conv))
             self.downsample.add_module("1", norm(out_planes, fold_bn))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and bottleneck_takes(
+    def forward(self, x: torch.Tensor,
+                entry: Optional[str] = None) -> torch.Tensor:
+        if self.fused and entry is None and bottleneck_takes(
                 x.shape[2], x.shape[3], x.shape[1], self.conv1.out_channels,
                 compute_dtype(x), self.fused):
             _no_training(self, "fused_bottleneck (K5)")
@@ -109,14 +135,33 @@ class Bottleneck(nn.Module):
                 w2.reshape(9, *w2.shape[2:]), self.conv2.bias,
                 w3[0, 0], self.conv3.bias))
         if self.remat and self.training and torch.is_grad_enabled():
-            return remat(self._chain, x)
-        return self._chain(x)
+            return remat(self._chain, x, entry)
+        return self._chain(x, entry)
 
-    def _chain(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+    def _entry_conv(self, conv: QuantConv, x, entry, pool: int = 1):
+        if entry == "s2d":
+            return conv.s2d_pooled(x)
+        if entry == "pool":
+            pool = max(pool, 2)
+        return conv.pooled(x, pool) if pool > 1 else conv(x)
+
+    def _chain(self, x: torch.Tensor, entry: Optional[str] = None
+               ) -> torch.Tensor:
+        out = F.relu(self.bn1(self._entry_conv(self.conv1, x, entry)))
         out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(self.avgpool(out)))
-        identity = x if self.downsample is None else self.downsample(x)
+        if self.fuse_pool and self.stride > 1:
+            out = self.bn3(self.conv3.pooled(out, self.stride))
+        else:
+            out = self.bn3(self.conv3(self.avgpool(out)))
+        if self.downsample is None:
+            identity = x
+        elif self.fuse_pool:
+            # keys "0" and "1" (positions 1 and 2: "-1" is the pool)
+            ds = self.downsample._modules
+            identity = ds["1"](self._entry_conv(ds["0"], x, entry,
+                                                self.stride))
+        else:
+            identity = self.downsample(x)
         return F.relu(out + identity)
 
 
@@ -170,24 +215,27 @@ class ModifiedResNet(nn.Module):
     ``fused_stem``: run the stem and its pool as K7 (needs ``fold_bn``)
     whenever H and W are multiples of 4. The JAX model also asks for its
     fused pools and H, W % 16 (its kernel's row blocks); here K7's output
-    simply takes the place of stem + pool and layer1 follows unchanged."""
+    simply takes the place of stem + pool and layer1 follows unchanged.
+    ``rewrites``: the fused pools and the s2d stem (module docstring)."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
                  input_resolution: int = 224, width: int = 64,
                  fold_bn: bool = False, pos_grid: Optional[int] = None,
                  fused_bottleneck: Union[bool, str] = False,
-                 fused_stem: bool = False):
+                 fused_stem: bool = False, rewrites: bool = False):
         super().__init__()
         if (fused_bottleneck or fused_stem) and not fold_bn:
             raise ValueError("K5 and K7 run only on the BN-folded model")
         self.fused_stem = fused_stem
+        self.rewrites = rewrites
         self.conv1 = nn.Conv2d(3, width // 2, 3, stride=2, padding=1,
                                bias=fold_bn)
         self.bn1 = norm(width // 2, fold_bn)
-        self.conv2 = nn.Conv2d(width // 2, width // 2, 3, padding=1,
-                               bias=fold_bn)
+        self.conv2 = QuantConv(width // 2, width // 2, 3, padding=1,
+                               bias=fold_bn, family="stem")
         self.bn2 = norm(width // 2, fold_bn)
-        self.conv3 = nn.Conv2d(width // 2, width, 3, padding=1, bias=fold_bn)
+        self.conv3 = QuantConv(width // 2, width, 3, padding=1, bias=fold_bn,
+                               family="stem")
         self.bn3 = norm(width, fold_bn)
         self.avgpool = nn.AvgPool2d(2)
         self._inplanes = width
@@ -202,31 +250,56 @@ class ModifiedResNet(nn.Module):
                                         heads, output_dim, fold_bn, pos_grid)
 
     def _make_layer(self, planes: int, blocks: int, stride: int = 1):
-        mods = [Bottleneck(self._inplanes, planes, stride, self._fold_bn)]
+        mods = [Bottleneck(self._inplanes, planes, stride, self._fold_bn,
+                           fuse_pool=self.rewrites)]
         self._inplanes = planes * Bottleneck.expansion
         mods += [Bottleneck(self._inplanes, planes, 1, self._fold_bn,
-                            fused=self._fuse_tails) for _ in range(1, blocks)]
+                            fused=self._fuse_tails, fuse_pool=self.rewrites)
+                 for _ in range(1, blocks)]
         return nn.Sequential(*mods)
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
-        """Three 3x3 convs with ReLUs, then the 2x2 average pool."""
-        if self.fused_stem and x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0:
+    def stem(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[str]]:
+        """Three 3x3 convs with ReLUs, then the 2x2 average pool; returns
+        the map and how layer1_0 enters it (``Bottleneck.forward``'s
+        ``entry``): with ``rewrites`` the pool is left to layer1_0, and at
+        H, W % 4 == 0 the stem runs in s2d layout."""
+        by4 = x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0
+        if self.fused_stem and by4:
             _no_training(self, "fused_stem_pool (K7)")
             dt = compute_dtype(x)
             k1, k2, k3 = (_hwio(c).to(dt)
                           for c in (self.conv1, self.conv2, self.conv3))
             return _nchw(fused_stem_pool(
                 _nhwc(x), k1, self.conv1.bias, k2, self.conv2.bias, k3,
-                self.conv3.bias))
+                self.conv3.bias)), None
+        if self.rewrites and by4:
+            y = _nchw(stem_conv1_s2d(_nhwc(x), _hwio(self.conv1),
+                                     self.conv1.bias, compute_dtype(x)))
+            y = F.relu(_bn_s2d(self.bn1, y))
+            y = F.relu(_bn_s2d(self.bn2, self.conv2.s2d3x3(y)))
+            return F.relu(_bn_s2d(self.bn3, self.conv3.s2d3x3(y))), "s2d"
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
-        return self.avgpool(x)
+        if self.rewrites:
+            return x, "pool"
+        return self.avgpool(x), None
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.layer1(self.stem(x))
+        x, entry = self.stem(x)
+        x = self.layer1[1:](self.layer1[0](x, entry))
         x2 = self.layer2(x)
         x3 = self.layer3(x2)
         x4 = self.attnpool(self.layer4(x3))
         return x2, x3, x4
+
+
+def _bn_s2d(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The BN of the original channels on an s2d tensor (B, 4C, H, W):
+    each original pixel appears once, so the statistics are the plain
+    layout's (the JAX BatchNorm's ``phases=4``)."""
+    if isinstance(bn, nn.Identity):
+        return x
+    b, c4, h, w = x.shape
+    return bn(x.reshape(b * 4, c4 // 4, h, w)).reshape(b, c4, h, w)

@@ -46,17 +46,19 @@ class CRIS(nn.Module):
                  dim_ffn: int = 2048, dropout: float = 0.1,
                  fold_bn: bool = False, pos_grid: Optional[int] = None,
                  fused_bottleneck: Union[bool, str] = False,
-                 fused_stem: bool = False):
-        """``fold_bn``, ``pos_grid`` and the two kernel switches: see
-        ``models.build_segmenter``."""
+                 fused_stem: bool = False, rewrites: bool = False):
+        """``fold_bn``, ``pos_grid``, the two kernel switches and
+        ``rewrites``: see ``models.build_segmenter``."""
         super().__init__()
         self.backbone = CLIP(clip_config, fold_bn=fold_bn, pos_grid=pos_grid,
                              fused_bottleneck=fused_bottleneck,
-                             fused_stem=fused_stem)
-        self.neck = FPN(clip_config.embed_dim, fpn_in, fpn_out, fold_bn)
+                             fused_stem=fused_stem, rewrites=rewrites)
+        self.neck = FPN(clip_config.embed_dim, fpn_in, fpn_out, fold_bn,
+                        fuse_upsample=rewrites)
         self.decoder = TransformerDecoder(num_layers, vis_dim, num_head,
                                           dim_ffn, dropout)
-        self.proj = Projector(clip_config.embed_dim, vis_dim // 2, 3, fold_bn)
+        self.proj = Projector(clip_config.embed_dim, vis_dim // 2, 3, fold_bn,
+                              fuse_upsample=rewrites)
 
     def forward(self, img: torch.Tensor, word: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,

@@ -198,6 +198,16 @@ def load_library() -> ctypes.CDLL:
                 ctypes.POINTER(ll), ctypes.POINTER(ctypes.c_double),
             ]
             lib.cris_stem_plan.restype = i
+            lib.cris_int8_conv.argtypes = [
+                p, p, p, p, p, p,       # x, w, k_scale, act_scale, bias, out
+                i, i, i, i, i, i, i,    # B, H, W, C, Ho, Wo, Co
+                i, i, i, i, i,          # kh, kw, stride, pad top, pad left
+                i, i, i,                # in dtype, out dtype, relu
+                ll, ll, ll, ll,         # x batch/row/column/channel strides
+                ll, ll, ll, ll,         # out strides, the same order
+                p,                      # stream
+            ]
+            lib.cris_int8_conv.restype = i
             lib.cris_cuda_error_string.argtypes = [i]
             lib.cris_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -39,12 +39,13 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .checkpoint import BEST_NAME, fold_batchnorm, load_cris_checkpoint
+from .checkpoint import (BEST_NAME, SCALES_NAME, attach_act_scales,
+                         fold_batchnorm, load_cris_checkpoint)
 from .data.codec import decode_image, encode_png
 from .data.transforms import (get_transform_mats, inverse_warp_prediction,
                               normalize_image, warp_image)
 from .engine import EVAL_THRESHOLD, Evaluator
-from .models import build_segmenter, resolve_dtype
+from .models import build_segmenter, is_int8, resolve_dtype
 from .utils.logging import logger
 from .utils.tokenizer import tokenize
 
@@ -88,7 +89,14 @@ class PredictService:
     and stay off by default: the bench's A/B
     (``python3 -m cris_tpu_torch.bench --ab``) found neither's gain
     larger than the spread of its turns. The forward runs under bf16 autocast
-    when ``cfg.precision`` is bf16."""
+    when ``cfg.precision`` is bf16.
+
+    ``precision: int8`` (folded only, as ``cris_tpu.serving``): the bf16
+    forward with the graph rewrites and the int8 sites on K8, with the
+    calibrated scales of ``quant_scales.npz`` under ``model_dir``
+    (``python3 -m cris_tpu_torch.quantize`` writes it; its gates set the
+    site set); without the file a warning says so and the plain-conv
+    sites quantise with dynamic scales, the others run bf16."""
 
     def __init__(self, cfg, model_dir: Optional[str] = None,
                  device="cuda", max_batch: int = 16,
@@ -107,9 +115,8 @@ class PredictService:
         # (chip_smoke.py phase 17(b) times both).
         self._device_thread = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="predict-device")
+        model_dir = model_dir or os.path.join(cfg.output_folder, cfg.exp_name)
         if state_dict is None:
-            model_dir = model_dir or os.path.join(cfg.output_folder,
-                                                  cfg.exp_name)
             path = os.path.join(model_dir, BEST_NAME)
             if os.path.isfile(path):
                 state_dict = load_cris_checkpoint(path)
@@ -129,6 +136,17 @@ class PredictService:
         model.load_state_dict({k: torch.as_tensor(v).float()
                                for k, v in state_dict.items()}, assign=True)
         self.model = model.to(self.device)
+        self.act_scales = 0  # int8 sites served with a calibrated scale
+        scales = os.path.join(model_dir, SCALES_NAME)
+        if is_int8(cfg) and fold_bn:
+            if os.path.isfile(scales):
+                self.act_scales = attach_act_scales(self.model, scales)
+                logger.info(f"=> static int8 activation scales '{scales}' "
+                            f"({self.act_scales} sites)")
+            else:
+                logger.warning(f"precision int8 without '{scales}': dynamic "
+                               "scales (run python3 -m "
+                               "cris_tpu_torch.quantize first)")
         self.evaluator = Evaluator(self.model, self.input_size,
                                    resolve_dtype(cfg.get("precision", "bf16")))
         self.warmup()

@@ -32,10 +32,11 @@ import torch
 
 from . import cli
 from .bench import card, eval_model
-from .checkpoint import BEST_NAME, fold_batchnorm, load_cris_checkpoint
+from .checkpoint import (BEST_NAME, SCALES_NAME, attach_act_scales,
+                         fold_batchnorm, load_cris_checkpoint)
 from .data import RefDataset
 from .engine import Evaluator
-from .models import build_segmenter, resolve_dtype
+from .models import build_segmenter, is_int8, resolve_dtype
 from .parallel import (allgather_floats, close_distributed, process_count,
                        process_index)
 from .utils.logging import log_exceptions, logger, setup_logger
@@ -44,11 +45,20 @@ from .utils.logging import log_exceptions, logger, setup_logger
 def load_model(cfg, path: str, device: torch.device) -> torch.nn.Module:
     """The eval model with the weights of a CRIS ``.pth`` file on
     ``device``: BN folded (and the attnpool embedding resized to the input
-    grid) when ``cfg.fold_bn_eval`` is set, as serving folds it."""
+    grid) when ``cfg.fold_bn_eval`` is set, as serving folds it. At
+    ``precision: int8`` the folded model takes the int8 sites' scales from
+    ``quant_scales.npz`` beside the checkpoint when it is there
+    (test.py:84-90)."""
     sd = load_cris_checkpoint(path)
     if cfg.get("fold_bn_eval", True):
         logger.info("=> folding BatchNorm into conv weights for inference")
-        return eval_model(cfg, device, fold_batchnorm(sd, cfg.input_size))
+        model = eval_model(cfg, device, fold_batchnorm(sd, cfg.input_size))
+        scales = os.path.join(os.path.dirname(path), SCALES_NAME)
+        if is_int8(cfg) and os.path.isfile(scales):
+            n = attach_act_scales(model, scales)
+            logger.info(f"=> static int8 activation scales '{scales}' "
+                        f"({n} sites)")
+        return model
     model = build_segmenter(cfg, device="meta")
     model.load_state_dict({k: torch.as_tensor(v).float() for k, v in sd.items()},
                           assign=True)

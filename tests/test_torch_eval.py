@@ -259,12 +259,14 @@ def _psnr(a, b):
 
 def test_test_main_refuses_without_card_checkpoint_or_int8(setup, tmp_path):
     """No CUDA and no --device cpu is an error, not a fallback; a missing
-    best_model.pth raises as the JAX test.py does; int8 is not ported."""
+    best_model.pth raises as the JAX test.py does; so does a precision
+    neither package knows (int8 is served since it was ported:
+    tests/test_torch_int8.py)."""
     argv = _main_argv(setup)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             port_test.main([a for a in argv if a not in ("--device", "cpu")])
     with pytest.raises(ValueError, match="no checkpoint found"):
         port_test.main(argv[:6] + [str(tmp_path)] + argv[7:])
-    with pytest.raises(ValueError, match="int8"):
-        port_test.main(argv + ["TRAIN.precision", "int8"])
+    with pytest.raises(ValueError, match="precision 'int4'"):
+        port_test.main(argv + ["TRAIN.precision", "int4"])
