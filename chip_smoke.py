@@ -234,13 +234,19 @@ Phases (any failure raises, and the script exits non-zero):
    int8 TOPS); (c) the R50 int8 forward at f32 compute (no autocast) on
    the card against the CPU's, whose int8 convs are the plain version, on
    the same scales: the share of int8 levels that differ at the sites and
-   the logits' relative L2 under bars set from the measured flip rates,
-   and a planted fault (one site's scale x 1.05) that exceeds them; (d)
+   the logits' relative L2 under bars set from the measured flip rates;
+   then teacher-forced on the CPU's values: each card K8 call on the
+   CPU's input to it bit-equal to the CPU's output, and, with every call
+   returning the CPU's output, the card's input to each call within
+   1e-5 relative L2 of the CPU's (the card's code between two sites:
+   the stem, the pools, the folds' borders, the attention, the casts);
+   two planted faults (one site's scale x 1.05, one fold's top border
+   row x 1.001) caught by the two checks; (d)
    the bench at short lengths (n1 2, n2 4, 2 trials): the R50 bf16 eval
    metric, the int8 pair (cris_r50_eval_int8_throughput_416px_b32, _b16)
    with K8's launches per batch, --ab rewrites at one round, and each
    rewrite against the reference order at its b16 shapes (the stem,
-   layer2_0, the four upsample folds in both up-core forms).
+   layer2_0, the four upsample folds): outputs at the bf16 bars, times.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -3167,34 +3173,44 @@ INT8_OPS_PER_S = 1979e12
 # f32 rounding at the first flip cascading through 78 int8 sites), about
 # twice the measurement: the share of int8 levels that differ between
 # the card's f32 forward and the CPU's, and the logits' relative L2. The
-# teacher-forced replay is exact.
+# teacher-forced replay is exact; the teacher-forced segments are held
+# at f32 rounding.
 INT8_FLIP_BAR = 0.15
 INT8_LOGIT_BAR = 0.3
-# (c)'s planted fault: one site's scale off by 5% on the card
+# (c)'s teacher-forced segments: the relative L2 between the card's and
+# the CPU's input to each K8 call when every call returns the CPU's
+# output (f32 rounding of one stretch of code between two sites)
+INT8_SEGMENT_BAR = 1e-5
+# and the teacher-forced logits (after the last site: the text-made
+# dynamic conv, whose sums cancel) at phase 2's f32 logits bar
+INT8_SEGMENT_LOGIT_BAR = 1e-4
+# (c)'s planted faults on the card: one site's scale off by 5%, caught by
+# the replay; one fold's top output row off by 1e-3, caught by the
+# segment bar at the next site
 INT8_FAULT_SITE = "backbone.visual.layer3.0.conv2"
 INT8_FAULT_SCALE = 1.05
+INT8_BORDER_FAULT = 1.001
 PHASE_SITES = ("f2_cat.0", "aggr.0", "vis.1.0", "vis.3.0")
 
 
 @contextlib.contextmanager
-def _k8_calls(layers_mod, record):
-    """models.layers' K8 wrapper patched to pass every call's arguments to
-    ``record`` before launching it."""
-    real = layers_mod.int8_conv
+def _k8_calls(quant_mod, around):
+    """ops.quant's K8 wrapper (the one every int8 site calls) patched so
+    that each call is ``around(real, x, wq, k_scale, act_scale, bias,
+    stride, padding, relu, out_dtype, out)``."""
+    real = quant_mod.int8_conv
 
-    def recorded(x, wq, k_scale, act_scale, bias=None, stride=1,
-                 padding=((0, 0), (0, 0)), relu=False, out_dtype=None,
-                 out=None):
-        record(x, wq, k_scale, act_scale, bias, stride, padding, relu,
-               out_dtype, out)
-        return real(x, wq, k_scale, act_scale, bias, stride, padding, relu,
-                    out_dtype, out)
+    def patched(x, wq, k_scale, act_scale, bias=None, stride=1,
+                padding=((0, 0), (0, 0)), relu=False, out_dtype=None,
+                out=None):
+        return around(real, x, wq, k_scale, act_scale, bias, stride,
+                      padding, relu, out_dtype, out)
 
-    layers_mod.int8_conv = recorded
+    quant_mod.int8_conv = patched
     try:
         yield
     finally:
-        layers_mod.int8_conv = real
+        quant_mod.int8_conv = real
 
 
 def _site_signature(x, wq, stride, padding, relu, bias, out_dtype, out):
@@ -3286,12 +3302,14 @@ def _int8_site_row(sig, n, plain):
 def _rewrite_parts(bench, cfg, b=16):
     """Each bf16 graph rewrite against the reference order at the R50
     shapes of a b16 forward, under bf16 autocast on the folded seed-0
-    model: CUDA-event ms back to back (host launches included: several
-    parts enqueue more slowly than the card runs them). The stem
-    (s2d against the three convs and the pool), layer2_0 (fused pools
-    against the standalone ones) and the four upsample folds in each
-    up-core form against upsample2x + the conv."""
-    from cris_tpu_torch.ops import upsample_conv
+    model: the outputs held together at the kernels' bf16 bars
+    (``_check``), and CUDA-event ms back to back (host launches
+    included: several parts enqueue more slowly than the card runs
+    them). The stem (s2d against the three convs and the pool; its s2d
+    output taken back to the pooled map), layer2_0 (fused pools against
+    the standalone ones) and the four upsample folds against upsample2x
+    + the conv."""
+    from cris_tpu_torch.ops.s2d import depth_to_space
 
     model = bench.eval_model(cfg, torch.device("cuda"),
                              bench.folded_state(cfg), rewrites=True)
@@ -3301,42 +3319,57 @@ def _rewrite_parts(bench, cfg, b=16):
     def randn(*shape):
         return torch.randn(b, *shape, device="cuda", generator=gen)
 
+    def pooled_stem(out):
+        y, entry = out
+        if entry == "s2d":  # (B, 4C, H/2, W/2) -> the pooled (B, C, ...)
+            y = depth_to_space(y.float().permute(0, 2, 3, 1))
+            y = torch.nn.functional.avg_pool2d(y.permute(0, 3, 1, 2), 2)
+        return y
+
     img, x104 = randn(3, 416, 416), randn(256, 104, 104)
     x26, x52 = randn(512, 26, 26), randn(512, 52, 52)
     f5, f4, fq = randn(1024, 13, 13), randn(512, 26, 26), randn(512, 13, 13)
     parts = {
-        "stem": (lambda: vis.stem(img), vis, "rewrites"),
+        "stem": (lambda: vis.stem(img), vis, "rewrites", pooled_stem),
         "layer2_0": (lambda: vis.layer2[0](x104), vis.layer2[0],
-                     "fuse_pool"),
+                     "fuse_pool", None),
         "proj vis_conv1 26->52": (lambda: proj.vis[1](x26), proj.vis[1],
-                                  "fuse"),
+                                  "fuse", None),
         "proj vis_conv2 52->104": (lambda: proj.vis[3](x52), proj.vis[3],
-                                   "fuse"),
+                                   "fuse", None),
         "neck f2_cat 13->26": (lambda: neck.f2_cat([f4], f5), neck.f2_cat,
-                               "fuse"),
+                               "fuse", None),
         "neck aggr 13->26": (lambda: neck.aggr([f4, f4], fq), neck.aggr,
-                             "fuse"),
+                             "fuse", None),
     }
-    rows = []
+    rows, pairs = [], []
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-        for name, (fn, mod, flag) in parts.items():
-            forms = [("off", False, None), ("on", True, None)]
-            if flag == "fuse":
-                forms = [("off", False, None), ("on, transpose core", True,
-                                               "transpose"),
-                         ("on, phase core", True, "phase")]
-            for form, on, core in forms:
-                setattr(mod, flag, on)
-                if core:
-                    upsample_conv.UP_CORE = core
+        for name, (fn, mod, flag, view) in parts.items():
+            outs = {}
+            for form in ("off", "on"):
+                setattr(mod, flag, form == "on")
+                out = fn()
+                outs[form] = (view(out) if view else out).float()
                 rows.append({"part": name, "form": form,
                              "ms": cuda_ms(fn, iters=10)})
             setattr(mod, flag, True)
-            upsample_conv.UP_CORE = "transpose"
+            got, ref = outs["on"], outs["off"]
+            pairs.append((name, got, ref))
+            rms = ref.square().mean().sqrt().item()
+            rows[-1].update(rel_l2=_rel(got, ref),
+                            max_abs_err=(got - ref).abs().max().item(),
+                            mean_abs_err=(got - ref).abs().mean().item(),
+                            ref_rms=rms)
     for r in rows:
+        extra = ("" if r["form"] == "off" else
+                 f"; against off: rel L2 {r['rel_l2']:.3e}, max |err| "
+                 f"{r['max_abs_err']:.3e}, mean {r['mean_abs_err']:.3e} "
+                 f"(RMS {r['ref_rms']:.3e})")
         print(f"18(d) rewrite part {r['part']}, {r['form']}: "
-              f"{r['ms']:.4f} ms back to back (b{b} bf16)", flush=True)
-    del model
+              f"{r['ms']:.4f} ms back to back (b{b} bf16){extra}", flush=True)
+    for name, got, ref in pairs:
+        _check(got, ref, torch.bfloat16, f"18(d) rewrite {name}")
+    del model, pairs
     torch.cuda.empty_cache()
     return rows
 
@@ -3348,9 +3381,10 @@ def phase_int8(k1, k8):
     K1 7, never the plain version), its masks against the bf16
     service's; (a) K8 against its plain version at every int8 site shape
     of the B 16 forward; (c) the R50 int8 forward at f32 on the card
-    against the CPU's plain int8 forward on the same scales, with a
-    planted fault; (d) the bench's int8 pair, its bf16 eval metric and
-    the rewrites' A/B at short lengths."""
+    against the CPU's plain int8 forward on the same scales, free-running
+    and teacher-forced, with planted faults; (d) the bench's int8 pair,
+    its bf16 eval metric, the rewrites' A/B at short lengths and each
+    rewrite against its reference order."""
     import importlib
 
     from cris_tpu_torch import bench, quantize
@@ -3358,7 +3392,8 @@ def phase_int8(k1, k8):
                                            fold_batchnorm, load_act_scales,
                                            load_cris_checkpoint)
     from cris_tpu_torch.models import build_segmenter, int8_sites
-    from cris_tpu_torch.models import layers as layers_mod
+    from cris_tpu_torch.ops import quant as quant_mod
+    from cris_tpu_torch.ops import upsample_conv
     from cris_tpu_torch.serving import PredictService
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
 
@@ -3414,14 +3449,16 @@ def phase_int8(k1, k8):
         reset_counts(k1, k8)
         del plain_calls[:]
 
-        def record(x, wq, k_scale, s, bias, stride, padding, relu,
+        def record(real, x, wq, k_scale, s, bias, stride, padding, relu,
                    out_dtype, o):
             if x.shape[0] == 16:
                 sig = _site_signature(x, wq, stride, padding, relu, bias,
                                       out_dtype, o)
                 sigs[sig] = sigs.get(sig, 0) + 1
+            return real(x, wq, k_scale, s, bias, stride, padding, relu,
+                        out_dtype, o)
 
-        with _k8_calls(layers_mod, record):
+        with _k8_calls(quant_mod, record):
             for image, sents in requests:
                 t0 = time.perf_counter()
                 res = svc8.predict(image, sents)
@@ -3491,41 +3528,72 @@ def phase_int8(k1, k8):
                 site.act_scale = site.act_scale * scale_fault
             return model
 
-        def forward(model, device):
-            """Logits, and every K8 call in order: its arguments, its
-            input's int8 levels and its output (on the CPU)."""
+        def forward(model, device, around=None):
+            """Logits, and every K8 call in order: its input, its other
+            arguments, its input's int8 levels and its output (copies on
+            the CPU: the model writes some in place afterwards)."""
             calls = []
 
-            def keep(x, *args):
-                calls.append([x.cpu(), args, k8mod.quantize_static(
-                    x, args[2]).cpu()])
-            with torch.no_grad(), _k8_calls(layers_mod, keep):
+            def keep(real, x, *args):
+                y = real(x, *args)
+                calls.append([x.to("cpu", copy=True), args,
+                              k8mod.quantize_static(x, args[2]).cpu(),
+                              y.to("cpu", copy=True)])
+                return y
+            with torch.no_grad(), _k8_calls(quant_mod, around or keep):
                 t0 = time.perf_counter()
                 logits = model(img.to(device), word.to(device)).cpu()
                 seconds = time.perf_counter() - t0
             return logits, calls, seconds
 
-        def replay(model, calls):
-            """Teacher forcing: each of ``model``'s K8 calls on the CPU
-            forward's input to that call; the sites whose output differs
-            from the CPU's (the plain version's) output."""
-            _, card_calls, _ = forward(model, "cuda")
-            differ = []
-            for i, ((x, args, _), (_, cargs, _)) in enumerate(
-                    zip(calls, card_calls)):
-                wq, ks, s, bias, stride, pads, relu, odt, o = cargs
-                xc = x.cuda()
-                if x.stride(3) == 1:  # channels-last, as the model hands it
-                    xc = xc.permute(0, 3, 1, 2).contiguous(
+        def forced(model, calls):
+            """Teacher forcing on the card against the CPU forward's
+            ``calls``, at each K8 call i: K8 on the CPU's input to call i
+            must give the CPU's (plain) output bit for bit; then the
+            call returns the CPU's output, so that the card's code
+            between two sites (the stem, the pools, the folds' borders,
+            the attention, the casts) runs on the CPU's values, and the
+            input the card hands call i + 1 is held to the CPU's at f32
+            rounding. Returns the calls whose K8 output differs, each
+            call's input relative L2, and the logits'."""
+            differ, seg, it = [], [], iter(enumerate(calls))
+
+            def around(real, x, wq, ks, s, bias, stride, pads, relu, odt, o):
+                i, (xc, _, _, yc) = next(it)
+                seg.append(_rel(x, xc.to(x.device)))
+                xr = xc.cuda()
+                if xc.stride(3) == 1:  # channels-last, as the model hands it
+                    xr = xr.permute(0, 3, 1, 2).contiguous(
                         memory_format=torch.channels_last).permute(0, 2, 3, 1)
-                got = k8(xc, wq, ks, s, bias, stride, pads, relu, odt).cpu()
-                ref = plain(x, *[a.cpu() if torch.is_tensor(a) else a
-                                 for a in args[:3]],
-                            None if bias is None else bias.cpu(), stride,
-                            pads, relu, odt)
-                if not torch.equal(got, ref):
+                if not torch.equal(real(xr, wq, ks, s, bias, stride, pads,
+                                        relu, odt).cpu(), yc):
                     differ.append(i)
-            return differ
+                if o is not None:
+                    return o.copy_(yc)
+                return torch.empty(yc.shape, dtype=yc.dtype,
+                                   device=x.device).copy_(yc)
+            logits, _, _ = forward(model, "cuda", around)
+            assert next(it, None) is None, "the card made fewer K8 calls"
+            return differ, seg, _rel(logits, ref)
+
+        @contextlib.contextmanager
+        def border_fault():
+            """The first 3x3 fold's (the projector's vis_conv1) top output
+            row off by INT8_BORDER_FAULT on the card, once."""
+            real = upsample_conv.apply_border_correction3x3
+            hits = []
+
+            def faulty(y, x, kernel):
+                y = real(y, x, kernel)
+                if not hits:
+                    y[:, 0] *= INT8_BORDER_FAULT
+                hits.append(1)
+                return y
+            upsample_conv.apply_border_correction3x3 = faulty
+            try:
+                yield hits
+            finally:
+                upsample_conv.apply_border_correction3x3 = real
 
         del plain_calls[:]
         card = int8_model("cuda")
@@ -3539,10 +3607,15 @@ def phase_int8(k1, k8):
         rel = _rel(got, ref)
         agree = ((got > 0) == (ref > 0)).float().mean().item()
         first = next((i for i, s in enumerate(shares) if s > 0), None)
-        del plain_calls[:]
-        differ = replay(card, lv_cpu)
-        bad = replay(int8_model("cuda", INT8_FAULT_SCALE), lv_cpu)
+        del plain_calls[:], lv_card
+        differ, seg, seg_logits = forced(card, lv_cpu)
         del card
+        with border_fault() as hits:
+            bad, bad_seg, _ = forced(int8_model("cuda", INT8_FAULT_SCALE),
+                                     lv_cpu)
+        bad_border = [i for i, v in enumerate(bad_seg)
+                      if v > INT8_SEGMENT_BAR]
+        worst = int(np.argmax(seg))
         print(f"18(c) R50 int8 at f32, B 1, card against the CPU's plain "
               f"version (same weights and scales): free-running, "
               f"{flip * total:.0f} of {total} int8 levels differ "
@@ -3550,21 +3623,33 @@ def phase_int8(k1, k8):
               f"{first} of {len(shares)}; per call "
               f"{['%.1e' % s for s in shares]}; logits rel L2 {rel:.3e} "
               f"(bar {INT8_LOGIT_BAR}), sign agreement {agree:.4f}; "
-              f"teacher-forced (each card call on the CPU's input to it): "
-              f"{len(differ)} of {len(shares)} calls differ from the plain "
-              f"output; with {INT8_FAULT_SITE}'s scale x {INT8_FAULT_SCALE}"
-              f": calls {bad} differ, caught; CPU forward {cpu_s:.1f} s",
-              flush=True)
+              f"teacher-forced (each card call on the CPU's input to it, "
+              f"each returning the CPU's output): {len(differ)} of "
+              f"{len(shares)} calls differ from the plain output; the "
+              f"card's inputs to the calls within rel L2 {max(seg):.3e} of "
+              f"the CPU's (the worst at call {worst}; bar "
+              f"{INT8_SEGMENT_BAR}; per call {['%.1e' % v for v in seg]}), "
+              f"its logits {seg_logits:.3e} (bar {INT8_SEGMENT_LOGIT_BAR}); "
+              f"with {INT8_FAULT_SITE}'s scale "
+              f"x {INT8_FAULT_SCALE} and vis_conv1's top row x "
+              f"{INT8_BORDER_FAULT} ({len(hits)} border calls): K8 calls "
+              f"{bad} differ, the inputs of calls {bad_border} break the "
+              f"bar ({['%.1e' % bad_seg[i] for i in bad_border]}), caught; "
+              f"CPU forward {cpu_s:.1f} s", flush=True)
         assert torch.isfinite(got).all()
         assert flip <= INT8_FLIP_BAR and rel <= INT8_LOGIT_BAR, (flip, rel)
         assert not differ, differ
-        assert bad, "the planted fault was not caught"
+        assert max(seg) <= INT8_SEGMENT_BAR, (worst, max(seg))
+        assert seg_logits <= INT8_SEGMENT_LOGIT_BAR, seg_logits
+        assert bad, "the planted scale fault was not caught"
+        assert bad_border, "the planted border fault was not caught"
         out["f32_card_vs_cpu"] = {
             "flip_share": flip, "levels": total, "first_flip_call": first,
             "flip_share_per_call": shares, "rel_l2": rel,
             "sign_agreement": agree, "teacher_forced_differ": differ,
-            "fault_calls_differ": bad}
-        del lv_card, lv_cpu
+            "segment_rel_l2": seg, "segment_logits_rel_l2": seg_logits,
+            "fault_calls_differ": bad, "fault_segments_over_bar": bad_border}
+        del lv_cpu
         torch.cuda.empty_cache()
 
         # (d) the bench at short lengths

@@ -11,9 +11,10 @@ explicit generator. ``remat`` runs a block under activation checkpointing.
 The int8 serving sites (counterpart of cris_tpu/models/layers.py:25-356,
 550-690): ``QuantConv`` is an ``nn.Conv2d`` (same parameters and keys)
 that, once ``enable_int8`` gives it a ``QuantConfig``, runs its conv in
-one of the site forms through K8 (``ops.kernels.int8_conv``) on the
-BN-folded eval model: as a plain conv (``forward``), as a pooled 1x1
-(``pooled``, the JAX package's ``PooledConv1x1``), as a pooled 1x1 on a
+one of the site forms through ``ops.quant`` (K8,
+``ops.kernels.int8_conv``, on the card) on the BN-folded eval model: as
+a plain conv (``forward``), as a pooled 1x1 (``pooled``, the JAX
+package's ``PooledConv1x1``), as a pooled 1x1 on a
 space-to-depth input (``s2d_pooled``, ``S2dPooledConv1x1``), as the s2d
 stem's 3x3 (``s2d3x3``, ``S2dConv3x3``) or as the phase convs of an
 upsample fold (``UpConvBNReLU``, ``CatUpConvBNReLU``). The JAX package's
@@ -64,8 +65,8 @@ def remat(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
 from ..ops import s2d as s2d_ops
 from ..ops import upsample_conv as upc
 from ..ops.kernels.bottleneck import compute_dtype
-from ..ops.kernels.int8_conv import int8_conv
-from ..ops.quant import dynamic_scale, quantize_channelwise
+from ..ops.quant import (dynamic_scale, int8_conv2d_static,
+                         int8_phase_conv_static, quantize_channelwise)
 from ..ops.resize import upsample2x
 from ..parallel import all_reduce_sum, process_count
 
@@ -223,8 +224,7 @@ class UpConvBNReLU(ConvBNReLU):
         if conv.site_on("upfold", "upfold_min_ch",
                         min(conv.in_channels, conv.out_channels)):
             core = conv.phase_site(xn, dt, upc.phase_kernels6, upc.PHASE_PADS6,
-                                   lambda: upc.up_core3x3(xn, kernel, dt,
-                                                          "transpose"))
+                                   lambda: upc.up_core3x3(xn, kernel, dt))
             y = upc.apply_border_correction3x3(core, xn, kernel.to(dt))
             if conv.bias is not None:
                 y = y + conv.bias.to(dt)
@@ -264,8 +264,7 @@ class CatUpConvBNReLU(ConvBNReLU):
         if conv.site_on("upfold", "upfold_min_ch", min(cu, conv.out_channels)):
             core = conv.phase_site(upn, dt, upc.phase_kernels4,
                                    upc.PHASE_PADS4,
-                                   lambda: upc.up_core1x1(upn, k_up, dt,
-                                                          "transpose"),
+                                   lambda: upc.up_core1x1(upn, k_up, dt),
                                    lambda w: w[:, :, ca:])
             y = y + upc.apply_border_ring1x1(core, upn, k_up)
         else:
@@ -448,14 +447,13 @@ class QuantConv(nn.Conv2d):
 
     def _int8_call(self, x, form, make, stride, pads, s, dt):
         kq, ks, bias = self._weights(form, make)
-        y = int8_conv(x.permute(0, 2, 3, 1), kq, ks, s.reshape(1), bias,
-                      stride, pads, out_dtype=dt)
+        y = int8_conv2d_static(x.permute(0, 2, 3, 1), (kq, ks), s, stride,
+                               pads, bias, out_dtype=dt)
         return y.permute(0, 3, 1, 2)
 
     def _quantized(self, kernel, bias):
         kq, ks = quantize_channelwise(kernel)
-        return (kq.contiguous(), ks,
-                None if bias is None else bias.detach().float())
+        return kq, ks, None if bias is None else bias.detach().float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size[0]
@@ -534,21 +532,11 @@ class QuantConv(nn.Conv2d):
             if slice_kernel is not None:
                 k = slice_kernel(k)
             pk = phase_kernels(k)
-            return [self._quantized(pk[di, dj], None)
+            return [quantize_channelwise(pk[di, dj])
                     for di in (0, 1) for dj in (0, 1)]
 
-        def static(s):
-            phases = self._weights("phase", make)
-            b, h, w, _ = xn.shape
-            out = torch.empty((b, 2 * h, 2 * w, self.out_channels), dtype=dt,
-                              device=xn.device)
-            for (di, dj), (kq, ks, _) in zip(((0, 0), (0, 1), (1, 0), (1, 1)),
-                                             phases):
-                int8_conv(xn, kq, ks, s.reshape(1), None, 1,
-                          (pads[di], pads[dj]), out_dtype=dt,
-                          out=out[:, di::2, dj::2])
-            return out
-        return quant_site(self, xn, plain, static)
+        return quant_site(self, xn, plain, lambda s: int8_phase_conv_static(
+            xn, self._weights("phase", make), pads, s, out_dtype=dt))
 
 
 def enable_int8(model: nn.Module, quant: Optional[QuantConfig]) -> nn.Module:

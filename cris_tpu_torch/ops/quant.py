@@ -40,7 +40,7 @@ def quantize_channelwise(k: torch.Tensor, eps: float = EPS
     kf = k.float()
     scale = over_127(kf.abs().amax(dim=tuple(range(kf.dim() - 1)))) + eps
     kq = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
-    return kq, scale
+    return kq.contiguous(), scale
 
 
 def quantize_dynamic(x: torch.Tensor, eps: float = EPS
@@ -85,42 +85,56 @@ def _no_dilation(lhs_dilation):
                          "form (int8_phase_conv_static) instead")
 
 
-def int8_conv2d_static(x: torch.Tensor, kernel: torch.Tensor,
-                       act_scale: torch.Tensor,
+def int8_conv2d_static(x: torch.Tensor, kernel, act_scale: torch.Tensor,
                        strides: Sequence[int] = (1, 1), padding="SAME",
                        bias: Optional[torch.Tensor] = None,
-                       lhs_dilation: Sequence[int] = (1, 1)) -> torch.Tensor:
-    """int8 conv with a calibrated activation scale; f32 (B, Ho, Wo, Co).
-    Activations beyond the calibrated range saturate at +-127."""
+                       lhs_dilation: Sequence[int] = (1, 1),
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 conv with a calibrated activation scale; (B, Ho, Wo, Co) in
+    ``out_dtype``. ``kernel`` is an HWIO float kernel, or the (int8
+    kernel, k_scale) pair ``quantize_channelwise`` makes of one (the
+    model's sites quantise once). Activations beyond the calibrated range
+    saturate at +-127."""
     _no_dilation(lhs_dilation)
-    kq, k_scale = quantize_channelwise(kernel)
+    kq, k_scale = _quantized(kernel)
     s = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
     stride = _stride(strides)
-    pads = resolve_padding(padding, x.shape, kernel.shape, stride)
+    pads = resolve_padding(padding, x.shape, kq.shape, stride)
     return int8_conv(x, kq, k_scale, s.reshape(1),
                      None if bias is None else bias.float(), stride, pads,
-                     out_dtype=torch.float32)
+                     out_dtype=out_dtype)
 
 
-def int8_phase_conv_static(x: torch.Tensor, pk: torch.Tensor, pads,
-                           act_scale: torch.Tensor) -> torch.Tensor:
+def int8_phase_conv_static(x: torch.Tensor, pk, pads,
+                           act_scale: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """The int8 upsample-fold core as four phase convs with one calibrated
-    scale: ``pk`` (2, 2, kh, kw, Ci, Co) from ``phase_kernels6/4``,
-    ``pads`` ``PHASE_PADS6/4`` (phase (di, dj) padded [pads[di],
-    pads[dj]]). Each phase writes its interleaved positions of the f32
-    (B, 2H, 2W, Co) output directly."""
+    scale: ``pk`` (2, 2, kh, kw, Ci, Co) from ``phase_kernels6/4``, or the
+    four phases' (int8 kernel, k_scale) pairs in the order (0, 0), (0, 1),
+    (1, 0), (1, 1); ``pads`` ``PHASE_PADS6/4`` (phase (di, dj) padded
+    [pads[di], pads[dj]]). Each phase writes its interleaved positions of
+    one (B, 2H, 2W, Co) output in ``out_dtype`` directly."""
     s = torch.as_tensor(act_scale, dtype=torch.float32,
                         device=x.device).reshape(1)
+    phases = ((0, 0), (0, 1), (1, 0), (1, 1))
+    qs = ([_quantized(pk[di, dj]) for di, dj in phases]
+          if torch.is_tensor(pk) else pk)
     b, h, w, _ = x.shape
-    out = torch.empty((b, 2 * h, 2 * w, pk.shape[-1]), dtype=torch.float32,
+    out = torch.empty((b, 2 * h, 2 * w, qs[0][0].shape[-1]), dtype=out_dtype,
                       device=x.device)
-    for di in (0, 1):
-        for dj in (0, 1):
-            kq, k_scale = quantize_channelwise(pk[di, dj])
-            int8_conv(x, kq, k_scale, s, None, 1,
-                      (tuple(pads[di]), tuple(pads[dj])),
-                      out_dtype=torch.float32, out=out[:, di::2, dj::2])
+    for (di, dj), (kq, k_scale) in zip(phases, qs):
+        int8_conv(x, kq, k_scale, s, None, 1,
+                  (tuple(pads[di]), tuple(pads[dj])), out_dtype=out_dtype,
+                  out=out[:, di::2, dj::2])
     return out
+
+
+def _quantized(kernel):
+    """(int8 kernel, k_scale) of a float kernel, or the pair as given."""
+    if torch.is_tensor(kernel):
+        return quantize_channelwise(kernel)
+    return kernel
 
 
 def int8_conv2d(x: torch.Tensor, kernel: torch.Tensor,

@@ -9,16 +9,13 @@ columns: the dilated core extends the image with zeros where
 same with ``fold_kernel4`` and a one-wide ring that is overwritten. The
 JAX module's docstring derives both.
 
-The up-core, the conv of x dilated by 2, is computed in one of two exact
-forms (``UP_CORE``):
-
-- ``"transpose"``: one ``F.conv_transpose2d`` with stride 2 (the JAX
-  package's ``lhs_dilation=2`` conv; its kernel flipped);
-- ``"phase"``: four ordinary convs over x, one per output phase, with the
-  ``phase_kernels6`` / ``phase_kernels4`` kernels and the
-  ``PHASE_PADS6`` / ``PHASE_PADS4`` paddings, interleaved by
-  ``interleave2x2``. The int8 sites (``models.layers``) always take this
-  form, as the JAX package's do: each phase is a plain int8 conv.
+The up-core, the conv of x dilated by 2, is one ``F.conv_transpose2d``
+with stride 2 (the JAX package's ``lhs_dilation=2`` conv; its kernel
+flipped). The int8 sites (``models.layers``) compute it instead as four
+ordinary convs over x, one per output phase, with the
+``phase_kernels6`` / ``phase_kernels4`` kernels and the ``PHASE_PADS6``
+/ ``PHASE_PADS4`` paddings (``ops.quant.int8_phase_conv_static``), as
+the JAX package's do: each phase is a plain int8 conv.
 
 Layout: NHWC tensors and HWIO kernels, as the JAX functions. The border
 strips are computed in f32 and added to the core in its dtype, as in the
@@ -31,13 +28,6 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-
-from .s2d import conv_nhwc
-
-# the up-core's form in the bf16 graph (see the module docstring); both
-# are exact, "transpose" is one cuDNN call where "phase" is four and an
-# interleave (chip_smoke.py phase 18 times both)
-UP_CORE = "transpose"
 
 # bilinear phase taps rho[di][tap a][x offset u] of the x2 upsample
 _PHASE_RHO = (
@@ -95,22 +85,6 @@ def phase_kernels4(k1: torch.Tensor) -> torch.Tensor:
     return pk.to(k1.dtype)
 
 
-def interleave2x2(y00, y01, y10, y11) -> torch.Tensor:
-    """Four (B, H, W, C) output phases -> (B, 2H, 2W, C):
-    out[2i+di, 2j+dj] = y_{di,dj}[i, j]."""
-    b, h, w, c = y00.shape
-    z = torch.stack([torch.stack([y00, y01], dim=3),
-                     torch.stack([y10, y11], dim=3)], dim=2)
-    return z.reshape(b, 2 * h, 2 * w, c)
-
-
-def phase_core(x: torch.Tensor, pk: torch.Tensor, pads, dtype) -> torch.Tensor:
-    """The dilated core as four phase convs in ``dtype``, interleaved."""
-    ys = [conv_nhwc(x, pk[di, dj], None, 1, (pads[di], pads[dj]), dtype)
-          for di in (0, 1) for dj in (0, 1)]
-    return interleave2x2(*ys)
-
-
 def transpose_core(x: torch.Tensor, kfold: torch.Tensor, dtype) -> torch.Tensor:
     """The dilated core ``conv(dilate2(x), kfold, padding k - 2)`` as one
     transposed conv with stride 2 (its kernel is the flipped fold)."""
@@ -122,17 +96,13 @@ def transpose_core(x: torch.Tensor, kfold: torch.Tensor, dtype) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def up_core3x3(x, kernel, dtype, form: Optional[str] = None) -> torch.Tensor:
-    """The k3 site's dilated core in ``form`` (default ``UP_CORE``)."""
-    if (form or UP_CORE) == "phase":
-        return phase_core(x, phase_kernels6(kernel), PHASE_PADS6, dtype)
+def up_core3x3(x, kernel, dtype) -> torch.Tensor:
+    """The k3 site's dilated core: the ``fold_kernel6`` transposed conv."""
     return transpose_core(x, fold_kernel6(kernel), dtype)
 
 
-def up_core1x1(x, kernel, dtype, form: Optional[str] = None) -> torch.Tensor:
-    """The 1x1 site's dilated core in ``form`` (default ``UP_CORE``)."""
-    if (form or UP_CORE) == "phase":
-        return phase_core(x, phase_kernels4(kernel), PHASE_PADS4, dtype)
+def up_core1x1(x, kernel, dtype) -> torch.Tensor:
+    """The 1x1 site's dilated core: the ``fold_kernel4`` transposed conv."""
     return transpose_core(x, fold_kernel4(kernel), dtype)
 
 
@@ -241,24 +211,22 @@ def apply_border_correction3x3(y: torch.Tensor, x: torch.Tensor,
     return y
 
 
-def upsample2x_conv1x1(x: torch.Tensor, kernel: torch.Tensor,
-                       form: Optional[str] = None) -> torch.Tensor:
+def upsample2x_conv1x1(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """== conv1x1(upsample2x(x), kernel) in x's dtype, NHWC, exactly (no
     bias)."""
     if tuple(kernel.shape[:2]) != (1, 1):
         raise ValueError(f"1x1 kernel required, got {tuple(kernel.shape)}")
-    y = up_core1x1(x, kernel.to(x.dtype), x.dtype, form)
+    y = up_core1x1(x, kernel.to(x.dtype), x.dtype)
     return apply_border_ring1x1(y, x, kernel)
 
 
 def upsample2x_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None,
-                       form: Optional[str] = None) -> torch.Tensor:
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """== conv3x3_same(upsample2x(x), kernel) [+ bias] in x's dtype, NHWC,
     exactly."""
     if tuple(kernel.shape[:2]) != (3, 3):
         raise ValueError(f"3x3 kernel required, got {tuple(kernel.shape)}")
-    y = up_core3x3(x, kernel.to(x.dtype), x.dtype, form)
+    y = up_core3x3(x, kernel.to(x.dtype), x.dtype)
     y = apply_border_correction3x3(y, x, kernel)
     if bias is not None:
         with torch.autocast(x.device.type, enabled=False):

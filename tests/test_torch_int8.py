@@ -72,17 +72,21 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture()
-def jax_env(monkeypatch):
-    """The JAX package's int8 and rewrite gates at the tiny thresholds;
-    every variable it may set (load_act_scales sets the gates) is put
-    back after the test."""
+def _set_jax_env(monkeypatch):
     for key in (*ENV, "CRIS_INT8_CALIB", "CRIS_INT8_CALIB_PCT"):
         monkeypatch.setenv(key, "unset")
         monkeypatch.delenv(key)
     for key, value in ENV.items():
         monkeypatch.setenv(key, value)
     return monkeypatch
+
+
+@pytest.fixture()
+def jax_env(monkeypatch):
+    """The JAX package's int8 and rewrite gates at the tiny thresholds;
+    every variable it may set (load_act_scales sets the gates) is put
+    back after the test."""
+    return _set_jax_env(monkeypatch)
 
 
 def _t(a):
@@ -251,11 +255,20 @@ def _jax_scales(tiny, jax_env, pct=None):
     return jax.tree_util.tree_map(np.asarray, scales)
 
 
+@pytest.fixture(scope="module")
+def jax_maxabs(tiny):
+    """JAX's maxabs scales of the tiny model (``_jax_scales``), computed
+    once for the tests that read them."""
+    with pytest.MonkeyPatch.context() as mp:
+        return _jax_scales(tiny, _set_jax_env(mp))
+
+
 @pytest.mark.parametrize("pct", [0.0, 99.9])
-def test_calibration_matches_jax(tiny, jax_env, pct):
+def test_calibration_matches_jax(tiny, jax_env, jax_maxabs, pct):
     """Every site JAX calibrates, and no other, within 1e-6; the tails'
     scales come stacked in JAX and one a block in the port."""
-    ref = quant_from_jax(_jax_scales(tiny, jax_env, pct))
+    ref = quant_from_jax(_jax_scales(tiny, jax_env, pct) if pct
+                         else jax_maxabs)
     got = calibrate_act_scales(tiny["port"], _port_batches(tiny["calib"]),
                                pct=pct)
     assert set(got) == set(ref)
@@ -266,7 +279,7 @@ def test_calibration_matches_jax(tiny, jax_env, pct):
 
 
 def test_scale_files_round_trip_between_the_packages(tiny, jax_env,
-                                                     tmp_path):
+                                                     jax_maxabs, tmp_path):
     """A port file loads into cris_tpu.checkpoint.load_act_scales with the
     same per-site scales and sets its gates; a JAX file loads into the
     port with the same scales and gates."""
@@ -284,11 +297,11 @@ def test_scale_files_round_trip_between_the_packages(tiny, jax_env,
     for name, value in scales.items():
         assert np.float32(back[name]) == value.numpy(), name
     jpath = str(tmp_path / "jax.npz")
-    jcal.save_act_scales(jpath, _jax_scales(tiny, jax_env), min_ch=16,
+    jcal.save_act_scales(jpath, jax_maxabs, min_ch=16,
                          pooled_min_ch=32, upfold_min_ch=32)
     loaded, gates = load_act_scales(jpath)
     assert gates == GATES
-    ref = quant_from_jax(_jax_scales(tiny, jax_env))
+    ref = quant_from_jax(jax_maxabs)
     assert {k: float(v) for k, v in loaded.items()} == {
         k: float(v) for k, v in ref.items()}
     # the port's writer gives the JAX writer's file, entry for entry
@@ -300,7 +313,7 @@ def test_scale_files_round_trip_between_the_packages(tiny, jax_env,
             assert np.array_equal(a[key], b[key]), key
 
 
-def test_tiny_int8_model_matches_jax(tiny, jax_env, monkeypatch):
+def test_tiny_int8_model_matches_jax(tiny, jax_env, jax_maxabs, monkeypatch):
     """The two int8 models on the same weights and JAX's scales, f32.
 
     Bar: in f32 the packages' site inputs differ by rounding only (the
@@ -311,7 +324,7 @@ def test_tiny_int8_model_matches_jax(tiny, jax_env, monkeypatch):
     none flipped the logits are as near as the plain f32 models, and the
     bar is the f32 parity bar, 1e-4 relative L2. Measured on this seed:
     0 of 273472 levels flipped, 1.1e-6."""
-    jscales = _jax_scales(tiny, jax_env)
+    jscales = jax_maxabs
     jmodel = dataclasses.replace(tiny["model"], fold_bn=True, pos_grid=2,
                                  quant_int8=True)
     jax_q, port_q = {}, {}
@@ -350,8 +363,7 @@ def test_tiny_int8_model_matches_jax(tiny, jax_env, monkeypatch):
         record(port_q, act_scale, k8.quantize_static(x, act_scale).float())
         return real_conv(x, wq, k_scale, act_scale, *a, **k)
 
-    import cris_tpu_torch.models.layers as port_layers
-    monkeypatch.setattr(port_layers, "int8_conv", port_conv)
+    monkeypatch.setattr(pq, "int8_conv", port_conv)
     try:
         with torch.no_grad():
             got = port(_t(tiny["img"]).permute(0, 3, 1, 2),
@@ -379,7 +391,7 @@ def entry_dir(tmp_path_factory):
     (root / "CRIS_TINY").mkdir()
     torch.save({"state_dict": sd}, root / "CRIS_TINY" / "best_model.pth")
     out = quantize.main(["--config", TINY_YAML, "--device", "cpu",
-                         "--batches", "2", "--batch-size", "2",
+                         "--batches", "1", "--batch-size", "2",
                          "--min-ch", "16", "--pooled-min-ch", "32",
                          "--upfold-min-ch", "32", "--opts",
                          "TRAIN.output_folder", str(root)])
@@ -423,8 +435,7 @@ def test_int8_service_runs_the_sites_int8(entry_dir, monkeypatch):
         calls.append(tuple(x.shape))
         return real(x, *a, **k)
 
-    import cris_tpu_torch.models.layers as port_layers
-    monkeypatch.setattr(port_layers, "int8_conv", counted)
+    monkeypatch.setattr(pq, "int8_conv", counted)
     cfg = load_config(TINY_YAML)
     cfg.output_folder = str(entry_dir)
     PredictService(cfg, device="cpu", max_batch=1)

@@ -3,7 +3,8 @@ CPU in f32 (ROADMAP §1 item 11):
 
 - ``ops/s2d`` (space-to-depth and the stem's kernel rearrangements and
   convs) and ``ops/upsample_conv`` (the folded kernels, the phase
-  kernels, both up-core forms and the border corrections) against their
+  kernels, the transposed-conv up-core, the phase convs of the int8
+  sites and the border corrections) against their
   JAX functions at 1e-5 relative;
 - the layers: ``QuantConv.pooled`` (``PooledConv1x1``), ``s2d_pooled``
   (``S2dPooledConv1x1``), ``s2d3x3`` (``S2dConv3x3``), ``UpConvBNReLU``
@@ -111,40 +112,59 @@ def test_upsample_fold_kernels_match_jax(name, kernel):
         <= 1e-6
 
 
+def _interleave(ys):
+    """Four (B, H, W, C) phases -> (B, 2H, 2W, C) by the strided writes
+    of ``ops.quant.int8_phase_conv_static``."""
+    b, h, w, c = ys[0].shape
+    out = torch.empty(b, 2 * h, 2 * w, c)
+    for (di, dj), y in zip(((0, 0), (0, 1), (1, 0), (1, 1)), ys):
+        out[:, di::2, dj::2] = y
+    return out
+
+
+def _phase_core(x, pk, pads):
+    """The dilated core as the four f32 phase convs, interleaved."""
+    return _interleave([ps.conv_nhwc(x, pk[di, dj], None, 1,
+                                     (pads[di], pads[dj]), torch.float32)
+                        for di in (0, 1) for dj in (0, 1)])
+
+
 def test_interleave_and_phase_pads_match_jax():
     ys = [RNG.randn(2, 3, 4, 5).astype(np.float32) for _ in range(4)]
-    assert _rel(pu.interleave2x2(*map(_t, ys)), ju.interleave2x2(*ys)) == 0.0
+    assert _rel(_interleave(list(map(_t, ys))), ju.interleave2x2(*ys)) == 0.0
     assert pu.PHASE_PADS6 == ju.PHASE_PADS6
     assert pu.PHASE_PADS4 == ju.PHASE_PADS4
 
 
-@pytest.mark.parametrize("form", ["phase", "transpose"])
-def test_upsample_convs_match_jax_and_the_chain(form):
-    """Both up-core forms, with the border corrections, against the JAX
-    functions and against upsample2x + conv (F.interpolate)."""
-    up = torch.nn.functional.interpolate(_t(X).permute(0, 3, 1, 2),
+@pytest.mark.parametrize("x", [X, X[:, :2, :3]], ids=["8x12", "2x3"])
+def test_upsample_convs_match_jax_and_the_chain(x):
+    """The transposed-conv up-core with the border corrections against the
+    JAX functions and against upsample2x + conv (F.interpolate), at a
+    size where the two-wide border strips meet."""
+    up = torch.nn.functional.interpolate(_t(x).permute(0, 3, 1, 2),
                                          scale_factor=2, mode="bilinear",
                                          align_corners=False)
-    got3 = pu.upsample2x_conv3x3(_t(X), _t(K3), _t(B6), form=form)
-    assert _rel(got3, ju.upsample2x_conv3x3(X, K3, B6)) <= 1e-5
+    got3 = pu.upsample2x_conv3x3(_t(x), _t(K3), _t(B6))
+    assert _rel(got3, ju.upsample2x_conv3x3(x, K3, B6)) <= 1e-5
     chain3 = torch.nn.functional.conv2d(up, _t(K3).permute(3, 2, 0, 1),
                                         _t(B6), padding=1)
     assert _rel(got3, chain3.permute(0, 2, 3, 1)) <= 1e-5
-    got1 = pu.upsample2x_conv1x1(_t(X), _t(K1), form=form)
-    assert _rel(got1, ju.upsample2x_conv1x1(X, K1)) <= 1e-5
+    got1 = pu.upsample2x_conv1x1(_t(x), _t(K1))
+    assert _rel(got1, ju.upsample2x_conv1x1(x, K1)) <= 1e-5
     chain1 = torch.nn.functional.conv2d(up, _t(K1).permute(3, 2, 0, 1))
     assert _rel(got1, chain1.permute(0, 2, 3, 1)) <= 1e-5
 
 
 def test_phase_cores_equal_the_dilated_cores_with_jax_corrections():
-    """The phase core of each kernel equals JAX's lhs-dilated core, and
-    the border functions applied to it give the JAX fold."""
-    core6 = pu.phase_core(_t(X), pu.phase_kernels6(_t(K3)), pu.PHASE_PADS6,
-                          torch.float32)
+    """The phase convs of each kernel (the int8 sites' form) and the
+    transposed conv (the bf16 form) equal JAX's lhs-dilated core, and the
+    border functions applied to it give the JAX fold."""
+    core6 = _phase_core(_t(X), pu.phase_kernels6(_t(K3)), pu.PHASE_PADS6)
     ref6 = jax.lax.conv_general_dilated(
         X, ju.fold_kernel6(K3), (1, 1), [(3, 3), (3, 3)], lhs_dilation=(2, 2),
         dimension_numbers=("NHWC", "HWIO", "NHWC"))
     assert _rel(core6, ref6) <= 1e-5
+    assert _rel(pu.up_core3x3(_t(X), _t(K3), torch.float32), ref6) <= 1e-5
     got = pu.apply_border_correction3x3(core6.clone(), _t(X), _t(K3))
     ref = ju.apply_border_correction3x3(ref6, X, K3)
     assert _rel(got, ref) <= 1e-5
@@ -153,6 +173,8 @@ def test_phase_cores_equal_the_dilated_cores_with_jax_corrections():
         X, ju.fold_kernel4(K1), (1, 1), [(2, 2), (2, 2)], lhs_dilation=(2, 2),
         dimension_numbers=("NHWC", "HWIO", "NHWC"))
     assert _rel(core4, ref4) <= 1e-5
+    assert _rel(_phase_core(_t(X), pu.phase_kernels4(_t(K1)), pu.PHASE_PADS4),
+                ref4) <= 1e-5
     got = pu.apply_border_ring1x1(core4.clone(), _t(X), _t(K1))
     assert _rel(got, ju.apply_border_ring1x1(ref4, X, K1)) <= 1e-5
 
