@@ -216,35 +216,45 @@ Phases (any failure raises, and the script exits non-zero):
    masks (0 / 255, the image's size) and two overlays, each the JPEG of
    its mask's blend.
 18. int8 serving (precision int8: bf16 with the three graph rewrites and
-   the int8 sites on K8, cris_tpu_torch/csrc/int8_conv.cu): (b) python3 -m
+   the int8 sites on K8, cris_tpu_torch/csrc/int8_conv.cu: a quantise
+   pass once a site, then the wgmma GEMM): (b) python3 -m
    cris_tpu_torch.quantize over synthetic://32 at R50 seed-0 weights (2
    batches of 16, the default gates: plain-conv sites at 64 channels,
    pooled and upfold ones at 256) writes quant_scales.npz; PredictService
    at precision int8 loads it (every site of the file engaged) and
-   answers 3 requests (1, 5, 16 sentences): K8 at every engaged site of
-   each device batch (a phase site four times), K1 7 a batch on the
-   tensor cores, the plain version never called, the request times, and
-   the masks' IoU against the bf16 service's on the same weights; (a)
-   K8 against its plain version at every int8 site shape of that B 16
-   forward (the input's dtype and memory layout as the model hands it
-   over), bit-equal, a flipped weight bit caught at each, with CUDA-event
-   times of K8 (on the device alone and back to back), the plain
-   version, cuDNN's bf16 conv of the shape and torch._int_mm at the 1x1
-   sites, and the bound (bytes over 3.35 TB/s or operations over 1,979
-   int8 TOPS); (c) the R50 int8 forward at f32 compute (no autocast) on
-   the card against the CPU's, whose int8 convs are the plain version, on
-   the same scales: the share of int8 levels that differ at the sites and
-   the logits' relative L2 under bars set from the measured flip rates;
-   then teacher-forced on the CPU's values: each card K8 call on the
-   CPU's input to it bit-equal to the CPU's output, and, with every call
-   returning the CPU's output, the card's input to each call within
-   1e-5 relative L2 of the CPU's (the card's code between two sites:
-   the stem, the pools, the folds' borders, the attention, the casts);
-   two planted faults (one site's scale x 1.05, one fold's top border
-   row x 1.001) caught by the two checks; (d)
-   the bench at short lengths (n1 2, n2 4, 2 trials): the R50 bf16 eval
-   metric, the int8 pair (cris_r50_eval_int8_throughput_416px_b32, _b16)
-   with K8's launches per batch, --ab rewrites at one round, and each
+   answers 3 requests (1, 5, 16 sentences): one int8_quantize at every
+   engaged site of each device batch and one K8 GEMM (a phase site four
+   on the one quantised input), K1 7 a batch on the tensor cores, no
+   plain version called, the request times, and the masks' IoU against
+   the bf16 service's on the same weights; (a) at every int8 site shape
+   of those device batches, B 16, B 8 and B 1 (the input's dtype and
+   memory layout as the model hands it over): the quantise pass
+   bit-equal to its plain version and the GEMM's output bit-equal to the
+   plain conv's, a flipped bit of the packed weights and the levels of a
+   quantise pass at the scale x 1.0001 caught; the site's plan (tile,
+   loader, split, grid) against the other tile height and splits, each
+   bit-equal and timed, and split-K against no split summed per batch;
+   CUDA-event times on the device alone of the quantise pass, the
+   GEMM and their sum, back to back of the pair, of the plain versions,
+   cuDNN's bf16 conv of the shape and torch._int_mm on the GEMM's own
+   int8 operands at the 1x1 sites, beside the bounds (bytes over 3.35
+   TB/s or operations over 1,979 int8 TOPS); the sums over the B 16
+   forward;
+   (c) the R50 int8 forward at f32 compute (no autocast) on the card
+   against the CPU's, whose quantise passes and int8 convs are the plain
+   versions, on the same scales: the share of int8 levels that differ at
+   the sites and the logits' relative L2 under bars set from the measured
+   flip rates; then teacher-forced on the CPU's values: each card
+   quantise pass on the CPU's input to it, and each GEMM on the CPU's
+   levels, bit-equal to the CPU's result, and, with every call returning
+   the CPU's result, the card's input to each quantise pass within 1e-5
+   relative L2 of the CPU's (the card's code between two sites: the
+   stem, the pools, the folds' borders, the attention, the casts); two
+   planted faults (one site's scale x 1.05, one fold's top border row x
+   1.001) caught by the two checks; (d) the bench at short lengths (n1 2,
+   n2 4, 2 trials): the R50 bf16 eval metric, the int8 pair
+   (cris_r50_eval_int8_throughput_416px_b32, _b16) with K8's GEMMs and
+   quantise passes per batch, --ab rewrites at one round, and each
    rewrite against the reference order at its b16 shapes (the stem,
    layer2_0, the four upsample folds): outputs at the bf16 bars, times.
 The last lines are a JSON summary of the kernels (with each one's bound:
@@ -279,6 +289,7 @@ import base64
 import contextlib
 import copy
 import hashlib
+import importlib
 import json
 import os
 import shutil
@@ -3194,11 +3205,12 @@ PHASE_SITES = ("f2_cat.0", "aggr.0", "vis.1.0", "vis.3.0")
 
 
 @contextlib.contextmanager
-def _k8_calls(quant_mod, around):
-    """ops.quant's K8 wrapper (the one every int8 site calls) patched so
-    that each call is ``around(real, x, wq, k_scale, act_scale, bias,
-    stride, padding, relu, out_dtype, out)``."""
-    real = quant_mod.int8_conv
+def _k8_calls(quant_mod, around, around_quantize=None):
+    """ops.quant's K8 wrappers (the ones every int8 site calls) patched so
+    that each GEMM is ``around(real, x, wq, k_scale, act_scale, bias,
+    stride, padding, relu, out_dtype, out)`` and, when given, each
+    quantise pass ``around_quantize(real, x, act_scale)``."""
+    real, real_quantize = quant_mod.int8_conv, quant_mod.int8_quantize
 
     def patched(x, wq, k_scale, act_scale, bias=None, stride=1,
                 padding=((0, 0), (0, 0)), relu=False, out_dtype=None,
@@ -3206,38 +3218,54 @@ def _k8_calls(quant_mod, around):
         return around(real, x, wq, k_scale, act_scale, bias, stride,
                       padding, relu, out_dtype, out)
 
+    def patched_quantize(x, act_scale):
+        return around_quantize(real_quantize, x, act_scale)
+
     quant_mod.int8_conv = patched
+    if around_quantize is not None:
+        quant_mod.int8_quantize = patched_quantize
     try:
         yield
     finally:
         quant_mod.int8_conv = real
+        quant_mod.int8_quantize = real_quantize
 
 
-def _site_signature(x, wq, stride, padding, relu, bias, out_dtype, out):
+def _quantize_signature(x):
     return (tuple(x.shape), str(x.dtype).replace("torch.", ""),
-            "nhwc" if x.stride(3) == 1 else "nchw", tuple(wq.shape), stride,
+            "nhwc" if x.stride(3) == 1 else "nchw")
+
+
+def _site_signature(qsig, wq, stride, padding, relu, bias, out_dtype, out):
+    """A GEMM call's shape: its input's quantise signature, the packed
+    kernel's (kh, kw, C, Co) and the call's other arguments."""
+    return (qsig, (wq.kh, wq.kw, wq.c, wq.co), stride,
             tuple(map(tuple, padding)), bool(relu), bias is not None,
             str(out_dtype).replace("torch.", ""), out is not None)
 
 
-def _int8_site_row(sig, n, plain):
-    """K8 at one site shape against its plain version (bit-equal, a
-    planted fault caught), with CUDA-event times of K8, the plain
-    version, cuDNN's bf16 conv and, at the 1x1 sites, torch._int_mm."""
-    from cris_tpu_torch.ops.kernels import int8_conv
+def _int8_site_row(sig, n, quantize_rows):
+    """K8 at one GEMM site shape: the quantise pass and the GEMM each
+    against its plain version (bit-equal), a flipped bit of the packed
+    weights and a quantise pass at the scale x 1.0001 caught, the plan,
+    and CUDA-event times of the quantise pass (once per input signature,
+    kept in ``quantize_rows``), the GEMM, the plain versions, cuDNN's
+    bf16 conv and, at the 1x1 sites, torch._int_mm on the GEMM's own
+    int8 operands."""
+    k8 = importlib.import_module("cris_tpu_torch.ops.kernels.int8_conv")
 
-    shape, dtype, layout, wshape, stride, pads, relu, has_bias, odt, strided \
-        = sig
-    b, h, w, c = shape
-    kh, kw, _, co = wshape
-    gen = torch.Generator(device="cuda").manual_seed(hash(sig) % 2 ** 31)
+    qsig, (kh, kw, c, co), stride, pads, relu, has_bias, odt, strided = sig
+    shape, dtype, layout = qsig
+    b, h, w, _ = shape
+    seed = int(hashlib.sha256(repr(sig).encode()).hexdigest()[:8], 16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dt, out_dt = getattr(torch, dtype), getattr(torch, odt)
     x = torch.randn(b, c, h, w, device="cuda", generator=gen).to(dt)
     if layout == "nhwc":
         x = x.contiguous(memory_format=torch.channels_last)
     xn = x.permute(0, 2, 3, 1)
-    wq = torch.randint(-127, 128, wshape, device="cuda", generator=gen,
-                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (kh, kw, c, co), device="cuda",
+                       generator=gen, dtype=torch.int8)
     ks = torch.rand(co, device="cuda", generator=gen) * 1e-2 + 1e-3
     bias = (torch.randn(co, device="cuda", generator=gen) if has_bias
             else None)
@@ -3247,23 +3275,46 @@ def _int8_site_row(sig, n, plain):
     out = (torch.empty(b, 2 * ho, 2 * wo, co, device="cuda", dtype=out_dt)
            [:, 1::2, ::2] if strided else None)
     args = (ks, s, bias, stride, pads, relu, out_dt)
+    plan = k8.int8_plan(xn.shape, wq.shape, stride, pads,
+                        k8._sms(xn.device))
+    xq, packed = k8.int8_quantize(xn, s), k8.pack_int8_weights(wq)
 
-    def k8():
-        return int8_conv(xn, wq, *args, out=out)
-    got = k8().clone()
-    ref = plain(xn, wq, *args)
+    def gemm(a=xq, p=packed):
+        return k8.int8_conv(a, p, *args, out=out)
+    got = gemm().clone()
+    ref = k8.int8_conv_plain(xn, wq, *args)
+    qref = k8.int8_quantize_plain(xn, s)
     torch.cuda.synchronize()
-    equal = torch.equal(got, ref)
+    q_equal, equal = torch.equal(xq.q, qref.q), torch.equal(got, ref)
     err = (got.float() - ref.float()).abs().max().item()
-    bad = wq.clone()
+    q_err = (xq.q.int() - qref.q.int()).abs().max().item()
+    bad = packed.w.clone()
     bad.view(-1)[:1] ^= 1
-    caught = not torch.equal(int8_conv(xn, bad, *args, out=out), ref)
-    assert equal, (sig, (got.float() - ref.float()).abs().max().item())
-    assert caught, sig
+    weight_caught = not torch.equal(
+        gemm(p=k8.PackedInt8(bad, kh, kw, c)), ref)
+    moved = k8.int8_quantize(xn, s * 1.0001)
+    levels_moved = int((moved.q != xq.q).sum())
+    level_caught = levels_moved > 0 and not torch.equal(gemm(a=moved), ref)
+    assert q_equal and equal, (sig, q_err, err)
+    assert weight_caught and level_caught, (sig, levels_moved)
     m, k = b * ho * wo, kh * kw * c
-    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * co * 2
-              + m * co * torch.empty((), dtype=out_dt).element_size())
-    mem, ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * k * co / INT8_OPS_PER_S
+    out_bytes = m * co * torch.empty((), dtype=out_dt).element_size()
+    x_bytes = x.numel() * x.element_size()
+    ops = 2.0 * m * k * co / INT8_OPS_PER_S
+    # the pair: the float input in, the kernel, the factors, the output
+    pair_mem = (x_bytes + wq.numel() + 4 * co * 2 + out_bytes) / HBM_BYTES_PER_S
+    # the GEMM alone, on its own operands
+    gemm_mem = (xq.q.numel() + packed.w.numel() + 4 * co * 2
+                + out_bytes) / HBM_BYTES_PER_S
+    if qsig not in quantize_rows:
+        q_mem = (x_bytes + xq.q.numel()) / HBM_BYTES_PER_S
+        quantize_rows[qsig] = {
+            "device_ms": device_ms(lambda: k8.int8_quantize(xn, s)),
+            "plain_ms": cuda_ms(lambda: k8.int8_quantize_plain(xn, s),
+                                iters=5),
+            "bound_ms": q_mem * 1e3, "bound_by": "bytes",
+            "max_abs_err": q_err, "cp": xq.q.shape[3]}
+    qrow = quantize_rows[qsig]
     xp = torch.nn.functional.pad(x, (pl, pr, pt, pb))
     wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16)
     bb = None if bias is None else bias.to(torch.bfloat16)
@@ -3271,32 +3322,125 @@ def _int8_site_row(sig, n, plain):
         "site": f"{b}x{h}x{w}x{c} -> {co}, k{kh}x{kw} s{stride} pads {pads}"
                 f" {dtype} {layout}" + (" relu" if relu else "")
                 + (" strided out" if strided else ""),
-        "per_forward": n, "equal": equal, "max_abs_err": err,
-        "planted_fault_caught": caught,
-        "device_ms": device_ms(k8), "ms": cuda_ms(k8),
-        "plain_ms": cuda_ms(lambda: plain(xn, wq, *args), iters=2),
+        "quantize_input": list(map(str, qsig)),
+        "per_forward": n, "equal": equal, "quantize_equal": q_equal,
+        "max_abs_err": err, "planted_weight_bit_caught": weight_caught,
+        "planted_level_caught": level_caught, "levels_moved": levels_moved,
+        "plan": {key: plan[key] for key in ("cp", "bm", "stages", "loader",
+                                            "split", "grid", "units")},
+        "quantize_device_ms": qrow["device_ms"],
+        "gemm_device_ms": device_ms(gemm),
+        "ms": cuda_ms(lambda: k8.int8_conv(xn, packed, *args, out=out)),
+        "plain_ms": cuda_ms(lambda: k8.int8_conv_plain(xn, wq, *args),
+                            iters=2),
+        "gemm_plain_ms": cuda_ms(lambda: k8.int8_conv_packed_plain(
+            xq, packed, *args), iters=2),
         "cudnn_bf16_ms": device_ms(lambda: torch.nn.functional.conv2d(
             xp.to(torch.bfloat16), wb, bb, stride)),
-        "bound_ms": max(mem, ops) * 1e3,
-        "bound_by": "bytes" if mem >= ops else "operations",
+        "bound_ms": max(pair_mem, ops) * 1e3,
+        "bound_by": "bytes" if pair_mem >= ops else "operations",
+        "gemm_bound_ms": max(gemm_mem, ops) * 1e3,
+        "gemm_bound_by": "bytes" if gemm_mem >= ops else "operations",
+        "quantize_bound_ms": qrow["bound_ms"],
         "int_mm_ms": None}
+    row["device_ms"] = row["quantize_device_ms"] + row["gemm_device_ms"]
+    # the plan against the other tile height and splits: the model's
+    # (cost_us) and the card's times, each output bit-equal
+    row["model_us"], alternatives = plan["cost_us"], {}
+    for bm in k8.TILE_ROWS:
+        best = k8.int8_plan(xn.shape, wq.shape, stride, pads,
+                            k8._sms(xn.device), bm=bm)["split"]
+        for split in sorted({1, 2, 4, 8, best, plan["split"]}):
+            if (bm, split) == (plan["bm"], plan["split"]) or \
+                    split > plan["kblocks"]:
+                continue
+            forced = k8.int8_plan(xn.shape, wq.shape, stride, pads,
+                                  k8._sms(xn.device), split=split, bm=bm)
+            real_plan = k8._plan
+            k8._plan = lambda *a, _p=forced: _p
+            try:
+                alt_equal = torch.equal(gemm().clone(), ref)
+                alternatives[f"bm {bm} split {split}"] = {
+                    "bm": bm, "split": split,
+                    "gemm_device_ms": device_ms(gemm), "equal": alt_equal,
+                    "model_us": forced["cost_us"]}
+            finally:
+                k8._plan = real_plan
+            assert alt_equal, (sig, bm, split)
+    row["alternatives"] = alternatives
+    # split-K against no split: the fastest timed plan of each kind
+    timed = [(plan["split"], row["gemm_device_ms"])] + [
+        (v["split"], v["gemm_device_ms"]) for v in alternatives.values()]
+    row["no_split_ms"] = min(t for sp, t in timed if sp == 1)
+    row["split_ms"] = min((t for sp, t in timed if sp > 1), default=None)
+    row["best_timed_ms"] = min(t for _, t in timed)
     if kh == kw == 1 and stride == 1 and pads == ((0, 0), (0, 0)):
-        xq = (xn.float() / s).round().clamp(-127, 127).to(torch.int8)
-        a = xq.reshape(m, c).contiguous()
-        bm = wq.reshape(c, co).t().contiguous().t()
+        a = xq.q.reshape(m, -1)
+        bm = packed.w.t()  # (Cp, Co), column-major
         try:
             acc = torch._int_mm(a, bm)
             assert torch.equal(acc.double(), a.double() @ bm.double())
             row["int_mm_ms"] = device_ms(lambda: torch._int_mm(a, bm))
         except RuntimeError as e:  # the library refuses the shape
             row["int_mm_error"] = str(e)[:120]
-    print(f"18(a) K8 {row['site']} x{n} a forward: equal {equal}, fault "
-          f"caught {caught}; {row['device_ms']:.4f} ms on the device "
-          f"({row['ms']:.4f} back to back), plain {row['plain_ms']:.2f}, "
-          f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f}, _int_mm "
-          f"{row['int_mm_ms']}, bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']})", flush=True)
+    pl_ = row["plan"]
+    others = "; ".join(f"{k} {v['gemm_device_ms']:.4f} (model "
+                       f"{v['model_us']:.1f} us)"
+                       for k, v in alternatives.items())
+    print(f"18(a) K8 {row['site']} x{n} a forward: plan Cp {pl_['cp']} "
+          f"bm {pl_['bm']} {pl_['stages']} stages {pl_['loader']} split "
+          f"{pl_['split']} grid {pl_['grid']} (model {row['model_us']:.1f} "
+          f"us; other plans, GEMM ms, all bit-equal: {others}); quantise "
+          f"and GEMM equal {q_equal} {equal}, "
+          f"faults caught {weight_caught} {level_caught} ({levels_moved} "
+          f"levels moved); on the device quantise "
+          f"{row['quantize_device_ms']:.4f} + GEMM "
+          f"{row['gemm_device_ms']:.4f} = {row['device_ms']:.4f} ms "
+          f"({row['ms']:.4f} back to back), plain {row['plain_ms']:.2f} "
+          f"(GEMM {row['gemm_plain_ms']:.2f}), cuDNN bf16 "
+          f"{row['cudnn_bf16_ms']:.4f}, _int_mm {row['int_mm_ms']}, bounds "
+          f"quantise {row['quantize_bound_ms']:.4f}, GEMM "
+          f"{row['gemm_bound_ms']:.4f} ({row['gemm_bound_by']}), pair "
+          f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
     return row
+
+
+def _split_report(b, rows):
+    """One device batch's GEMMs summed over its forward, beside the
+    fastest timed plan at each shape, and split-K against no split (each
+    the fastest timed plan of its kind) where int8_plan splits and where
+    a timed split beat its unsplit plan; printed and returned."""
+    def total(rs, key):
+        return sum(r[key] * r["per_forward"] for r in rs)
+    split = [r for r in rows if r["plan"]["split"] > 1]
+    missed = [r for r in rows if r["plan"]["split"] == 1
+              and r["split_ms"] is not None
+              and r["split_ms"] < r["no_split_ms"]]
+    rep = {"batch": b, "shapes": len(rows),
+           "gemms": sum(r["per_forward"] for r in rows),
+           "gemm_device_ms": total(rows, "gemm_device_ms"),
+           "best_timed_ms": total(rows, "best_timed_ms"),
+           "split_shapes": len(split),
+           "split_gemms": sum(r["per_forward"] for r in split),
+           "split_ms": total(split, "split_ms"),
+           "no_split_ms": total(split, "no_split_ms"),
+           "split_faster": sum(r["split_ms"] < r["no_split_ms"]
+                               for r in split),
+           "missed_shapes": len(missed),
+           "missed_split_ms": total(missed, "split_ms"),
+           "missed_no_split_ms": total(missed, "no_split_ms")}
+    print(f"18(a) K8 at B {b}: {rep['shapes']} GEMM site shapes, "
+          f"{rep['gemms']} GEMMs a forward, every plan bit-equal to the "
+          f"plain version; GEMMs {rep['gemm_device_ms']:.4f} ms a forward "
+          f"on the device (the fastest timed plan at each shape: "
+          f"{rep['best_timed_ms']:.4f}); int8_plan splits K at "
+          f"{rep['split_shapes']} shapes ({rep['split_gemms']} GEMMs a "
+          f"forward): split {rep['split_ms']:.4f} ms against no split "
+          f"{rep['no_split_ms']:.4f}, faster at {rep['split_faster']} of "
+          f"{rep['split_shapes']}; unsplit plans where a timed split was "
+          f"faster: {rep['missed_shapes']} ({rep['missed_split_ms']:.4f} "
+          f"against {rep['missed_no_split_ms']:.4f} ms)", flush=True)
+    return rep
 
 
 def _rewrite_parts(bench, cfg, b=16):
@@ -3374,19 +3518,18 @@ def _rewrite_parts(bench, cfg, b=16):
     return rows
 
 
-def phase_int8(k1, k8):
+def phase_int8(k1, k8, k8q):
     """18: int8 serving. (b) python3 -m cris_tpu_torch.quantize over
     synthetic:// at R50 seed-0 weights, then PredictService at precision
     int8 answering 3 requests (K8 at every engaged site a device batch,
     K1 7, never the plain version), its masks against the bf16
     service's; (a) K8 against its plain version at every int8 site shape
-    of the B 16 forward; (c) the R50 int8 forward at f32 on the card
+    of its B 16, B 8 and B 1 device batches, each plan against the
+    others; (c) the R50 int8 forward at f32 on the card
     against the CPU's plain int8 forward on the same scales, free-running
     and teacher-forced, with planted faults; (d) the bench's int8 pair,
     its bf16 eval metric, the rewrites' A/B at short lengths and each
     rewrite against its reference order."""
-    import importlib
-
     from cris_tpu_torch import bench, quantize
     from cris_tpu_torch.checkpoint import (attach_act_scales,
                                            fold_batchnorm, load_act_scales,
@@ -3398,14 +3541,18 @@ def phase_int8(k1, k8):
     from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
 
     k8mod = importlib.import_module("cris_tpu_torch.ops.kernels.int8_conv")
-    plain = k8mod.int8_conv_plain
+    plains = {name: getattr(k8mod, name) for name in (
+        "int8_conv_plain", "int8_conv_packed_plain", "int8_quantize_plain")}
     plain_calls = []
 
-    def counted_plain(*args, **kwargs):
-        plain_calls.append(1)
-        return plain(*args, **kwargs)
+    def counted(fn):
+        def call(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return call
 
-    k8mod.int8_conv_plain = counted_plain
+    for name, fn in plains.items():
+        setattr(k8mod, name, counted(fn))
     out, t_phase = {}, time.perf_counter()
     cfg = cris_r50_refcoco()
     cfg8 = copy.deepcopy(cfg)
@@ -3445,32 +3592,49 @@ def phase_int8(k1, k8):
             requests.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
                              [" ".join(rng.choice(words, 1 + i % 6))
                               for i in range(n)]))
-        sigs, latency, masks8 = {}, [], []
-        reset_counts(k1, k8)
+        sigs, qsigs, latency, masks8 = {}, {}, [], []
+        last_q = []
+        reset_counts(k1, k8, k8q)
         del plain_calls[:]
+
+        # each device batch's shapes, by its size (1, 8 and 16: the
+        # requests of 1, 5 and 16 sentences)
+        def record_quantize(real, x, s):
+            qsig = _quantize_signature(x)
+            by_b = qsigs.setdefault(x.shape[0], {})
+            by_b[qsig] = by_b.get(qsig, 0) + 1
+            last_q[:] = [qsig]
+            return real(x, s)
 
         def record(real, x, wq, k_scale, s, bias, stride, padding, relu,
                    out_dtype, o):
-            if x.shape[0] == 16:
-                sig = _site_signature(x, wq, stride, padding, relu, bias,
-                                      out_dtype, o)
-                sigs[sig] = sigs.get(sig, 0) + 1
+            # x: the site's quantised input
+            sig = _site_signature(last_q[0], wq, stride, padding, relu,
+                                  bias, out_dtype, o)
+            by_b = sigs.setdefault(x.q.shape[0], {})
+            by_b[sig] = by_b.get(sig, 0) + 1
             return real(x, wq, k_scale, s, bias, stride, padding, relu,
                         out_dtype, o)
 
-        with _k8_calls(quant_mod, record):
+        with _k8_calls(quant_mod, record, record_quantize):
             for image, sents in requests:
                 t0 = time.perf_counter()
                 res = svc8.predict(image, sents)
                 latency.append((time.perf_counter() - t0) * 1e3)
                 masks8.append([r["mask"] for r in res])
-        launches = {"K8": k8.launches, "K1": k1.launches}
+        launches = {"K8": k8.launches, "int8_quantize": k8q.launches,
+                    "K1": k1.launches}
         k1_routes = dict(k1.launches_by_route)
-        assert launches == {"K8": 3 * per_batch, "K1": 21}, launches
+        assert launches == {"K8": 3 * per_batch,
+                            "int8_quantize": 3 * len(scales),
+                            "K1": 21}, launches
         assert k1_routes["tensor_cores"] == 21, k1_routes
-        assert not plain_calls, "the plain version ran on the card path"
-        assert sum(sigs.values()) == per_batch, (sum(sigs.values()),
-                                                 per_batch)
+        assert not plain_calls, f"plain versions on the card path: " \
+            f"{sorted(set(plain_calls))}"
+        assert sorted(sigs) == sorted(qsigs) == [1, 8, 16], sorted(sigs)
+        for b, by_b in sigs.items():
+            assert sum(by_b.values()) == per_batch, (b, by_b)
+            assert sum(qsigs[b].values()) == len(scales), (b, qsigs[b])
         svc16 = PredictService(cfg, device="cuda", max_batch=16,
                                model_dir=out_dir)
         ious = []
@@ -3482,31 +3646,65 @@ def phase_int8(k1, k8):
         print(f"18(b) PredictService precision int8 ({len(scales)} sites "
               f"with scales): requests of 1, 5, 16 sentences in "
               f"{', '.join(f'{v:.2f}' for v in latency)} ms; K8 "
-              f"{launches['K8']} launches (3 device batches x {per_batch}), "
-              f"K1 {launches['K1']} by route {k1_routes}, no plain call; "
+              f"{launches['K8']} GEMM launches (3 device batches x "
+              f"{per_batch}) and {launches['int8_quantize']} quantise passes "
+              f"(3 x {len(scales)}), K1 {launches['K1']} by route "
+              f"{k1_routes}, no plain call; "
               f"masks against the bf16 service's: IoU mean "
               f"{np.mean(ious):.4f}, min {min(ious):.4f} over {len(ious)}",
               flush=True)
         out["serving"] = {"latency_ms": latency, "K8": launches["K8"],
+                          "int8_quantize": launches["int8_quantize"],
                           "K1": launches["K1"], "K8_per_batch": per_batch,
+                          "int8_quantize_per_batch": len(scales),
                           "sites": len(scales), "gates": gates,
                           "iou_vs_bf16_mean": float(np.mean(ious)),
                           "iou_vs_bf16_min": min(ious),
                           "quantize_s": quantize_s}
         del svc16
 
-        # (a) every site shape of the B 16 forward
-        rows = [_int8_site_row(sig, n, plain) for sig, n in sigs.items()]
+        # (a) every site shape of the three device batches: B 16's, then
+        # B 8's and B 1's (the requests of 5 and 1 sentences), where
+        # int8_plan may split K
+        quantize_rows, by_batch, out["split_k"] = {}, {}, []
+        for b in (16, 8, 1):
+            by_batch[b] = [_int8_site_row(sig, n, quantize_rows)
+                           for sig, n in sigs[b].items()]
+            out["split_k"].append(_split_report(b, by_batch[b]))
+        rows, q16 = by_batch[16], qsigs[16]
         fwd = {key: sum(r[key] * r["per_forward"] for r in rows)
-               for key in ("device_ms", "ms", "plain_ms", "cudnn_bf16_ms",
-                           "bound_ms")}
-        print(f"18(a) K8 at {len(rows)} site shapes, {per_batch} launches a "
-              f"B 16 forward, all bit-equal to the plain version, every "
-              f"planted fault caught; summed over the forward: "
-              f"{fwd['device_ms']:.3f} ms on the device, plain "
-              f"{fwd['plain_ms']:.1f}, cuDNN bf16 {fwd['cudnn_bf16_ms']:.3f},"
-              f" bound {fwd['bound_ms']:.3f}", flush=True)
+               for key in ("gemm_device_ms", "ms", "plain_ms",
+                           "cudnn_bf16_ms", "bound_ms", "gemm_bound_ms")}
+        fwd["quantize_device_ms"] = sum(
+            quantize_rows[q]["device_ms"] * n for q, n in q16.items())
+        fwd["quantize_bound_ms"] = sum(
+            quantize_rows[q]["bound_ms"] * n for q, n in q16.items())
+        fwd["device_ms"] = fwd["gemm_device_ms"] + fwd["quantize_device_ms"]
+        ones = [r for r in rows if r["int_mm_ms"] is not None]
+        fwd["one_by_one_gemm_device_ms"] = sum(
+            r["gemm_device_ms"] * r["per_forward"] for r in ones)
+        fwd["one_by_one_int_mm_ms"] = sum(
+            r["int_mm_ms"] * r["per_forward"] for r in ones)
+        fwd["gemm_launches"] = sum(r["per_forward"] for r in rows)
+        fwd["quantize_launches"] = sum(q16.values())
+        print(f"18(a) K8 at {len(rows)} GEMM site shapes ({len(q16)} "
+              f"quantise shapes), {per_batch} GEMMs and {len(scales)} "
+              f"quantise passes a B 16 forward, all bit-equal to the plain "
+              f"versions, every planted fault caught; summed over the "
+              f"forward on the device: GEMM {fwd['gemm_device_ms']:.3f} + "
+              f"quantise {fwd['quantize_device_ms']:.3f} = "
+              f"{fwd['device_ms']:.3f} ms (back to back {fwd['ms']:.3f}), "
+              f"plain {fwd['plain_ms']:.1f}, cuDNN bf16 "
+              f"{fwd['cudnn_bf16_ms']:.3f}, bound {fwd['bound_ms']:.3f} "
+              f"(GEMM {fwd['gemm_bound_ms']:.3f}, quantise "
+              f"{fwd['quantize_bound_ms']:.3f}); the 1x1 sites' GEMMs "
+              f"{fwd['one_by_one_gemm_device_ms']:.3f} against _int_mm's "
+              f"{fwd['one_by_one_int_mm_ms']:.3f}", flush=True)
         out["sites"], out["forward"] = rows, fwd
+        out["sites_b8"], out["sites_b1"] = by_batch[8], by_batch[1]
+        out["quantize_sites"] = [{"input": list(map(str, q)), "per_forward":
+                                  qsigs[q[0][0]][q], **r}
+                                 for q, r in quantize_rows.items()]
         del svc8
         torch.cuda.empty_cache()
 
@@ -3529,18 +3727,24 @@ def phase_int8(k1, k8):
             return model
 
         def forward(model, device, around=None):
-            """Logits, and every K8 call in order: its input, its other
-            arguments, its input's int8 levels and its output (copies on
-            the CPU: the model writes some in place afterwards)."""
+            """Logits, and every K8 call in order: ["q", input, scale,
+            levels] for a quantise pass (the levels of the real channels)
+            and ["g", other arguments, output] for a GEMM (copies on the
+            CPU: the model writes some in place afterwards)."""
             calls = []
+
+            def keep_quantize(real, x, s):
+                xq = real(x, s)
+                calls.append(["q", x.to("cpu", copy=True), s,
+                              xq.q[..., :xq.c].to("cpu", copy=True)])
+                return xq
 
             def keep(real, x, *args):
                 y = real(x, *args)
-                calls.append([x.to("cpu", copy=True), args,
-                              k8mod.quantize_static(x, args[2]).cpu(),
-                              y.to("cpu", copy=True)])
+                calls.append(["g", args, y.to("cpu", copy=True)])
                 return y
-            with torch.no_grad(), _k8_calls(quant_mod, around or keep):
+            gemm, quantise = around or (keep, keep_quantize)
+            with torch.no_grad(), _k8_calls(quant_mod, gemm, quantise):
                 t0 = time.perf_counter()
                 logits = model(img.to(device), word.to(device)).cpu()
                 seconds = time.perf_counter() - t0
@@ -3548,31 +3752,44 @@ def phase_int8(k1, k8):
 
         def forced(model, calls):
             """Teacher forcing on the card against the CPU forward's
-            ``calls``, at each K8 call i: K8 on the CPU's input to call i
-            must give the CPU's (plain) output bit for bit; then the
-            call returns the CPU's output, so that the card's code
-            between two sites (the stem, the pools, the folds' borders,
-            the attention, the casts) runs on the CPU's values, and the
-            input the card hands call i + 1 is held to the CPU's at f32
-            rounding. Returns the calls whose K8 output differs, each
-            call's input relative L2, and the logits'."""
+            ``calls``: each quantise pass i on the CPU's input to it, and
+            each GEMM on the CPU's levels, must give the CPU's result bit
+            for bit; then each call returns the CPU's result, so that the
+            card's code between two sites (the stem, the pools, the folds'
+            borders, the attention, the casts) runs on the CPU's values,
+            and the input the card hands the next quantise pass is held to
+            the CPU's at f32 rounding. Returns the calls whose result
+            differs, each quantise pass's input relative L2, and the
+            logits'."""
             differ, seg, it = [], [], iter(enumerate(calls))
 
-            def around(real, x, wq, ks, s, bias, stride, pads, relu, odt, o):
-                i, (xc, _, _, yc) = next(it)
+            def around_quantize(real, x, s):
+                i, (kind, xc, _, qc) = next(it)
+                assert kind == "q", (i, kind)
                 seg.append(_rel(x, xc.to(x.device)))
                 xr = xc.cuda()
                 if xc.stride(3) == 1:  # channels-last, as the model hands it
                     xr = xr.permute(0, 3, 1, 2).contiguous(
                         memory_format=torch.channels_last).permute(0, 2, 3, 1)
-                if not torch.equal(real(xr, wq, ks, s, bias, stride, pads,
+                got_q = real(xr, s)
+                if not torch.equal(got_q.q[..., :got_q.c].cpu(), qc):
+                    differ.append(i)
+                q = torch.zeros_like(got_q.q)
+                q[..., :got_q.c] = qc.to(x.device)
+                return k8mod.Int8Act(q, got_q.c)
+
+            def around(real, x, wq, ks, s, bias, stride, pads, relu, odt, o):
+                i, (kind, _, yc) = next(it)
+                assert kind == "g", (i, kind)
+                # x holds the CPU's levels (around_quantize returned them)
+                if not torch.equal(real(x, wq, ks, s, bias, stride, pads,
                                         relu, odt).cpu(), yc):
                     differ.append(i)
                 if o is not None:
                     return o.copy_(yc)
                 return torch.empty(yc.shape, dtype=yc.dtype,
-                                   device=x.device).copy_(yc)
-            logits, _, _ = forward(model, "cuda", around)
+                                   device=x.q.device).copy_(yc)
+            logits, _, _ = forward(model, "cuda", (around, around_quantize))
             assert next(it, None) is None, "the card made fewer K8 calls"
             return differ, seg, _rel(logits, ref)
 
@@ -3600,14 +3817,18 @@ def phase_int8(k1, k8):
         got, lv_card, _ = forward(card, "cuda")
         assert not plain_calls
         ref, lv_cpu, cpu_s = forward(int8_model("cpu"), "cpu")
-        shares = [float((a[2] != b[2]).float().mean())
-                  for a, b in zip(lv_card, lv_cpu)]
-        total = sum(v[2].numel() for v in lv_cpu)
-        flip = sum(s * v[2].numel() for s, v in zip(shares, lv_cpu)) / total
+        assert [c[0] for c in lv_card] == [c[0] for c in lv_cpu]
+        q_card = [c for c in lv_card if c[0] == "q"]
+        q_cpu = [c for c in lv_cpu if c[0] == "q"]
+        n_gemm = len(lv_cpu) - len(q_cpu)
+        shares = [float((a[3] != b[3]).float().mean())
+                  for a, b in zip(q_card, q_cpu)]
+        total = sum(v[3].numel() for v in q_cpu)
+        flip = sum(s * v[3].numel() for s, v in zip(shares, q_cpu)) / total
         rel = _rel(got, ref)
         agree = ((got > 0) == (ref > 0)).float().mean().item()
         first = next((i for i, s in enumerate(shares) if s > 0), None)
-        del plain_calls[:], lv_card
+        del plain_calls[:], lv_card, q_card
         differ, seg, seg_logits = forced(card, lv_cpu)
         del card
         with border_fault() as hits:
@@ -3617,23 +3838,24 @@ def phase_int8(k1, k8):
                       if v > INT8_SEGMENT_BAR]
         worst = int(np.argmax(seg))
         print(f"18(c) R50 int8 at f32, B 1, card against the CPU's plain "
-              f"version (same weights and scales): free-running, "
+              f"versions (same weights and scales): free-running, "
               f"{flip * total:.0f} of {total} int8 levels differ "
-              f"({flip:.3e}; bar {INT8_FLIP_BAR}), the first at K8 call "
-              f"{first} of {len(shares)}; per call "
+              f"({flip:.3e}; bar {INT8_FLIP_BAR}), the first at quantise "
+              f"pass {first} of {len(shares)}; per pass "
               f"{['%.1e' % s for s in shares]}; logits rel L2 {rel:.3e} "
               f"(bar {INT8_LOGIT_BAR}), sign agreement {agree:.4f}; "
-              f"teacher-forced (each card call on the CPU's input to it, "
-              f"each returning the CPU's output): {len(differ)} of "
-              f"{len(shares)} calls differ from the plain output; the "
-              f"card's inputs to the calls within rel L2 {max(seg):.3e} of "
-              f"the CPU's (the worst at call {worst}; bar "
-              f"{INT8_SEGMENT_BAR}; per call {['%.1e' % v for v in seg]}), "
-              f"its logits {seg_logits:.3e} (bar {INT8_SEGMENT_LOGIT_BAR}); "
-              f"with {INT8_FAULT_SITE}'s scale "
-              f"x {INT8_FAULT_SCALE} and vis_conv1's top row x "
+              f"teacher-forced (each card quantise pass on the CPU's input "
+              f"to it and each GEMM on the CPU's levels, each returning the "
+              f"CPU's result): {len(differ)} of {len(lv_cpu)} calls "
+              f"({len(shares)} quantise passes, {n_gemm} GEMMs) differ from "
+              f"the plain result; the card's inputs to the quantise passes "
+              f"within rel L2 {max(seg):.3e} of the CPU's (the worst at pass "
+              f"{worst}; bar {INT8_SEGMENT_BAR}; per pass "
+              f"{['%.1e' % v for v in seg]}), its logits {seg_logits:.3e} "
+              f"(bar {INT8_SEGMENT_LOGIT_BAR}); with {INT8_FAULT_SITE}'s "
+              f"scale x {INT8_FAULT_SCALE} and vis_conv1's top row x "
               f"{INT8_BORDER_FAULT} ({len(hits)} border calls): K8 calls "
-              f"{bad} differ, the inputs of calls {bad_border} break the "
+              f"{bad} differ, the inputs of passes {bad_border} break the "
               f"bar ({['%.1e' % bad_seg[i] for i in bad_border]}), caught; "
               f"CPU forward {cpu_s:.1f} s", flush=True)
         assert torch.isfinite(got).all()
@@ -3644,7 +3866,8 @@ def phase_int8(k1, k8):
         assert bad, "the planted scale fault was not caught"
         assert bad_border, "the planted border fault was not caught"
         out["f32_card_vs_cpu"] = {
-            "flip_share": flip, "levels": total, "first_flip_call": first,
+            "flip_share": flip, "levels": total, "first_flip_pass": first,
+            "quantize_passes": len(shares), "gemms": n_gemm,
             "flip_share_per_call": shares, "rel_l2": rel,
             "sign_agreement": agree, "teacher_forced_differ": differ,
             "segment_rel_l2": seg, "segment_logits_rel_l2": seg_logits,
@@ -3659,37 +3882,42 @@ def phase_int8(k1, k8):
         metrics = [("cris_r50_eval_throughput_416px_b32", "eval", r50, 32)] + [
             (name, "int8", bench.config_for(p), b)
             for name, p, b in bench.INT8_METRICS]
-        out["bench"], bench_k8 = [], 0
+        out["bench"], bench_k8, bench_k8q = [], 0, 0
         for name, step, mcfg, b in metrics:
-            reset_counts(k1, k8)
+            reset_counts(k1, k8, k8q)
             del plain_calls[:]
             r = bench.run_metric(name, step, mcfg, device, b, n1, n2, trials)
             bench.free(device)
             want = per_batch * r["batches"] if step == "int8" else 0
             assert k8.launches == r["k8_launches"] == want, (
                 name, k8.launches, want)
+            want = len(scales) * r["batches"] if step == "int8" else 0
+            assert k8q.launches == want, (name, k8q.launches, want)
             # the int8 model's calibration forwards run K1 too
             calib = bench.CALIB_BATCHES if step == "int8" else 0
             assert k1.launches == 7 * (r["batches"] + calib), (
                 name, k1.launches)
             assert not plain_calls
             bench_k8 += k8.launches
+            bench_k8q += k8q.launches
             print(f"18(d) bench {name}: {r['value']:.2f} img/s (trials "
                   f"{['%.2f' % v for v in r['trials']]}, spread "
                   f"{r['spread']:.4f}), {r['batches']} batches of {b}, K8 "
-                  f"{k8.launches // max(r['batches'], 1)} and K1 7 a batch",
-                  flush=True)
+                  f"{k8.launches // max(r['batches'], 1)} GEMMs, "
+                  f"{k8q.launches // max(r['batches'], 1)} quantise passes "
+                  f"and K1 7 a batch", flush=True)
             out["bench"].append({"metric": name, "batch": b, **r})
         ab = bench.ab_rewrites(r50, device, 32, n1, n2, rounds=1)
         bench.free(device)
         out["ab_rewrites"] = ab
         out["rewrite_parts"] = _rewrite_parts(bench, r50)
-        out["bench_K8"] = bench_k8
+        out["bench_K8"], out["bench_int8_quantize"] = bench_k8, bench_k8q
         print(f"18(d) bench --ab rewrites at one round: median img/s "
               f"{ab['ab']['median_img_s']}, rewrites on by default: "
               f"{ab['ab']['rewrites_on']}", flush=True)
     finally:
-        k8mod.int8_conv_plain = plain
+        for name, fn in plains.items():
+            setattr(k8mod, name, fn)
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 18: {out['seconds']:.1f} s", flush=True)
@@ -3804,7 +4032,7 @@ def main() -> int:
     if 17 in wanted:
         out["front"] = phase_front(k1)
     if 18 in wanted:
-        out["int8"] = phase_int8(k1, kernels.int8_conv)
+        out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -3985,9 +4213,9 @@ def summary(out) -> dict:
     }]
     i8 = out["int8"]
     # K8's headline site: the 1x1 site of most work, where torch._int_mm
-    # computes the same int8 product
+    # computes the same int8 product; the GEMM alone against it
     site = max((r for r in i8["sites"] if r["int_mm_ms"] is not None),
-               key=lambda r: r["bound_ms"])
+               key=lambda r: r["gemm_bound_ms"])
     kernels.append({
         "name": "int8_conv",
         "route": "cuda",
@@ -3997,19 +4225,40 @@ def summary(out) -> dict:
         "launches_by_path": {"int8 serving": i8["serving"]["K8"],
                              "bench int8 pair": i8["bench_K8"]},
         "max_abs_err": max(r["max_abs_err"] for r in i8["sites"]),
-        "ms": site["device_ms"],
-        "plain_ms": site["plain_ms"],
-        "bound_ms": site["bound_ms"],
-        "bound_by": site["bound_by"],
+        "ms": site["gemm_device_ms"],
+        "plain_ms": site["gemm_plain_ms"],
+        "bound_ms": site["gemm_bound_ms"],
+        "bound_by": site["gemm_bound_by"],
         "library_ms": site["int_mm_ms"],
-        "back_to_back_ms": site["ms"],
-        "library": "torch._int_mm on the same int8 operands (the product "
-                   "without the quantise and the epilogue)",
+        "library": "torch._int_mm on the GEMM's own int8 operands (the "
+                   "product without the epilogue, int32 out)",
         "cudnn_bf16_ms": site["cudnn_bf16_ms"],
+        "plan": site["plan"],
         "site": site["site"],
         "forward_b16": i8["forward"],
         "replaces_note": "no Pallas kernel: the XLA int8 conv of "
                          "int8_conv2d_static",
+    })
+    qrow = next(r for r in i8["quantize_sites"]
+                if r["input"] == site["quantize_input"])
+    kernels.append({
+        "name": "int8_quantize",
+        "route": "cuda",
+        "source": "cris_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "cris_tpu/ops/quant.py:87",
+        "launches": i8["serving"]["int8_quantize"] + i8["bench_int8_quantize"],
+        "launches_by_path": {"int8 serving": i8["serving"]["int8_quantize"],
+                             "bench int8 pair": i8["bench_int8_quantize"]},
+        "max_abs_err": max(r["max_abs_err"] for r in i8["quantize_sites"]),
+        "ms": qrow["device_ms"],
+        "plain_ms": qrow["plain_ms"],
+        "bound_ms": qrow["bound_ms"],
+        "bound_by": qrow["bound_by"],
+        "library_ms": None,
+        "site": f"the input of {site['site']}",
+        "forward_b16_ms": i8["forward"]["quantize_device_ms"],
+        "replaces_note": "no Pallas kernel: XLA's elementwise quantise "
+                         "of int8_conv2d_static",
     })
     api = out["api"]
     # K3, K4 and K6 at their main sites, B 16 bf16

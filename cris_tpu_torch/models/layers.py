@@ -66,7 +66,7 @@ from ..ops import s2d as s2d_ops
 from ..ops import upsample_conv as upc
 from ..ops.kernels.bottleneck import compute_dtype
 from ..ops.quant import (dynamic_scale, int8_conv2d_static,
-                         int8_phase_conv_static, quantize_channelwise)
+                         int8_phase_conv_static, quantize_packed)
 from ..ops.resize import upsample2x
 from ..parallel import all_reduce_sum, process_count
 
@@ -430,8 +430,10 @@ class QuantConv(nn.Conv2d):
                 and width >= getattr(self.quant, gate))
 
     def _weights(self, form: str, make: Callable):
-        """(int8 kernel, k_scale, f32 bias) of ``form``, quantised once and
-        kept until the weights change."""
+        """What ``make`` gives for ``form`` (the packed int8 kernel, its
+        k_scale and the f32 bias; the four phases' (packed kernel,
+        k_scale) pairs at the phase sites), made once and kept until the
+        weights change."""
         w, b = self.weight, self.bias
         tag = (w.data_ptr(), w._version, w.device,
                None if b is None else (b.data_ptr(), b._version))
@@ -446,14 +448,14 @@ class QuantConv(nn.Conv2d):
         return self.weight.permute(2, 3, 1, 0)
 
     def _int8_call(self, x, form, make, stride, pads, s, dt):
-        kq, ks, bias = self._weights(form, make)
-        y = int8_conv2d_static(x.permute(0, 2, 3, 1), (kq, ks), s, stride,
+        packed, ks, bias = self._weights(form, make)
+        y = int8_conv2d_static(x.permute(0, 2, 3, 1), (packed, ks), s, stride,
                                pads, bias, out_dtype=dt)
         return y.permute(0, 3, 1, 2)
 
     def _quantized(self, kernel, bias):
-        kq, ks = quantize_channelwise(kernel)
-        return kq, ks, None if bias is None else bias.detach().float()
+        return (*quantize_packed(kernel),
+                None if bias is None else bias.detach().float())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size[0]
@@ -532,7 +534,7 @@ class QuantConv(nn.Conv2d):
             if slice_kernel is not None:
                 k = slice_kernel(k)
             pk = phase_kernels(k)
-            return [quantize_channelwise(pk[di, dj])
+            return [quantize_packed(pk[di, dj])
                     for di in (0, 1) for dj in (0, 1)]
 
         return quant_site(self, xn, plain, lambda s: int8_phase_conv_static(

@@ -198,13 +198,22 @@ def load_library() -> ctypes.CDLL:
                 ctypes.POINTER(ll), ctypes.POINTER(ctypes.c_double),
             ]
             lib.cris_stem_plan.restype = i
-            lib.cris_int8_conv.argtypes = [
-                p, p, p, p, p, p,       # x, w, k_scale, act_scale, bias, out
-                i, i, i, i, i, i, i,    # B, H, W, C, Ho, Wo, Co
-                i, i, i, i, i,          # kh, kw, stride, pad top, pad left
-                i, i, i,                # in dtype, out dtype, relu
+            lib.cris_int8_quantize.argtypes = [
+                p, p, p,                # x, act_scale, q
+                i, i, i, i, i, i,       # B, H, W, C, Cp, in dtype
                 ll, ll, ll, ll,         # x batch/row/column/channel strides
-                ll, ll, ll, ll,         # out strides, the same order
+                p,                      # stream
+            ]
+            lib.cris_int8_quantize.restype = i
+            lib.cris_int8_conv.argtypes = [
+                p, p, p, p, p, p, p,    # xq, w, k_scale, act_scale, bias,
+                                        # out, split-K sums
+                i, i, i, i, i, i, i,    # B, H, W, Cp, Ho, Wo, Co
+                i, i, i, i, i,          # kh, kw, stride, pad top, pad left
+                i, i,                   # out dtype, relu
+                i, i, i, i, i,          # plan: bm, box pixels and rows,
+                                        # split, grid
+                ll, ll, ll, ll,         # out batch/row/column/channel strides
                 p,                      # stream
             ]
             lib.cris_int8_conv.restype = i

@@ -7,7 +7,9 @@ cris_tpu/ops/quant.py).
   scale, or a dynamic one (maxabs of the conv input / 127 + 1e-12);
 - products: int8 x int8 in int32 (K8, ``ops.kernels.int8_conv``, on the
   card; its plain version on the CPU), dequantised as
-  ``float(acc) * (s * k_scale)`` and then ``+ bias``, in f32.
+  ``float(acc) * (s * k_scale)`` and then ``+ bias``, in f32. Each site
+  quantises its input once (``int8_quantize``, K8's quantise pass), as
+  the JAX package does, and hands the result to K8's GEMM.
 
 Quantisation rounds an f32 division (x / s, not x * (1 / s)) half to
 even and clips to +-127, as the JAX package does, so both packages give
@@ -21,7 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .kernels.int8_conv import int8_conv, quantize_static
+from .kernels.int8_conv import (PackedInt8, int8_conv, int8_quantize,
+                                pack_int8_weights, quantize_static)
 
 EPS = 1e-12
 
@@ -92,15 +95,17 @@ def int8_conv2d_static(x: torch.Tensor, kernel, act_scale: torch.Tensor,
                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int8 conv with a calibrated activation scale; (B, Ho, Wo, Co) in
     ``out_dtype``. ``kernel`` is an HWIO float kernel, or the (int8
-    kernel, k_scale) pair ``quantize_channelwise`` makes of one (the
-    model's sites quantise once). Activations beyond the calibrated range
-    saturate at +-127."""
+    kernel, k_scale) pair ``quantize_channelwise`` makes of one, the int8
+    kernel HWIO or packed (``PackedInt8``: the model's sites quantise and
+    pack once). x is quantised once (``int8_quantize``). Activations
+    beyond the calibrated range saturate at +-127."""
     _no_dilation(lhs_dilation)
-    kq, k_scale = _quantized(kernel)
-    s = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    kq, k_scale = quantize_packed(kernel)
+    s = torch.as_tensor(act_scale, dtype=torch.float32,
+                        device=x.device).reshape(1)
     stride = _stride(strides)
-    pads = resolve_padding(padding, x.shape, kq.shape, stride)
-    return int8_conv(x, kq, k_scale, s.reshape(1),
+    pads = resolve_padding(padding, x.shape, (kq.kh, kq.kw), stride)
+    return int8_conv(int8_quantize(x, s), kq, k_scale, s,
                      None if bias is None else bias.float(), stride, pads,
                      out_dtype=out_dtype)
 
@@ -112,29 +117,35 @@ def int8_phase_conv_static(x: torch.Tensor, pk, pads,
     """The int8 upsample-fold core as four phase convs with one calibrated
     scale: ``pk`` (2, 2, kh, kw, Ci, Co) from ``phase_kernels6/4``, or the
     four phases' (int8 kernel, k_scale) pairs in the order (0, 0), (0, 1),
-    (1, 0), (1, 1); ``pads`` ``PHASE_PADS6/4`` (phase (di, dj) padded
-    [pads[di], pads[dj]]). Each phase writes its interleaved positions of
-    one (B, 2H, 2W, Co) output in ``out_dtype`` directly."""
+    (1, 0), (1, 1), HWIO or packed; ``pads`` ``PHASE_PADS6/4`` (phase
+    (di, dj) padded [pads[di], pads[dj]]). x is quantised once for the
+    four (cris_tpu/ops/quant.py:121); each phase writes its interleaved
+    positions of one (B, 2H, 2W, Co) output in ``out_dtype`` directly."""
     s = torch.as_tensor(act_scale, dtype=torch.float32,
                         device=x.device).reshape(1)
     phases = ((0, 0), (0, 1), (1, 0), (1, 1))
-    qs = ([_quantized(pk[di, dj]) for di, dj in phases]
-          if torch.is_tensor(pk) else pk)
+    qs = [quantize_packed(pk[di, dj]) for di, dj in phases] if (
+        torch.is_tensor(pk)) else [quantize_packed(pair) for pair in pk]
+    xq = int8_quantize(x, s)
     b, h, w, _ = x.shape
-    out = torch.empty((b, 2 * h, 2 * w, qs[0][0].shape[-1]), dtype=out_dtype,
+    out = torch.empty((b, 2 * h, 2 * w, qs[0][0].co), dtype=out_dtype,
                       device=x.device)
     for (di, dj), (kq, k_scale) in zip(phases, qs):
-        int8_conv(x, kq, k_scale, s, None, 1,
+        int8_conv(xq, kq, k_scale, s, None, 1,
                   (tuple(pads[di]), tuple(pads[dj])), out_dtype=out_dtype,
                   out=out[:, di::2, dj::2])
     return out
 
 
-def _quantized(kernel):
-    """(int8 kernel, k_scale) of a float kernel, or the pair as given."""
-    if torch.is_tensor(kernel):
-        return quantize_channelwise(kernel)
-    return kernel
+def quantize_packed(kernel):
+    """(PackedInt8, k_scale) of a float HWIO kernel, or of an (int8
+    kernel, k_scale) pair whose kernel is HWIO or packed already: what
+    the model's sites keep per weight change."""
+    kq, k_scale = (quantize_channelwise(kernel) if torch.is_tensor(kernel)
+                   else kernel)
+    if not isinstance(kq, PackedInt8):
+        kq = pack_int8_weights(kq)
+    return kq, k_scale
 
 
 def int8_conv2d(x: torch.Tensor, kernel: torch.Tensor,

@@ -357,13 +357,14 @@ def test_tiny_int8_model_matches_jax(tiny, jax_env, jax_maxabs, monkeypatch):
                                jnp.asarray(tiny["word"])))
     port = tiny["port"]
     set_act_scales(port, quant_from_jax(jscales))
-    real_conv = k8.int8_conv
+    real_quantize = k8.int8_quantize
 
-    def port_conv(x, wq, k_scale, act_scale, *a, **k):
-        record(port_q, act_scale, k8.quantize_static(x, act_scale).float())
-        return real_conv(x, wq, k_scale, act_scale, *a, **k)
+    def port_quantize(x, act_scale, *a, **k):  # each site's one quantise
+        xq = real_quantize(x, act_scale, *a, **k)
+        record(port_q, act_scale, xq.q[..., :xq.c].float())
+        return xq
 
-    monkeypatch.setattr(pq, "int8_conv", port_conv)
+    monkeypatch.setattr(pq, "int8_quantize", port_quantize)
     try:
         with torch.no_grad():
             got = port(_t(tiny["img"]).permute(0, 3, 1, 2),
@@ -424,18 +425,24 @@ def test_quantize_service_and_test_entry_on_the_cpu(entry_dir):
 
 
 def test_int8_service_runs_the_sites_int8(entry_dir, monkeypatch):
-    """The service's forward at int8 goes through K8's wrapper at every
-    engaged site (the plain version on the CPU), with the file's scales;
-    the bf16 service's does not."""
+    """The service's forward at int8 goes through K8's wrappers at every
+    engaged site (the plain versions on the CPU), with the file's scales:
+    one quantise pass a site, one GEMM a site and four a fold; the bf16
+    service's does not."""
     entry_dir, path = entry_dir
-    calls = []
-    real = k8.int8_conv
+    calls, quantised = [], []
+    real, real_quantize = k8.int8_conv, k8.int8_quantize
 
     def counted(x, *a, **k):
-        calls.append(tuple(x.shape))
+        calls.append(tuple(x.q.shape))
         return real(x, *a, **k)
 
+    def counted_quantize(x, *a, **k):
+        quantised.append(tuple(x.shape))
+        return real_quantize(x, *a, **k)
+
     monkeypatch.setattr(pq, "int8_conv", counted)
+    monkeypatch.setattr(pq, "int8_quantize", counted_quantize)
     cfg = load_config(TINY_YAML)
     cfg.output_folder = str(entry_dir)
     PredictService(cfg, device="cpu", max_batch=1)
@@ -448,6 +455,7 @@ def test_int8_service_runs_the_sites_int8(entry_dir, monkeypatch):
     folds = sum(n.endswith(("f2_cat.0", "aggr.0", "vis.1.0", "vis.3.0"))
                 for n, m in sites.items() if m.act_scale is not None)
     assert len(calls) == engaged + 3 * folds
+    assert len(quantised) == engaged
     assert attach_act_scales(svc.model, path) == engaged
 
 
