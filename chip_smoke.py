@@ -169,8 +169,8 @@ Phases (any failure raises, and the script exits non-zero):
    images, the plane on all threads and on one, 24 per sample) with the
    host's cores and CPU model; (d) python3 -m cris_tpu_torch.train at R50
    b64 bf16 over the 1280 records (20 steps, 1 epoch, the first 64 as the
-   val set, the profiler window on), the plane and CRIS_NATIVE=0 in turns
-   (plane, per-sample, per-sample, plane): each run's img/s, the
+   val set, the profiler window on), the plane, then CRIS_NATIVE=0, one
+   run each: each run's img/s, the
    profiler window's busy share (traced), K1 27 and K2 120 + 120
    launches all on the tensor cores, and 21 plane calls (none under
    CRIS_NATIVE=0).
@@ -257,6 +257,24 @@ Phases (any failure raises, and the script exits non-zero):
    quantise passes per batch, --ab rewrites at one round, and each
    rewrite against the reference order at its b16 shapes (the stem,
    layer2_0, the four upsample folds): outputs at the bf16 bars, times.
+19. dataset preparation on the card's machine, without OpenCV: (a) a
+   root in the released REFER layout from a seed (128 JPEGs at 640 x 480,
+   256 refs in train 192, val 32, testA 16 and testB 16 with 1 to 3
+   sentences, COCO-like polygons of 8 to 60 vertices in 1 to 3 parts, a
+   tenth uncompressed and a tenth compressed RLE; refs(unc).p and
+   instances.json); (b) python3 -m cris_tpu_torch.data_process with
+   masks, .folder2pack for each split and .prewarp of train and val (val
+   --keep-ori) in subprocesses: the record counts, every mask PNG equal
+   to REFER.getMask's mask, the committed polygons of
+   tests/torch_prep_fixtures rasterised to cv2.fillPoly's sha256
+   digests, refs/s a stage; (c) the first b16 train batch of the
+   prewarped pack equal to the raw pack's through the native data plane,
+   bit for bit; (d) python3 -m cris_tpu_torch.train at R50 416 px bf16,
+   seeded weights, b16, from the prewarped train pack, 1 epoch of 12
+   steps, validating on the prewarped val pack with its masks (finite
+   losses, K2 6 + 6 and K1 1 a step and 7 a val batch, all on the tensor
+   cores), then python3 -m cris_tpu_torch.test on the val pack (an IoU
+   line, pairs/s, K1 7 a batch).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -282,6 +300,8 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # front, the predict entry
     python3 chip_smoke.py --phases 18     # int8 serving: quantize, K8 at
                                           # every site, f32 card vs CPU
+    python3 chip_smoke.py --phases 19     # dataset preparation, then train
+                                          # and test from its packs
 """
 
 import argparse
@@ -2331,10 +2351,9 @@ def phase_host_plane(k1, k2, k2_bwd):
     per-sample path on 64 640 x 480 JPEG records, train and val,
     np.array_equal on every array; (c) host_input_pipeline_640x480 at its
     module's default size; (d) python3 -m cris_tpu_torch.train at R50 b64
-    bf16 over a refpack of 1280 such records, 20 steps an arm, the plane
-    and CRIS_NATIVE=0 in turns (plane, per-sample, per-sample, plane):
-    img/s, the profiler window's busy share and K1/K2's launches by route
-    per run. Returns the numbers."""
+    bf16 over a refpack of 1280 such records, 20 steps an arm, the plane,
+    then CRIS_NATIVE=0, one run each: img/s, the profiler window's busy
+    share and K1/K2's launches by route per run. Returns the numbers."""
     from cris_tpu_torch import train as entry
     from cris_tpu_torch.bench import card as bench_card
     from cris_tpu_torch.data import RefDataset, codec, write_refpack
@@ -2400,7 +2419,7 @@ def phase_host_plane(k1, k2, k2_bwd):
         assert host["native_img_s"] > 0 and host["python_img_s"] > 0, host
         out["host"] = host
 
-        # (d) the train entry, the plane against CRIS_NATIVE=0, in turns
+        # (d) the train entry, the plane, then CRIS_NATIVE=0
         argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
                 "--opts", "DATA.train_lmdb", train_pack, "DATA.val_lmdb",
                 val_pack, "DATA.mask_root", masks, "TRAIN.epochs", "1",
@@ -2411,8 +2430,7 @@ def phase_host_plane(k1, k2, k2_bwd):
         runs = []
         before = os.environ.get("CRIS_NATIVE")
         try:
-            for k, (rnd, arm) in enumerate([(0, "plane"), (0, "per-sample"),
-                                            (1, "per-sample"), (1, "plane")]):
+            for k, (rnd, arm) in enumerate([(0, "plane"), (0, "per-sample")]):
                 if arm == "plane":
                     os.environ.pop("CRIS_NATIVE", None)
                 else:
@@ -3924,6 +3942,394 @@ def phase_int8(k1, k8, k8q):
     return out
 
 
+# phase 19: a root in the released REFER layout (refs pickle, COCO
+# instances JSON, train2014 JPEGs) made from a seed
+PREP_SPLITS = {"train": 192, "val": 32, "testA": 16, "testB": 16}
+PREP_IMAGES, PREP_SIZE, PREP_SEED = 128, (640, 480), 19
+PREP_FIXTURES = os.path.join("tests", "torch_prep_fixtures")
+_PREP_WORDS = ("the", "man", "woman", "dog", "left", "right", "red", "blue",
+               "shirt", "car", "small", "big", "chair", "near", "top", "on")
+
+
+def coco_polygon(rng, h: int, w: int, vertices=(8, 60), parts=(1, 3)):
+    """A COCO-like polygon annotation: 1 to 3 parts of 8 to 60 float
+    vertices (two decimals) around a random centre, some crossing the
+    image's border and about one part in ten self-intersecting."""
+    out = []
+    for _ in range(rng.randint(parts[0], parts[1] + 1)):
+        n = rng.randint(vertices[0], vertices[1] + 1)
+        cx, cy = rng.uniform(-0.05, 1.05) * w, rng.uniform(-0.05, 1.05) * h
+        r = rng.uniform(0.03, 0.4) * min(h, w)
+        angle = rng.rand(n) * 2 * np.pi
+        if rng.rand() >= 0.1:
+            angle = np.sort(angle)
+        radius = r * rng.uniform(0.5, 1.2, n)
+        pts = np.stack([cx + radius * np.cos(angle),
+                        cy + radius * np.sin(angle)], 1)
+        out.append(np.round(pts, 2).ravel().tolist())
+    return out
+
+
+def rle_counts(mask: np.ndarray) -> list:
+    """COCO's uncompressed RLE of a 0/1 mask: column-major runs, zeros
+    first."""
+    flat = mask.T.ravel().astype(np.int8)
+    change = np.flatnonzero(np.diff(flat)) + 1
+    counts = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
+    return [0] + counts if flat[0] else counts
+
+
+def rle_string(counts: list) -> str:
+    """pycocotools' rleToString: the compressed form of RLE counts."""
+    out = bytearray()
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            if more:
+                c |= 0x20
+            out.append(c + 48)
+    return out.decode("ascii")
+
+
+def write_refer_root(root: str, seed: int = PREP_SEED,
+                     splits=PREP_SPLITS, n_images: int = PREP_IMAGES,
+                     size=PREP_SIZE, dataset: str = "refcoco",
+                     split_by: str = "unc", image_ids=None) -> dict:
+    """A REFER root under ``root`` in the released layout: ``n_images``
+    JPEGs (``codec.encode_jpeg`` of drawn images at ``size``, w x h) and one ref a {split: count} entry of ``splits``, each with 1 to
+    3 sentences and its own annotation (a COCO-like polygon list; every
+    tenth an uncompressed RLE and every tenth a compressed RLE), plus
+    unreferenced annotations, in ``{dataset}/refs({split_by}).p`` and
+    ``{dataset}/instances.json``. Returns the counts."""
+    import pickle
+
+    from cris_tpu_torch.data.codec import encode_jpeg
+
+    rng = np.random.RandomState(seed)
+    w, h = size
+    refclef = dataset == "refclef"
+    img_dir = os.path.join(root, "images", "saiapr_tc-12" if refclef else
+                           os.path.join("mscoco", "images", "train2014"))
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, dataset), exist_ok=True)
+    ids = list(image_ids) if image_ids else [
+        int(i) for i in rng.choice(10**6, n_images, replace=False)]
+    images = []
+    for image_id in ids:  # smooth colour waves and mild noise
+        f = rng.uniform(8, 40, (2, 3))
+        wave_x = 60 * np.sin(np.arange(w)[:, None] / f[0] + rng.rand(3) * 6)
+        wave_y = 50 * np.cos(np.arange(h)[:, None] / f[1] + rng.rand(3) * 6)
+        noise = np.frombuffer(rng.bytes(h * w * 3), np.uint8).reshape(h, w, 3)
+        img = np.clip((120 + wave_x[None] + wave_y[:, None]).astype(np.float32)
+                      + (noise & 15), 0, 255).astype(np.uint8)
+        name = (f"{image_id}.jpg" if refclef
+                else f"COCO_train2014_{image_id:012d}.jpg")
+        with open(os.path.join(img_dir, name), "wb") as f:
+            f.write(encode_jpeg(img))
+        images.append({"id": image_id, "file_name": name, "height": h,
+                       "width": w})
+    cat_ids = [c for c in range(1, 91) if c not in (12, 26, 29, 30, 45, 66,
+                                                      68, 69, 71, 83)]
+    labels = [s for s, n in splits.items() for _ in range(n)]
+    rng.shuffle(labels)
+    annotations, refs, sent_id = [], [], 0
+    for k, split in enumerate(labels + [None] * (len(labels) // 8)):
+        image = images[rng.randint(len(images))]
+        cat = int(rng.choice(cat_ids))
+        kind = k % 10  # 8: uncompressed RLE, 9: compressed RLE
+        if kind < 8:
+            seg = coco_polygon(rng, h, w)
+            pts = np.concatenate([np.reshape(p, (-1, 2)) for p in seg])
+            x0, y0 = np.clip(pts.min(0), 0, [w, h])
+            x1, y1 = np.clip(pts.max(0), 0, [w, h])
+        else:
+            yy, xx = np.mgrid[0:h, 0:w]
+            cx, cy = rng.rand() * w, rng.rand() * h
+            rx, ry = rng.uniform(0.05, 0.3, 2) * [w, h]
+            mask = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+            counts = rle_counts(mask)
+            seg = {"size": [h, w],
+                   "counts": counts if kind == 8 else rle_string(counts)}
+            x0, y0 = max(cx - rx, 0), max(cy - ry, 0)
+            x1, y1 = min(cx + rx, w), min(cy + ry, h)
+        ann_id = 10**6 + k
+        annotations.append({
+            "id": ann_id, "image_id": image["id"], "category_id": cat,
+            "segmentation": seg, "iscrowd": 0, "area": float(rng.rand() * h * w),
+            "bbox": [round(float(v), 2) for v in (x0, y0, x1 - x0, y1 - y0)]})
+        if split is None:  # an annotation no ref points at
+            continue
+        sentences = []
+        for _ in range(rng.randint(1, 4)):
+            words = [str(x) for x in rng.choice(_PREP_WORDS,
+                                                rng.randint(1, 7))]
+            sent = " ".join(words) + (" " if rng.rand() < 0.2 else "")
+            sentences.append({"tokens": words, "raw": sent, "sent": sent,
+                              "sent_id": sent_id})
+            sent_id += 1
+        refs.append({"ref_id": len(refs) + 1, "ann_id": ann_id,
+                     "image_id": image["id"], "category_id": cat,
+                     "split": split, "file_name": image["file_name"],
+                     "sent_ids": [s["sent_id"] for s in sentences],
+                     "sentences": sentences})
+    with open(os.path.join(root, dataset, f"refs({split_by}).p"), "wb") as f:
+        pickle.dump(refs, f)
+    with open(os.path.join(root, dataset, "instances.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c, "name": f"category {c}",
+                                   "supercategory": "thing"}
+                                  for c in cat_ids]}, f)
+    return {"images": len(images), "refs": len(refs),
+            "annotations": len(annotations), "sentences": sent_id}
+
+
+_RATE_LINE = r"^(\S+): (\d+)/\d+ in ([0-9.]+) s, [0-9.]+/s$"
+
+
+def _run_entries(cmds, timeout=300) -> list:
+    """Run the commands at once, each in its own process (the repository
+    root on PYTHONPATH); fail if one fails. Returns (stdout, wall seconds)
+    each, and stops every process it started."""
+    import re
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for cmd in cmds]
+    outs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate(timeout=timeout)
+            assert proc.returncode == 0, (cmd, proc.returncode, stdout[-2000:],
+                                          stderr[-4000:])
+            outs.append((stdout, time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for stdout, _ in outs:
+        assert re.search(_RATE_LINE, stdout, re.M), stdout[-2000:]
+    return outs
+
+
+def _stage_rate(outs) -> dict:
+    """The entries' progress lines summed: refs, seconds in their loops
+    (refs/s on one process), and the stage's wall seconds."""
+    import re
+
+    refs = seconds = 0.0
+    for stdout, _ in outs:
+        for _, n, s in re.findall(_RATE_LINE, stdout, re.M):
+            refs, seconds = refs + int(n), seconds + float(s)
+    return {"refs": int(refs), "loop_seconds": seconds,
+            "refs_per_s": refs / seconds,
+            "wall_seconds": max(wall for _, wall in outs)}
+
+
+def check_rasterizer_fixture() -> int:
+    """The committed polygon annotations of tests/torch_prep_fixtures
+    rasterise to the sha256 digests cv2.fillPoly gave (digests.json)."""
+    from cris_tpu_torch.data.refer import rasterize_polygons
+
+    with open(os.path.join(PREP_FIXTURES, "polygons.json")) as f:
+        cases = json.load(f)
+    with open(os.path.join(PREP_FIXTURES, "digests.json")) as f:
+        want = json.load(f)["masks"]
+    assert len(cases) == len(want) >= 20, (len(cases), len(want))
+    for case, digest in zip(cases, want):
+        mask = rasterize_polygons(case["segmentation"], case["height"],
+                                  case["width"])
+        got = hashlib.sha256(mask.tobytes()).hexdigest()
+        assert got == digest, (case["name"], got, digest)
+    return len(cases)
+
+
+def phase_prep(k1, k2, k2_bwd):
+    """19: dataset preparation on the card's machine, then train and test
+    from its packs: (a) a REFER root from a seed; (b) python3 -m
+    cris_tpu_torch.data_process (masks), .folder2pack for each split and
+    .prewarp of train and val (val --keep-ori), in subprocesses: record
+    counts, every mask PNG decodes to REFER.getMask's mask, the
+    rasterizer fixture's digests, refs/s a stage; (c) the first b16 train
+    batch of the prewarped pack equals the raw pack's through the native
+    data plane; (d) python3 -m cris_tpu_torch.train at R50 bf16 b16 from
+    the prewarped pack, 1 epoch of 12 steps, validating on the val pack,
+    then python3 -m cris_tpu_torch.test on it."""
+    import re
+
+    from cris_tpu_torch import test as test_entry
+    from cris_tpu_torch import train as entry
+    from cris_tpu_torch.data import RefDataLoader, RefDataset, RefPackReader
+    from cris_tpu_torch.data.codec import decode_mask
+    from cris_tpu_torch.data.refer import REFER
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    t_phase = time.perf_counter()
+    cfg = cris_r50_refcoco()
+    b, size = 16, cfg.input_size
+    py = sys.executable
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, prep = os.path.join(tmp, "refer"), os.path.join(tmp, "prep")
+        t0 = time.perf_counter()
+        made = write_refer_root(root)
+        print(f"19(a) REFER root from seed {PREP_SEED}: {made} "
+              f"({PREP_SIZE[0]} x {PREP_SIZE[1]} JPEGs, splits "
+              f"{PREP_SPLITS}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        assert made["refs"] == sum(PREP_SPLITS.values())
+
+        # (b) the three entries
+        packs, warped = os.path.join(prep, "pack"), os.path.join(prep, "warped")
+        masks = os.path.join(prep, "masks", "refcoco")
+        stages = {"data_process": _run_entries([[
+            py, "-m", "cris_tpu_torch.data_process", "--data_root", root,
+            "--output_dir", prep, "--dataset", "refcoco", "--split", "unc",
+            "--generate_mask"]])}
+        stages["folder2pack"] = _run_entries([[
+            py, "-m", "cris_tpu_torch.folder2pack", "-j",
+            os.path.join(prep, "anns", "refcoco", f"{s}.json"), "-i",
+            os.path.join(root, "images", "mscoco", "images", "train2014"),
+            "-m", masks, "-o", packs] for s in PREP_SPLITS])
+        stages["prewarp"] = _run_entries([
+            [py, "-m", "cris_tpu_torch.prewarp", "-i",
+             os.path.join(packs, f"{s}.refpack"), "-o",
+             os.path.join(warped, f"{s}.refpack"), "--input-size", str(size)]
+            + (["--keep-ori"] if s == "val" else []) for s in ("train", "val")])
+        rates = {k: _stage_rate(v) for k, v in stages.items()}
+        counts = {}
+        for folder, names in ((packs, PREP_SPLITS), (warped, ("train", "val"))):
+            for s in names:
+                reader = RefPackReader(os.path.join(folder, f"{s}.refpack"))
+                counts[f"{os.path.basename(folder)}/{s}"] = len(reader)
+                assert len(reader) == PREP_SPLITS[s], (folder, s, len(reader))
+                reader.close()
+        refer = REFER(root, "refcoco", "unc")
+        for ref_id, ref in refer.Refs.items():
+            with open(os.path.join(masks, f"{ref_id}.png"), "rb") as f:
+                got = decode_mask(f.read())
+            assert np.array_equal(got, refer.getMask(ref)["mask"] * 255), ref_id
+        n_fixture = check_rasterizer_fixture()
+        print(f"19(b) data_process, folder2pack ({len(PREP_SPLITS)} splits "
+              f"at once), prewarp (train, val --keep-ori, at once) in "
+              f"subprocesses: records {counts}; {len(refer.Refs)} mask PNGs "
+              f"decode to REFER.getMask's masks; the {n_fixture} fixture "
+              f"annotations rasterise to cv2.fillPoly's digests; refs/s a "
+              f"stage on the card's host (in the entries' loops, one "
+              f"process each; wall s with the processes' start): "
+              + ", ".join(f"{k} {r['refs_per_s']:.2f} ({r['refs']} refs, "
+                          f"{r['wall_seconds']:.1f} s)"
+                          for k, r in rates.items()), flush=True)
+        out.update(records=counts, stages=rates, fixture=n_fixture)
+
+        # (c) the first train batch, prewarped against raw through the plane
+        first = {}
+        with plane_calls() as calls:
+            for name, folder in (("warped", warped), ("raw", packs)):
+                data = RefDataset(os.path.join(folder, "train.refpack"), masks,
+                                  cfg.dataset, "train", "train", size,
+                                  cfg.word_len)
+                loader = RefDataLoader(data, batch_size=b, shuffle=True,
+                                       seed=cfg.manual_seed, drop_last=True,
+                                       num_workers=1)
+                loader.set_epoch(1)
+                first[name] = next(iter(loader))
+        assert calls == [b], calls  # the raw pack's batch alone
+        assert set(first["warped"]) == set(first["raw"])
+        for key, value in first["raw"].items():
+            assert np.array_equal(first["warped"][key], value), key
+        print(f"19(c) the first b{b} train batch of the prewarped pack equals "
+              f"the raw pack's through the native data plane bit for bit "
+              f"({sorted(first['raw'])}); plane calls {calls}", flush=True)
+
+        # (d) train from the prewarped pack, then test on the val pack
+        steps = PREP_SPLITS["train"] // b
+        val_batches = -(-PREP_SPLITS["val"] // cfg.batch_size_val)
+        sites = 2 * cfg.num_layers
+        argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                "--opts", "DATA.train_lmdb",
+                os.path.join(warped, "train.refpack"),
+                "DATA.val_lmdb", os.path.join(warped, "val.refpack"),
+                "DATA.mask_root", masks, "TRAIN.batch_size", str(b),
+                "TRAIN.epochs", "1", "TRAIN.print_freq", "4",
+                "TRAIN.output_folder", tmp]
+        reset_counts(k1, k2, k2_bwd)
+        t0 = time.perf_counter()
+        best, last = entry.main(argv)
+        train_s = time.perf_counter() - t0
+        counts = {"K1": k1.launches, "K2 fwd": k2.launches,
+                  "K2 bwd": k2_bwd.launches}
+        routes = {"K1": dict(k1.launches_by_route),
+                  "K2 fwd": dict(k2.launches_by_route),
+                  "K2 bwd": dict(k2_bwd.launches_by_route)}
+        _close_log()
+        out_dir = os.path.join(tmp, cfg.exp_name)
+        log_path = os.path.join(out_dir, "train.log")
+        with open(log_path) as f:
+            log = f.read()
+        run = _run_line(log_path)
+        losses = [float(x) for x in re.findall(r"Loss=(\S+)", log)]
+        print(f"19(d) python3 -m cris_tpu_torch.train (R50 {size} px, b{b}, "
+              f"bf16, seeded weights, the prewarped pack, 1 epoch of {steps} "
+              f"steps, val on the prewarped val pack): losses {losses}, best "
+              f"IoU {best:.6f}; launches {counts}, by route {routes}; main "
+              f"{train_s:.1f} s", flush=True)
+        print(f"19(d) => run: {json.dumps(run)}", flush=True)
+        assert last == 1 and losses and all(np.isfinite(losses)), losses
+        want = {"K1": steps + 7 * val_batches, "K2 fwd": sites * steps,
+                "K2 bwd": sites * steps}
+        assert counts == want, (counts, want)
+        for name, n in want.items():
+            assert routes[name] == {"tensor_cores": n, "scalar": 0}, routes
+        assert run["steps"] == steps and run["images"] == steps * b, run
+
+        targv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                 "--opts", "TRAIN.output_folder", tmp, "TEST.test_lmdb",
+                 os.path.join(warped, "val.refpack"), "DATA.mask_root", masks]
+        reader = RefPackReader(os.path.join(warped, "val.refpack"))
+        pairs = sum(reader[i]["num_sents"] for i in range(len(reader)))
+        reader.close()
+        reset_counts(k1)
+        t0 = time.perf_counter()
+        iou, prec = test_entry.main(targv)
+        test_s = time.perf_counter() - t0
+        test_k1, test_routes = k1.launches, dict(k1.launches_by_route)
+        _close_log()
+        with open(os.path.join(out_dir, "test.log")) as f:
+            test_log = f.read()
+        test_run = _run_line(os.path.join(out_dir, "test.log"))
+        batches = -(-pairs // cfg.batch_size_val)
+        print(f"19(d) python3 -m cris_tpu_torch.test on the prewarped val pack: "
+              f"IoU {100 * iou:.2f}, "
+              + ", ".join(f"{k} {100 * v:.2f}" for k, v in prec.items())
+              + f"; {test_run['pairs']} pairs in {test_run['batches']} "
+              f"batches, {test_run['pairs_per_s']:.2f} pairs/s; K1 {test_k1} "
+              f"({test_routes}); main {test_s:.1f} s", flush=True)
+        print(f"19(d) test => run: {json.dumps(test_run)}", flush=True)
+        assert "IoU=" in test_log, test_log[-2000:]
+        assert test_run["pairs"] == pairs and test_run["batches"] == batches
+        assert test_run["pairs_per_s"] > 0, test_run
+        assert test_k1 == 7 * batches, (test_k1, batches)
+        assert test_routes == {"tensor_cores": test_k1, "scalar": 0}
+        assert all(np.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in [iou, *prec.values()]), (iou, prec)
+        out.update(losses=losses, best_iou=best, run=run, launches=counts,
+                   by_route=routes, train_seconds=train_s, test_iou=iou,
+                   test_run=test_run, test_K1=test_k1, test_seconds=test_s)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="all",
@@ -3935,7 +4341,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 19)) if run_all else {
+    wanted = set(range(2, 20)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -4033,6 +4439,8 @@ def main() -> int:
         out["front"] = phase_front(k1)
     if 18 in wanted:
         out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
+    if 19 in wanted:
+        out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)

@@ -2,7 +2,9 @@
 synthetic backend, the dataset, the loader, decoding and encoding
 (``codec``, a C++ library built at first use), the batched data plane
 (``native``: one C++ call preprocesses a batch), the numpy warps and the
-host pipeline's measurement (``host_bench``). No OpenCV."""
+host pipeline's measurement (``host_bench``); for offline preparation,
+the REFER API (``refer``) and the reference's LMDB shards
+(``lmdb_backend``). No OpenCV."""
 
 from .codec import (decode_image, decode_mask, encode_jpeg, encode_png,
                     read_mask)

@@ -29,8 +29,9 @@ bit for bit.
 ``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
 with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
 
-The C++ library (``csrc/image_codec.cc`` and the batched data plane,
-``csrc/batch_preprocess.cc``, see ``data/native.py``) is built with the
+The C++ library (``csrc/image_codec.cc``, the batched data plane,
+``csrc/batch_preprocess.cc``, see ``data/native.py``, and the polygon
+fill, ``csrc/rasterize.cc``, see ``data/refer.py``) is built with the
 host's C++ compiler at first use (a few seconds, no torch headers) under
 ``build/cris_tpu_torch/`` at the repository root, named by a digest of its
 sources and flags, and loaded with ``ctypes``. It is written under a
@@ -57,7 +58,8 @@ import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "image_codec.cc", CSRC / "batch_preprocess.cc")
+SOURCES = (CSRC / "image_codec.cc", CSRC / "batch_preprocess.cc",
+           CSRC / "rasterize.cc")
 HEADERS = (CSRC / "image_codec.h",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
 # -ffp-contract=off: the data plane's warps must round as numpy does, so
@@ -125,9 +127,10 @@ def load_library() -> ctypes.CDLL:
             sz = ctypes.POINTER(ctypes.c_size_t)
             lib.cris_batch_preprocess.argtypes = [ptrs, sz, ptrs, sz, i, i, i,
                                                   p, p, p, p, p, i]
+            lib.cris_fill_polygons.argtypes = [p, p, i, i, i, p, p, i]
             for fn in (lib.cris_decode, lib.cris_jpeg_encode,
                        lib.cris_zlib_inflate, lib.cris_batch_preprocess,
-                       lib.cris_data_abi_version):
+                       lib.cris_fill_polygons, lib.cris_data_abi_version):
                 fn.restype = i
             lib.cris_data_abi_version.argtypes = []
             lib.cris_free.argtypes = [p]

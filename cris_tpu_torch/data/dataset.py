@@ -12,7 +12,8 @@ Images stay NHWC float32, as the JAX package's samples are; the device
 step puts them in NCHW on the card. The loader takes batches from
 ``get_batch``, which preprocesses train and val records in one call of the
 native data plane (``data/native.py``). Backends come from the config's
-``*_lmdb`` entry: RefPack files or ``synthetic://COUNT?seed=S`` URIs.
+``*_lmdb`` entry: RefPack files, the reference's LMDB shards (with the
+``lmdb`` module) or ``synthetic://COUNT?seed=S`` URIs.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 
 from ..utils.tokenizer import tokenize
 from . import native
+from .lmdb_backend import LmdbBackend
 from .records import RefPackReader
 from .synthetic import SyntheticBackend
 from .transforms import (decode_image, decode_mask, get_transform_mats,
@@ -54,9 +56,14 @@ def open_backend(uri: str):
     if uri.endswith(".refpack"):
         return RefPackReader(uri)
     if uri.endswith(".lmdb"):
-        raise ValueError(f"{uri!r}: the port reads no LMDB shards (the lmdb "
-                         "module is not installed); convert them to a "
-                         ".refpack file")
+        try:
+            return LmdbBackend(uri)
+        except ImportError:
+            raise ValueError(
+                f"{uri!r}: reading LMDB shards needs the lmdb module, which "
+                "is not installed; convert them to a .refpack file (python3 "
+                "-m cris_tpu_torch.folder2pack --from-lmdb where lmdb is)"
+            ) from None
     raise ValueError(f"cannot resolve data backend for {uri!r}")
 
 

@@ -1,7 +1,8 @@
 """Logging, training meters and the experiment tracker on the standard
 library's ``logging`` (counterpart of ``setup_logger``, ``log_exceptions``,
 ``AverageMeter``, ``ProgressMeter`` and ``ExperimentTracker`` in
-cris_tpu/utils/logging.py)."""
+cris_tpu/utils/logging.py), and ``progress``, the offline tools' progress
+lines in place of ``tqdm``."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import functools
 import logging
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 _LOG_FORMAT = "%(asctime)s | %(levelname)-8s | %(name)s:%(lineno)d - %(message)s"
@@ -103,6 +105,21 @@ class ProgressMeter:
 
     def display(self, batch: int):
         logger.info(self.line(batch))
+
+
+def progress(items, desc: str, every: int = 1000):
+    """Yield ``items`` (a sized iterable) and print ``desc: i/n`` every
+    ``every`` items, then the count, seconds and rate at the end: the
+    offline tools' stand-in for ``tqdm``."""
+    n = len(items)
+    t0 = time.perf_counter()
+    for i, item in enumerate(items, 1):
+        yield item
+        if i % every == 0 and i < n:
+            print(f"{desc}: {i}/{n}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"{desc}: {n}/{n} in {seconds:.6f} s, "
+          f"{n / max(seconds, 1e-9):.2f}/s", flush=True)
 
 
 class ExperimentTracker:

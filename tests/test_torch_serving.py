@@ -239,8 +239,16 @@ def test_profile_stage_breakdown_times_every_stage():
 
 
 def test_port_imports_no_jax_opencv_yaml_or_regex():
+    # torch.hub imports tqdm where it is installed, and falls back without
+    # it: the subprocess hides tqdm, as the card's machine lacks it, so that
+    # any import of it by the port fails
     code = (
         "import sys\n"
+        "class NoTqdm:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.partition('.')[0] == 'tqdm':\n"
+        "            raise ImportError(f'no module named {name!r}')\n"
+        "sys.meta_path.insert(0, NoTqdm())\n"
         "import cris_tpu_torch.serving, cris_tpu_torch.ops.kernels.build\n"
         "import cris_tpu_torch.engine.trainer\n"
         "import cris_tpu_torch.ops.kernels.attention_dropout\n"
@@ -267,8 +275,14 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "from cris_tpu_torch.data import batch_preprocess, make_test_jpegs\n"
         "imgs, masks = make_test_jpegs(2, (200, 150))\n"
         "assert batch_preprocess(imgs, masks, 64)[0].shape == (2, 64, 64, 3)\n"
+        "import cris_tpu_torch.data.refer, cris_tpu_torch.data.lmdb_backend\n"
+        "import cris_tpu_torch.data_process, cris_tpu_torch.folder2pack\n"
+        "import cris_tpu_torch.prewarp\n"
+        "from cris_tpu_torch.data.refer import rasterize_polygons\n"
+        "assert rasterize_polygons([[1, 1, 6, 1, 6, 6]], 8, 8).sum() == 21\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"
-        "                   'wandb', 'cris_tpu') if m in sys.modules]\n"
+        "                   'wandb', 'tqdm', 'matplotlib', 'lmdb',\n"
+        "                   'cris_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
