@@ -275,13 +275,34 @@ Phases (any failure raises, and the script exits non-zero):
    losses, K2 6 + 6 and K1 1 a step and 7 a val batch, all on the tensor
    cores), then python3 -m cris_tpu_torch.test on the val pack (an IoU
    line, pairs/s, K1 7 a batch).
+20. tensor parallel (cris_tpu_torch/parallel/tensor.py, models.shard_model):
+   (a) K2 as model rank 1 of 2 runs it at the b32 train step's decoder
+   sites (676 x 676, and 676 x 17 with each row's words as the train
+   batches draw them): heads 4..7 of 8 at head offset 4, f32 (scalar
+   kernels) and bf16 (tensor-core kernels): output and gradients against
+   the plain version at the offset at phase 6's bars and equal to the
+   full 8-head launch's columns of those heads bit for bit, the packed
+   keep mask equal to keep_bits_packed at the offset and to the full
+   launch's heads 4..7, times on the device alone at offsets 4 and 0;
+   (b) 2 ranks on the one card over gloo splitting R50 over one model
+   group (dp1 x tp2): the f32 step at dropout 0 and batch 8 against one
+   process at phase 16(b)'s bars, gradients and statistics equal on the
+   ranks, copy-to-model's backward without its sum must fail the bars;
+   4 bf16 steps at dropout 0.1 and batch 8 (each rank K2 6 + 6 and K1 1 a
+   step, all on the tensor cores; the losses beside one process's);
+   Evaluator.validate over the split model against one process (within
+   1e-4); (c) torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train
+   --opts Distributed.tp_size 2 over NCCL at R50 b64 bf16 on 16(c)'s 4
+   steps, its img/s beside 16(c)'s (on one card it says that no NCCL
+   tensor-parallel rate was measured).
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
 Philox work, 40 integer multiplies a call over 16.7 Tops/s; K5 with its
 L2 weight-traffic term beside; K1-K7 timed on the device alone, with
 their back-to-back times beside; K1-K5 and K7 with their launches per
-route, K7 with its plan, K2 with its phase 16 offset cases),
+route, K7 with its plan, K2 with its phase 16 batch-offset and phase 20
+head-offset cases),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 1,9    # a subset; prints no summary
@@ -302,6 +323,8 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # every site, f32 card vs CPU
     python3 chip_smoke.py --phases 19     # dataset preparation, then train
                                           # and test from its packs
+    python3 chip_smoke.py --phases 20     # tensor parallel: K2's head
+                                          # offset, 2 gloo ranks, torchrun
 """
 
 import argparse
@@ -2603,45 +2626,46 @@ def _dp_rank(rank, port, tmp):
                      for n, p in model.named_parameters()},
            "stats": {n: x.detach().cpu() for n, x in model.named_buffers()}}
     del wrapped, model, opt
-    out["validate"] = _dp_validate(device, rank)
+    out["validate"] = _dp_validate(device)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     close_distributed()
 
 
-def _dp_inputs():
-    """(the seed-0 R50 f32 train model at dropout 0 on the CPU, the global
-    batch of DP_B on the CPU, its config)."""
+def _dp_inputs(dropout=0.0):
+    """(the seed-0 R50 f32 train model at ``dropout`` on the CPU, the
+    global batch of DP_B on the CPU, its config)."""
     from cris_tpu_torch.models import build_segmenter
     from cris_tpu_torch.profile_train import make_batches
     from cris_tpu_torch.utils import cris_r50_refcoco
 
     cfg = cris_r50_refcoco()
-    cfg.dropout = 0.0
+    cfg.dropout = dropout
     base = build_segmenter(cfg, device="cpu", seed=0, train=True)
     batch = make_batches(1, DP_B, cfg.input_size, cfg.word_len, "cpu",
                          seed=7)[0]
     return base, batch, cfg
 
 
-def _dp_validate(device, rank=0):
+def _dp_validate(device):
     """Evaluator.validate of the seed-0 R50 f32 eval model over 16
     synthetic refs, in device batches of DP_B / DP_WORLD: with a process
-    group, rank ``rank``'s shard of them."""
+    group, its data rank's shard of them, through the model split over its
+    model group under tensor parallel."""
     from cris_tpu_torch.data import RefDataLoader, RefDataset
     from cris_tpu_torch.engine import Evaluator
     from cris_tpu_torch.models import build_segmenter
-    from cris_tpu_torch.parallel import process_count
+    from cris_tpu_torch.parallel import grid
     from cris_tpu_torch.utils import cris_r50_refcoco
 
     cfg = cris_r50_refcoco()
-    world = process_count()
-    model = build_segmenter(cfg, device=device, seed=0)
+    layout = grid()
+    model = build_segmenter(cfg, device=device, seed=0, grid=layout)
     per = DP_B // DP_WORLD
     val = RefDataset("synthetic://16?seed=2", None, cfg.dataset, "val",
                      "val", cfg.input_size, cfg.word_len)
     loader = RefDataLoader(val, batch_size=per, num_workers=2,
-                           process_index=rank if world > 1 else 0,
-                           process_count=world)
+                           process_index=layout.data_rank,
+                           process_count=layout.data_size)
     ev = Evaluator(model, cfg.input_size, None, batch_size=per)
     iou, prec = ev.validate(loader)
     return {"iou": iou, "prec": prec, "pairs": ev.last_run["pairs"]}
@@ -2824,21 +2848,16 @@ def _run_group(cmd, timeout, **kwargs):
     return proc.returncode, log
 
 
-def phase_dp_entry():
-    """16(c): torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train at
-    R50 b64 bf16 over NCCL, 1 epoch of DP_ENTRY_STEPS steps over JPEG
-    records of the bench (phase 15's), the first 64 as the val set: the
-    run line's world_size, images and per-rank K1 and K2 launches, every
-    one on the tensor cores."""
+def _torchrun_train(n, *opts):
+    """torchrun --nproc_per_node=n -m cris_tpu_torch.train at R50 b64 bf16
+    (config/refcoco/cris_r50.yaml), 1 epoch of DP_ENTRY_STEPS steps over
+    JPEG records of the bench (phase 15's), the first 64 as the val set,
+    with ``opts`` appended to --opts: (its run line, seconds, its log)."""
     from cris_tpu_torch.data import write_refpack
     from cris_tpu_torch.utils import cris_r50_refcoco
 
-    n = torch.cuda.device_count()
     cfg = cris_r50_refcoco()
     b = cfg.batch_size
-    if n == 1:
-        print(f"16(c) one card: torchrun runs 1 rank over NCCL; no "
-              f"multi-card rate was measured", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         records = _bench_records(DP_ENTRY_STEPS * b)
@@ -2857,16 +2876,13 @@ def phase_dp_entry():
                "--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
                "--opts", "DATA.train_lmdb", train_pack, "DATA.val_lmdb",
                val_pack, "DATA.mask_root", masks, "TRAIN.epochs", "1",
-               "TRAIN.print_freq", "1", "TRAIN.output_folder", out]
+               "TRAIN.print_freq", "1", "TRAIN.output_folder", out, *opts]
         env = dict(os.environ, PYTHONPATH=here)
         t0 = time.perf_counter()
         code, log = _run_group(cmd, DP_TIMEOUT, cwd=here, env=env)
         seconds = time.perf_counter() - t0
-        assert code == 0, f"16(c) torchrun exited {code}:\n{log[-6000:]}"
+        assert code == 0, f"torchrun {opts} exited {code}:\n{log[-6000:]}"
         run = _run_line(os.path.join(out, cfg.exp_name, "train.log"))
-    print(f"16(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train (R50 "
-          f"416 px, b{b}, bf16, NCCL, {DP_ENTRY_STEPS} steps): {seconds:.1f} "
-          f"s; => run: {json.dumps(run)}", flush=True)
     assert log.count("=> run: ") == 1, "more than rank 0 logged"
     assert run["world_size"] == n and run["steps"] == DP_ENTRY_STEPS, run
     assert run["images"] == DP_ENTRY_STEPS * b, run
@@ -2877,9 +2893,23 @@ def phase_dp_entry():
         by_route = run["launches"][name]
         assert by_route == {"tensor_cores": [per_rank] * n,
                             "scalar": [0] * n}, (name, by_route)
-    return dict(run=run, seconds=seconds, cards=n,
-                launches={name: sum(run["launches"][name]["tensor_cores"])
-                          for name in want})
+    return run, seconds, {name: sum(run["launches"][name]["tensor_cores"])
+                          for name in want}
+
+
+def phase_dp_entry():
+    """16(c): torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train
+    over NCCL (``_torchrun_train``): the run line's world_size and images
+    and per-rank K1 and K2 launches, every one on the tensor cores."""
+    n = torch.cuda.device_count()
+    if n == 1:
+        print(f"16(c) one card: torchrun runs 1 rank over NCCL; no "
+              f"multi-card rate was measured", flush=True)
+    run, seconds, launches = _torchrun_train(n)
+    print(f"16(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train (R50 "
+          f"416 px, b{TRAIN_PY_B}, bf16, NCCL, {DP_ENTRY_STEPS} steps): "
+          f"{seconds:.1f} s; => run: {json.dumps(run)}", flush=True)
+    return dict(run=run, seconds=seconds, cards=n, launches=launches)
 
 
 def phase_data_parallel(k2, k2_fwd, plain_k2, keep_bits_packed):
@@ -2894,6 +2924,381 @@ def phase_data_parallel(k2, k2_fwd, plain_k2, keep_bits_packed):
     out["entry"] = phase_dp_entry()
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 16: {out['seconds']:.1f} s on {card_line()}", flush=True)
+    return out
+
+
+# phase 20: tensor parallel. (a) K2 at the decoder's b32 train shapes on 4
+# of its 8 heads at head offset 4; (b) TP_WORLD gloo ranks, one model group
+# (dp1 x tp2), on the one card against one process at R50 416: the f32 step
+# at global batch DP_B, TP_STEPS bf16 steps at dropout 0.1 and batch TP_B,
+# then validate; (c) the train entry at tp_size 2 under torchrun over NCCL
+# on every card when there are 2 or more
+TP_WORLD, TP_B, TP_STEPS = 2, 8, 4
+TP_K2_SITES = [site for site in K2_SITES if site[1] == 32]  # self, cross
+
+
+def phase_k2_head_offset(k2, k2_fwd, plain_k2, keep_bits_packed, rate=0.1):
+    """20(a): K2 as model rank 1 of 2 runs it at the bench's b32 train
+    step's decoder sites (676 x 676, and 676 x 17 with each row's valid
+    words as the train batches draw them): 4 of the 8 heads (their columns
+    of q, k and v) at head offset 4, f32 (the scalar kernels) and bf16 (the
+    tensor-core kernels), each call on its route. Output and dq, dk, dv
+    against the plain version at the same offset at phase 6's bars; the
+    output and gradients equal the full 8-head launch's columns of those
+    heads bit for bit, and on the tensor-core route the packed keep mask
+    equals keep_bits_packed at the offset and the full launch's heads
+    4..7. Forward and backward on the device alone at offsets 4 and 0 (the
+    same inputs), beside their bound."""
+    h_full, h, offset = 8, 4, 4
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    seed = 7654321
+    rows = []
+    for site, b, s, t, _, d, masked, dtypes in TP_K2_SITES:
+        for dtype in dtypes:
+            q, k, v, g, valid = _site_inputs(gen, b, s, t, h_full, d, masked,
+                                             dtype)
+            cols = slice(offset * d, (offset + h) * d)
+            mine = [x[..., cols].contiguous() for x in (q, k, v, g)]
+            route = expected_route(dtype, d)
+            kern = lambda q, k, v, o=offset: k2(  # noqa: E731
+                q, k, v, h, valid, rate, seed, 0, o)
+            ref_fn = lambda q, k, v: plain_k2(  # noqa: E731
+                q, k, v, h, valid, rate, seed, head_offset=offset)
+            before = dict(k2.launches_by_route)
+            got = _fwd_bwd(kern, *mine)
+            full = _fwd_bwd(lambda q, k, v: k2(q, k, v, h_full, valid, rate,
+                                                seed), q, k, v, g)
+            ref = _reference(ref_fn, *mine)
+            torch.cuda.synchronize()
+            what = f"K2 {site} {dtype} head offset {offset}"
+            e_fwd = _check(got[0], ref[0], dtype, what + " out")
+            e_bwd = max(_check(a, b_, dtype, f"{what} {n}")
+                        for n, a, b_ in zip(("dq", "dk", "dv"), got[1:],
+                                            ref[1:]))
+            del ref
+            for n, a, b_ in zip(("out", "dq", "dk", "dv"), got, full):
+                assert torch.equal(a, b_[..., cols]), \
+                    f"{what}: {n} is not the full launch's heads"
+            with torch.no_grad():
+                bits = k2_fwd(*mine[:3], h, valid, rate, seed, 0, offset)[3]
+                full_bits = k2_fwd(q, k, v, h_full, valid, rate, seed)[3]
+                at_zero = kern(*mine[:3], o=0)
+            assert _by_route_delta(k2, before) == {
+                r: 5 * (r == route) for r in before}, (what, before)
+            if route == "tensor_cores":
+                assert torch.equal(bits, keep_bits_packed(
+                    seed, b, h, s, t, rate, "cuda", head_offset=offset)), what
+                assert torch.equal(bits, full_bits[:, offset:]), what
+            else:
+                assert bits is None and full_bits is None, what
+            assert not torch.equal(at_zero, got[0]), what + ": offset ignored"
+            del full, full_bits
+            qg, kg, vg = (x.detach().requires_grad_() for x in mine[:3])
+            times = {}
+            for o in (0, offset, offset, 0):
+                out_k = kern(qg, kg, vg, o=o)
+                with torch.no_grad():
+                    fwd_ms = device_ms(lambda: kern(*mine[:3], o=o), 10)
+                bwd_ms = device_ms(lambda: torch.autograd.grad(
+                    out_k, (qg, kg, vg), mine[3], retain_graph=True), 10)
+                times.setdefault(o, []).append((fwd_ms, bwd_ms))
+                del out_k
+            lens = valid.sum(1).tolist() if valid is not None else [t]
+            row = dict(site=site, B=b, S=s, T=t, H=h, D=d,
+                       head_offset=offset, valid_keys=[min(lens), max(lens)],
+                       dtype=str(dtype).replace("torch.", ""), rate=rate,
+                       route=route, fwd_max_abs_err=e_fwd,
+                       bwd_max_abs_err=e_bwd)
+            for o, key in ((offset, ""), (0, "offset0_")):
+                row[f"{key}fwd_device_ms"] = float(np.mean(
+                    [x[0] for x in times[o]]))
+                row[f"{key}bwd_device_ms"] = float(np.mean(
+                    [x[1] for x in times[o]]))
+            for part in ("fwd", "bwd"):
+                row[f"{part}_bound_ms"], row[f"{part}_bound_by"], _ = \
+                    _k2_bound(b, s, t, h, d, dtype, route, part == "bwd",
+                              valid_keys=sum(lens) * (b // len(lens)))
+            bits_note = ("; packed mask == keep_bits_packed at the offset =="
+                         " heads 4..7 of the 8-head launch's"
+                         if route == "tensor_cores" else "")
+            print(f"20(a) K2 {site} B={b} heads {offset}..{offset + h - 1} "
+                  f"of {h_full} {row['dtype']:8s} route {route}: max|err| "
+                  f"out {e_fwd:.3e} grads {e_bwd:.3e}; out, dq, dk, dv == "
+                  f"the full launch's columns{bits_note}; device alone at "
+                  f"head offset {offset} fwd {row['fwd_device_ms']:.4f} ms "
+                  f"bwd {row['bwd_device_ms']:.4f} ms, at offset 0 fwd "
+                  f"{row['offset0_fwd_device_ms']:.4f} bwd "
+                  f"{row['offset0_bwd_device_ms']:.4f} (bound fwd "
+                  f"{row['fwd_bound_ms']:.4f} bwd {row['bwd_bound_ms']:.4f}) "
+                  f"on {card_line()}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def _tp_f32_step(base, cfg, batch, grid):
+    """One f32 train step of ``base`` split over ``grid``'s model group on
+    the card: (loss, {name: gathered gradient}, {name: BN statistic}) on
+    the CPU."""
+    from cris_tpu_torch import engine
+    from cris_tpu_torch.models import shard_model
+    from cris_tpu_torch.parallel.tensor import gather_state_dict
+
+    model = shard_model(copy.deepcopy(base), grid).cuda()
+    opt, sched = engine.make_optimizer(model, cfg, steps_per_epoch=100)
+    loss = engine.train_step(model, opt, sched, batch,
+                             step_seed=0)["loss"].item()
+    grads = gather_state_dict({n: p.grad.detach()
+                               for n, p in model.named_parameters()}, grid,
+                              model.tp_plan)
+    return (loss, {n: g.cpu() for n, g in grads.items()},
+            {n: x.detach().cpu() for n, x in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))})
+
+
+def _bf16_steps(grid=None, steps=TP_STEPS, cudnn=True):
+    """``steps`` bf16 train steps of the seed-0 R50 at dropout 0.1 and
+    batch TP_B on the card (cuDNN off unless ``cudnn``), split over
+    ``grid``'s model group when it is given: (losses, each step's K2
+    forward, K2 backward and K1 launches, the launches by route)."""
+    from cris_tpu_torch import engine
+    from cris_tpu_torch.models import build_segmenter
+    from cris_tpu_torch.ops import kernels
+    from cris_tpu_torch.profile_train import make_batches
+    from cris_tpu_torch.utils import cris_r50_refcoco
+
+    cfg = cris_r50_refcoco()
+    counters = [kernels.fused_attention_bse_dropout,
+                kernels.attention_dropout_backward,
+                kernels.fused_attention_bse]
+    model = build_segmenter(cfg, device="cuda", seed=0, train=True, grid=grid)
+    opt, sched = engine.make_optimizer(model, cfg, steps_per_epoch=100)
+    batches = make_batches(steps, TP_B, cfg.input_size, cfg.word_len,
+                           "cuda", seed=8)
+    reset_counts(*counters)
+    losses, per_step = [], []
+    for i, batch in enumerate(batches):
+        before = [c.launches for c in counters]
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            losses.append(engine.train_step(
+                model, opt, sched, batch, engine.step_seed(0, i),
+                torch.bfloat16)["loss"].item())
+        per_step.append([c.launches - n for c, n in zip(counters, before)])
+    return losses, per_step, [dict(c.launches_by_route) for c in counters]
+
+
+def _tp_rank(rank, port, tmp):
+    """20(b)'s rank ``rank`` of TP_WORLD: joins a gloo group on cuda:0 as
+    model rank ``rank`` of one model group; takes the f32 R50 step at
+    dropout 0 on the whole batch of DP_B, the same step with the planted
+    fault (copy-to-model's backward without its sum over the group, so
+    each rank's replicated layers get its own heads' share of the
+    gradient) and at dropout 0.1, TP_STEPS bf16 steps at dropout 0.1, and
+    validates the seed-0 eval model. Writes what it got to tmp."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(TP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cris_tpu_torch.parallel import (close_distributed, init_distributed,
+                                         init_grid)
+    from cris_tpu_torch.parallel import tensor
+
+    device = init_distributed("cuda:0", backend="gloo")
+    grid = init_grid(1, TP_WORLD)
+    assert (grid.data_size, grid.model_rank) == (1, rank), grid
+    base, batch, cfg = _dp_inputs()
+    out = {"f32": _tp_f32_step(base, cfg, batch, grid)}
+    real = tensor._CopyToModel.backward
+    tensor._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        out["fault"] = _tp_f32_step(base, cfg, batch, grid)
+    finally:
+        tensor._CopyToModel.backward = real
+    base, batch, cfg = _dp_inputs(0.1)
+    out["f32_dropout"] = _tp_f32_step(base, cfg, batch, grid)
+    del base
+    torch.cuda.empty_cache()
+    out["bf16"] = _bf16_steps(grid)
+    torch.cuda.empty_cache()
+    out["validate"] = _dp_validate(device)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    close_distributed()
+
+
+def phase_tp_ranks():
+    """20(b): TP_WORLD gloo ranks splitting R50 over one model group on the
+    one card, against one process on the card.
+
+    The f32 step at dropout 0 and batch DP_B is held to phase 16(b)'s bars
+    (the loss within 1e-4 relative, the gathered gradients within phase
+    7's bars around the one process's own cuDNN-off spread, each BN
+    statistic within 1e-5 plus TENSOR_SPREADS own spreads), every rank
+    holding the same gradients and statistics; the planted fault must
+    fail them. The same step at dropout 0.1, where the ranks draw the one
+    process's masks (K2's on their heads at head offsets 0 and 4): the
+    loss within 1e-4 relative of one process's. TP_STEPS bf16 steps at
+    dropout 0.1: every K1 and K2 launch on the tensor cores, K2 6 + 6 a
+    step on each rank (its 4 heads at every site), K1 1; the losses
+    printed beside one process's, a second run of one process, and the
+    first step of one process with cuDNN off (bf16's own rounding spread
+    at step 1, which the random weights amplify in the steps after).
+    Evaluator.validate over the split model
+    against one process: IoU, Pr@50..90 and oIoU within 1e-4 (the row-
+    parallel sums round otherwise, and a pixel at the threshold can
+    flip)."""
+    import multiprocessing
+    import socket
+
+    from cris_tpu_torch.grad_spread import grad_faults, grad_rel
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_tp_rank, args=(r, port, tmp))
+                 for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            base, batch, cfg = _dp_inputs()
+            loss, ref, stats = _one_step(base, cfg, batch)
+            alt_loss, alt, alt_stats = _one_step(base, cfg, batch,
+                                                 cudnn=False)
+            base, batch, cfg = _dp_inputs(0.1)
+            drop_loss = _one_step(base, cfg, batch)[0]
+            del base
+            single_bf16 = _bf16_steps()
+            again_bf16 = _bf16_steps()
+            no_cudnn_bf16 = _bf16_steps(steps=1, cudnn=False)
+            torch.cuda.empty_cache()
+            single_val = _dp_validate(torch.device("cuda"))
+        finally:
+            for p in procs:
+                p.join(DP_TIMEOUT)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * TP_WORLD, f"20(b) ranks exited {codes}"
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(TP_WORLD)]
+    names = list(ref)
+    head = [n for n in names if not n.startswith("backbone.")]
+    for r in ranks[1:]:
+        for part in (1, 2):
+            for n, x in r["f32"][part].items():
+                assert torch.equal(x, ranks[0]["f32"][part][n]), (part, n)
+    readings = {}
+    for label, (l_, g_, s_) in (("ranks", ranks[0]["f32"]),
+                                ("cuDNN off", (alt_loss, alt, alt_stats)),
+                                ("copy-to-model backward unsummed",
+                                 ranks[0]["fault"])):
+        readings[label] = dict(
+            rel_loss=abs(l_ - loss) / abs(loss),
+            rel_grad=grad_rel(g_, ref, names),
+            rel_grad_head=grad_rel(g_, ref, head),
+            worst_stat_rel=max(grad_rel(s_, stats, [n]) for n in stats),
+            grad_faults=len(grad_faults(g_, ref, alt, names, head)),
+            stat_faults=len(_stat_faults(s_, stats, alt_stats)))
+        print(f"20(b) R50 f32 train step b{DP_B} dp1 x tp{TP_WORLD}, "
+              f"{label} vs one process: {json.dumps(readings[label])}",
+              flush=True)
+    mine = readings["ranks"]
+    assert mine["rel_loss"] <= 1e-4, mine
+    assert mine["grad_faults"] == 0 and mine["stat_faults"] == 0, mine
+    bad = readings["copy-to-model backward unsummed"]
+    assert (bad["rel_loss"] > 1e-4 or bad["grad_faults"]
+            or bad["stat_faults"]), ("phase 20(b)'s bars let the planted "
+                                     "fault pass", bad)
+    drop_rel = abs(ranks[0]["f32_dropout"][0] - drop_loss) / abs(drop_loss)
+    print(f"20(b) R50 f32 train step b{DP_B} at dropout 0.1: dp1 x "
+          f"tp{TP_WORLD} loss {ranks[0]['f32_dropout'][0]:.7f} vs one "
+          f"process {drop_loss:.7f} (rel {drop_rel:.3e}; at dropout 0 "
+          f"{mine['rel_loss']:.3e})", flush=True)
+    assert drop_rel <= 1e-4, drop_rel
+    sites = 2 * cfg.num_layers
+    for r, got in enumerate(ranks):
+        losses, per_step, routes = got["bf16"]
+        assert all(np.isfinite(losses)), losses
+        assert per_step == [[sites, sites, 1]] * TP_STEPS, (r, per_step)
+        for n, by_route in zip((sites, sites, 1), routes):
+            assert by_route == {"tensor_cores": n * TP_STEPS, "scalar": 0}, \
+                (r, routes)
+    assert ranks[0]["bf16"][0] == ranks[1]["bf16"][0], "ranks' losses part"
+    tp_losses, single_losses = ranks[0]["bf16"][0], single_bf16[0]
+
+    def rel(xs):
+        return [abs(a - b) / abs(b) for a, b in zip(xs, single_losses)]
+
+    gaps, own = rel(tp_losses), rel(again_bf16[0])
+    no_cudnn = rel(no_cudnn_bf16[0])[0]
+    print(f"20(b) R50 bf16 b{TP_B} dropout 0.1, {TP_STEPS} steps: dp1 x "
+          f"tp{TP_WORLD} losses {['%.6f' % x for x in tp_losses]} vs one "
+          f"process {['%.6f' % x for x in single_losses]} (rel "
+          f"{['%.2e' % x for x in gaps]}; one process run again: rel "
+          f"{['%.2e' % x for x in own]}; its first step with cuDNN off: "
+          f"rel {no_cudnn:.2e}); each rank's launches per step (K2 fwd, K2 "
+          f"bwd, K1) {ranks[0]['bf16'][1][0]}, all tensor_cores", flush=True)
+    val = [r["validate"] for r in ranks]
+    gaps_val = max([abs(v["iou"] - single_val["iou"]) for v in val]
+                   + [abs(v["prec"][k] - x) for v in val
+                      for k, x in single_val["prec"].items()])
+    print(f"20(b) validate over the split model: IoU {val[0]['iou']!r} "
+          f"(pairs {[v['pairs'] for v in val]}) vs one process "
+          f"{single_val['iou']!r} ({single_val['pairs']} pairs); largest "
+          f"gap over IoU, Pr@50..90 and oIoU {gaps_val:.3e}", flush=True)
+    assert all(v["pairs"] == single_val["pairs"] == 16 for v in val), val
+    assert gaps_val <= 1e-4, (val, single_val)
+    seconds = time.perf_counter() - t0
+    launches = {name: sum(r["bf16"][1][0][i] * TP_STEPS for r in ranks)
+                for i, name in enumerate(("K2 fwd", "K2 bwd", "K1"))}
+    return dict(readings=readings, dropout_rel_loss=drop_rel,
+                bf16_losses=tp_losses, single_bf16_losses=single_losses,
+                single_bf16_again_losses=again_bf16[0],
+                single_bf16_no_cudnn_rel=no_cudnn, validate=val[0],
+                single_validate=single_val, validate_gap=gaps_val,
+                launches=launches, seconds=seconds)
+
+
+def phase_tp_entry(dp_run):
+    """20(c): ``_torchrun_train`` on every card with --opts
+    Distributed.tp_size 2 over NCCL, on 16(c)'s steps, when the call has 2
+    cards or more: its img/s beside 16(c)'s data-parallel run (``dp_run``,
+    its run line), its grid, and each rank's K1 and K2 launches, all on
+    the tensor cores. With one card nothing runs."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("20(c) one card: no NCCL tensor-parallel rate was measured",
+              flush=True)
+        return None
+    run, seconds, launches = _torchrun_train(n, "Distributed.tp_size", "2")
+    dp_rate = ("not run" if dp_run is None
+               else f"{dp_run['images_per_s']:.2f} img/s")
+    print(f"20(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train "
+          f"--opts Distributed.tp_size 2 (R50 416 px, b{TRAIN_PY_B}, bf16, "
+          f"NCCL, dp{n // 2} x tp2, {DP_ENTRY_STEPS} steps): {seconds:.1f} "
+          f"s, {run['images_per_s']:.2f} img/s against 16(c)'s data "
+          f"parallel alone on the same steps: {dp_rate}; => run: "
+          f"{json.dumps(run)} on {card_line()}", flush=True)
+    assert (run["dp"], run["tp"]) == (n // 2, 2), run
+    return dict(run=run, seconds=seconds, cards=n, launches=launches)
+
+
+def phase_tensor_parallel(k2, k2_fwd, plain_k2, keep_bits_packed, dp_run):
+    """20: K2 with a head offset, two gloo ranks splitting R50 on the one
+    card, and the train entry at tp_size 2 under torchrun over NCCL."""
+    t0 = time.perf_counter()
+    out = {"k2_head_offset": phase_k2_head_offset(k2, k2_fwd, plain_k2,
+                                                  keep_bits_packed)}
+    torch.cuda.empty_cache()
+    out["ranks"] = phase_tp_ranks()
+    torch.cuda.empty_cache()
+    out["entry"] = phase_tp_entry(dp_run)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {out['seconds']:.1f} s on {card_line()}", flush=True)
     return out
 
 
@@ -4341,7 +4746,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 20)) if run_all else {
+    wanted = set(range(2, 21)) if run_all else {
         int(x) for x in args.phases.split(",")}
 
     from cris_tpu_torch import bench, engine
@@ -4441,6 +4846,11 @@ def main() -> int:
         out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
     if 19 in wanted:
         out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward)
+    if 20 in wanted:
+        out["tp"] = phase_tensor_parallel(
+            k2, kernels.attention_dropout_forward,
+            kernels.attention_dropout_plain, kernels.keep_bits_packed,
+            out["dp"]["entry"]["run"] if "dp" in out else None)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -4463,6 +4873,10 @@ def summary(out) -> dict:
     ab_py = out["host_plane"]["launches"]  # phase 15 (d), all tensor_cores
     dp_py = out["dp"]["entry"]["launches"]  # phase 16 (c), all tensor_cores
     front = out["front"]  # phase 17 (b)
+    # phase 20 (b)'s ranks and (c)'s torchrun ranks, all tensor_cores
+    tp_entry = out["tp"]["entry"]
+    tp_py = {name: n + (tp_entry["launches"][name] if tp_entry else 0)
+             for name, n in out["tp"]["ranks"]["launches"].items()}
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
@@ -4475,7 +4889,9 @@ def summary(out) -> dict:
         with SDPA with dropout as the library call."""
         key = {"forward": "fwd", "backward": "bwd"}[part]
         entry_n = (train_py["launches"][f"K2 {key}"]
-                   + ab_py[f"K2 {key}"] + dp_py[f"K2 {key}"])
+                   + ab_py[f"K2 {key}"] + dp_py[f"K2 {key}"]
+                   + tp_py[f"K2 {key}"])
+        head_rows = out["tp"]["k2_head_offset"]
         return {
             "name": f"fused_attention_bse_dropout ({part})",
             "route": "cuda",
@@ -4485,11 +4901,13 @@ def summary(out) -> dict:
             "launches_by_path": {"train": train_n, "bench": bench_n,
                                  "train.py": train_py["launches"][f"K2 {key}"],
                                  "train.py A/B": ab_py[f"K2 {key}"],
-                                 "train.py torchrun": dp_py[f"K2 {key}"]},
+                                 "train.py torchrun": dp_py[f"K2 {key}"],
+                                 "tensor parallel": tp_py[f"K2 {key}"]},
             "launches_by_route": {r: n + (bench_n + entry_n
                                           if r == "tensor_cores" else 0)
                                   for r, n in by_route.items()},
-            "max_abs_err": worst,
+            "max_abs_err": max([worst] + [r[f"{key}_max_abs_err"]
+                                          for r in head_rows]),
             "ms": main_k2[f"{key}_device_ms"],
             "plain_ms": main_k2[f"plain_{key}_ms"],
             "bound_ms": main_k2[f"{key}_bound_ms"],
@@ -4509,6 +4927,14 @@ def summary(out) -> dict:
                                    f"{key}_device_ms", f"{key}_bound_ms",
                                    f"{key}_bound_by")}
                 for r in out["dp"]["k2_offset"]],
+            # phase 20 (a): a tensor-parallel rank's heads at offsets 4, 0
+            "head_offset_cases": [
+                {k: r[k] for k in ("site", "B", "H", "head_offset", "dtype",
+                                   "route", f"{key}_max_abs_err",
+                                   f"{key}_device_ms",
+                                   f"offset0_{key}_device_ms",
+                                   f"{key}_bound_ms", f"{key}_bound_by")}
+                for r in head_rows],
         }
     folded = out["folded_serving"]
     k1_main = out["k1_main"]
@@ -4533,7 +4959,7 @@ def summary(out) -> dict:
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
                      + bench["K1"] + test_path["K1"]
                      + train_py["launches"]["K1"] + ab_py["K1"]
-                     + dp_py["K1"] + front["K1"]),
+                     + dp_py["K1"] + front["K1"] + tp_py["K1"]),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
@@ -4542,11 +4968,12 @@ def summary(out) -> dict:
                              "train.py": train_py["launches"]["K1"],
                              "train.py A/B": ab_py["K1"],
                              "train.py torchrun": dp_py["K1"],
-                             "HTTP front": front["K1"]},
+                             "HTTP front": front["K1"],
+                             "tensor parallel": tp_py["K1"]},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
-            + (bench["K1"] + ab_py["K1"] + dp_py["K1"]
+            + (bench["K1"] + ab_py["K1"] + dp_py["K1"] + tp_py["K1"]
                if r == "tensor_cores" else 0)
             + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
             + front["K1_by_route"][r]
@@ -4725,6 +5152,9 @@ def summary(out) -> dict:
                       "host_plane": out["host_plane"],
                       "data_parallel": {k: v for k, v in out["dp"].items()
                                         if k != "k2_offset"},
+                      "tensor_parallel": {
+                          k: v for k, v in out["tp"].items()
+                          if k != "k2_head_offset"},
                       "front": {k: v for k, v in front.items()
                                 if k != "K1_by_route"},
                       "int8": {k: v for k, v in i8.items()

@@ -15,7 +15,12 @@ The training entry writes that format too, every epoch: ``epoch``,
 the counterpart of cris_tpu/checkpoint/orbax_io.py:23-114, which writes
 orbax directories instead. Under data parallel rank 0 writes (the
 caller's rule), the unwrapped model's keys, and every rank reads a
-resume through the CPU onto its own device.
+resume through the CPU onto its own device. Under tensor parallel the
+file is the same: every rank of the model group gathers the full state
+dict and Adam's full moments (``parallel.tensor.full_state_dict``,
+``full_optimizer_state``), rank 0 writes them, and a load or a resume
+gives each rank its slices, so a file of any layout loads into any
+other.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import shutil
 from typing import Dict
 
 import torch
+
+from ..parallel.tensor import (full_optimizer_state, full_state_dict,
+                               load_full_state_dict, shard_optimizer_state)
 
 BEST_NAME = "best_model.pth"  # what serving looks for under a model_dir
 LAST_NAME = "last_model.pth"
@@ -65,21 +73,25 @@ def _replace(write, path: str) -> str:
 def save_checkpoint(output_dir: str, name: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, scheduler, epoch: int,
                     cur_iou: float, best_iou: float,
-                    prec: Dict[str, float]) -> str:
+                    prec: Dict[str, float], write: bool = True) -> str:
     """Write ``output_dir/name`` in CRIS.pytorch's format, with the keys
-    of the model that a DistributedDataParallel ``model`` wraps; returns
-    its path."""
+    of the model that a DistributedDataParallel ``model`` wraps, the
+    whole model's state and Adam's moments; returns its path. A model
+    split over a model group is gathered first, a collective: every rank
+    of the group calls this, and only those with ``write`` write."""
     if isinstance(model, torch.nn.parallel.DistributedDataParallel):
         model = model.module
-    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, name)
     ckpt = {"epoch": int(epoch), "cur_iou": float(cur_iou),
             "best_iou": float(best_iou),
             "prec": {k: float(v) for k, v in prec.items()},
-            "state_dict": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+            "state_dict": full_state_dict(model),
+            "optimizer": full_optimizer_state(optimizer, model),
             "scheduler": scheduler.state_dict()}
-    return _replace(lambda tmp: torch.save(ckpt, tmp),
-                    os.path.join(output_dir, name))
+    if not write:
+        return path
+    os.makedirs(output_dir, exist_ok=True)
+    return _replace(lambda tmp: torch.save(ckpt, tmp), path)
 
 
 def promote_best(output_dir: str) -> str:
@@ -96,12 +108,15 @@ def load_train_checkpoint(path: str, model: torch.nn.Module,
     schedule itself is the caller's, rebuilt from the config), onto their
     devices: the file is read onto the CPU (not onto the device that wrote
     it, which another rank does not own) and each tensor is copied to its
-    parameter's device, but Adam's step counts, which stay on the CPU.
-    Returns the file's dict (``epoch``, ``best_iou``, ...)."""
+    parameter's device, but Adam's step counts, which stay on the CPU. A
+    model split over a model group takes its slices of the parameters and
+    of the moments. Returns the file's dict (``epoch``, ``best_iou``,
+    ...)."""
     if not os.path.isfile(path):
         raise ValueError(f"=> resume failed! no checkpoint found at '{path}'")
     ckpt = _load(path)
-    model.load_state_dict(_strip(ckpt["state_dict"]), strict=True)
-    optimizer.load_state_dict(ckpt["optimizer"])
+    load_full_state_dict(model, _strip(ckpt["state_dict"]), strict=True)
+    optimizer.load_state_dict(shard_optimizer_state(ckpt["optimizer"],
+                                                    optimizer, model))
     scheduler.load_state_dict(ckpt["scheduler"])
     return ckpt

@@ -6,7 +6,11 @@ The YAML file is read with PyYAML where it is installed; without it (the
 card's machine) the RefCOCO presets of ``utils.config.config_for`` serve
 their two files. ``--opts`` takes the rest of the command line, so
 ``--device`` comes before it. Under ``torchrun`` each rank joins the
-process group and takes its own card (``init_device``).
+process group, takes its own card and its place in the (data, model)
+rank grid of ``dp_size`` x ``tp_size`` (``init_device``); with
+``tp_size`` > 1 the model is built full and split over its model group
+(``build_model``), and weights load full and are split likewise
+(``load_initial_weight``).
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ from typing import Optional, Sequence
 import torch
 
 from .checkpoint import load_clip_torchscript, load_cris_checkpoint
-from .models import CRIS, build_segmenter
-from .parallel import data_parallel_size, init_distributed
+from .models import CRIS, build_segmenter, shard_model
+from .parallel import grid, init_distributed, init_grid
+from .parallel.tensor import load_full_state_dict
 from .utils.config import (CfgNode, config_for, load_cfg_from_cfg_file,
                            merge_cfg_from_list)
 from .utils.logging import logger
@@ -60,15 +65,16 @@ def init_device(cfg, what: str) -> torch.device:
     "evaluate") on ``cfg.device``: with torchrun's environment the process
     group is joined (NCCL on the card, gloo on the CPU) and a "cuda"
     device becomes ``cuda:{LOCAL_RANK}`` (``parallel.init_distributed``);
-    then ``dp_size`` and ``tp_size`` are checked against the world (the
-    JAX ``make_mesh_from_cfg``; tensor parallel raises). No card and no
-    ``--device cpu`` is an error, never a fallback."""
+    then ``dp_size`` and ``tp_size`` are checked against the world and
+    the ranks laid out on their grid (``parallel.init_grid``, the JAX
+    ``make_mesh_from_cfg``). No card and no ``--device cpu`` is an error,
+    never a fallback."""
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"no CUDA device: pass --device cpu to {what} on "
                            "the CPU")
     device = init_distributed(device)
-    data_parallel_size(cfg.get("dp_size", -1), cfg.get("tp_size", 1))
+    init_grid(cfg.get("dp_size", -1), cfg.get("tp_size", 1))
     return device
 
 
@@ -84,7 +90,9 @@ def build_model(cfg, device, train: bool = True) -> CRIS:
     Every backbone tensor must come from the archive but the attnpool's
     ``connect`` conv and BN, which CRIS adds to CLIP and a released
     archive lacks: they keep their init, as the reference's non-strict
-    load leaves them (a JAX package load needs them in the archive)."""
+    load leaves them (a JAX package load needs them in the archive).
+    Under tensor parallel the full model so made is then split over this
+    rank's model group (``models.shard_model``)."""
     path = cfg.get("clip_pretrain")
     clip_sd, clip_config = None, None
     if path and os.path.isfile(path):
@@ -102,13 +110,14 @@ def build_model(cfg, device, train: bool = True) -> CRIS:
             raise ValueError(f"'{path}' does not fit the CLIP it describes: "
                              f"missing {missing[:5]}, unexpected "
                              f"{unexpected[:5]}")
-    return model.to(device)
+    return shard_model(model, grid()).to(device)
 
 
 def load_initial_weight(cfg, model: torch.nn.Module) -> torch.nn.Module:
     """``cfg.weight``, a trained CRIS ``.pth`` file, loaded into ``model``
-    with every key matched (counterpart of cris_tpu/cli.py:147-161). The
-    JAX package's orbax directories are not read."""
+    with every key matched, each sharded parameter taking its slice
+    (counterpart of cris_tpu/cli.py:147-161). The JAX package's orbax
+    directories are not read."""
     path = cfg.get("weight")
     if not path:
         return model
@@ -117,5 +126,5 @@ def load_initial_weight(cfg, model: torch.nn.Module) -> torch.nn.Module:
                          "weights only from .pth files, not orbax "
                          "checkpoints")
     logger.info(f"=> loading initial weight (torch) '{path}'")
-    model.load_state_dict(load_cris_checkpoint(path), strict=True)
+    load_full_state_dict(model, load_cris_checkpoint(path), strict=True)
     return model

@@ -11,7 +11,9 @@
 // counter (j >> 2, i, h, b) and key (seed mod 2^32, seed >> 32), word
 // j & 3, for query row i and key column j; b is the batch row plus
 // batch_offset, its row in the data-parallel global batch (0 on one
-// process), so that no two ranks draw one mask. A weight is kept iff its
+// process), so that no two ranks draw one mask, and h is the head plus
+// head_offset, its head among all the heads that tensor parallel splits
+// over the ranks (0 on one process). A weight is kept iff its
 // bits are >= min(int(rate * 2^32), 2^32 - 1), the JAX kernel's threshold.
 // cris_tpu_torch/ops/kernels/dropout_mask.py computes the same bits in
 // torch integer ops (the plain version's mask); the two agree bit for
@@ -126,6 +128,7 @@ struct Params {
   float scale, inv_keep;
   uint32_t threshold, k0, k1;
   int b0;  // Philox's batch word of batch row 0; pointers stay local
+  int h0;  // Philox's head word of head 0; pointers stay local
 };
 
 // ---------------------------------------------------------------- forward
@@ -229,9 +232,9 @@ dropout_fwd_kernel(const scalar_t* __restrict__ q,
       const float m_new = fmaxf(m_run[i], mx);
       const float alpha = expf(m_run[i] - m_new);  // 0 on the first tile
       const uint4 lo =
-          keep_bits((k0 >> 2) + cg, q0 + r, h, b + p.b0, p.k0, p.k1);
+          keep_bits((k0 >> 2) + cg, q0 + r, h + p.h0, b + p.b0, p.k0, p.k1);
       const uint4 hi =
-          keep_bits((k0 >> 2) + 8 + cg, q0 + r, h, b + p.b0, p.k0, p.k1);
+          keep_bits((k0 >> 2) + 8 + cg, q0 + r, h + p.h0, b + p.b0, p.k0, p.k1);
       float rowsum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
@@ -439,7 +442,7 @@ dropout_bwd_dkdv_kernel(const scalar_t* __restrict__ q,
       const int r = cg + 8 * j;  // query row within the tile
       const bool row_ok = Rok[r] != 0.f;
       const uint4 bits =
-          keep_bits((k0 >> 2) + rg, q0 + r, h, b + p.b0, p.k0, p.k1);
+          keep_bits((k0 >> 2) + rg, q0 + r, h + p.h0, b + p.b0, p.k0, p.k1);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         float pd = 0.f, ds = 0.f;
@@ -594,9 +597,9 @@ dropout_bwd_dq_kernel(const scalar_t* __restrict__ q,
     for (int i = 0; i < kRows; ++i) {
       const int r = rg * kRows + i, row = q0 + r;
       const uint4 lo =
-          keep_bits((k0 >> 2) + cg, row, h, b + p.b0, p.k0, p.k1);
+          keep_bits((k0 >> 2) + cg, row, h + p.h0, b + p.b0, p.k0, p.k1);
       const uint4 hi =
-          keep_bits((k0 >> 2) + 8 + cg, row, h, b + p.b0, p.k0, p.k1);
+          keep_bits((k0 >> 2) + 8 + cg, row, h + p.h0, b + p.b0, p.k0, p.k1);
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = key_col(cg, j);
@@ -1063,7 +1066,7 @@ cudaError_t launch_tc_fwd(const Ptrs& t, int B, int H, const Params& p,
       Strides{p.v_sb, p.D, p.v_ss}, Strides{p.S * E, p.D, E},
       p.scale * kLog2e,
       FlashDropout{static_cast<float*>(t.lse), static_cast<uint32_t*>(t.bits),
-                   p.threshold, p.k0, p.k1, p.inv_keep, p.b0});
+                   p.threshold, p.k0, p.k1, p.inv_keep, p.b0, p.h0});
   return cudaGetLastError();
 }
 
@@ -1236,7 +1239,7 @@ Params make_params(int S, int T, int D, long long q_sb, long long q_ss,
                    long long k_sb, long long k_ss, long long v_sb,
                    long long v_ss, float scale, float inv_keep,
                    unsigned threshold, unsigned seed_lo, unsigned seed_hi,
-                   int batch_offset) {
+                   int batch_offset, int head_offset) {
   Params p;
   p.S = S; p.T = T; p.D = D;
   p.q_sb = q_sb; p.q_ss = q_ss; p.k_sb = k_sb; p.k_ss = k_ss;
@@ -1244,6 +1247,7 @@ Params make_params(int S, int T, int D, long long q_sb, long long q_ss,
   p.scale = scale; p.inv_keep = inv_keep;
   p.threshold = threshold; p.k0 = seed_lo; p.k1 = seed_hi;
   p.b0 = batch_offset;
+  p.h0 = head_offset;
   return p;
 }
 
@@ -1261,7 +1265,8 @@ Params make_params(int S, int T, int D, long long q_sb, long long q_ss,
 // 128, 16-byte aligned bases, strides multiples of 8 elements; anything
 // else returns cudaErrorInvalidValue). batch_offset is added to the batch
 // row wherever the keep bits are drawn: the global row of batch row 0 under
-// data parallel, 0 on one process. Each returns the cudaError_t of its
+// data parallel, 0 on one process; head_offset likewise to the head: the
+// global head of head 0 under tensor parallel, 0 on one process. Each returns the cudaError_t of its
 // launches (the scalar backward launches three kernels: delta, dK/dV, dQ;
 // the tensor-core one two: dQ with delta, then dK/dV).
 extern "C" int cris_attention_dropout_fwd(
@@ -1270,14 +1275,14 @@ extern "C" int cris_attention_dropout_fwd(
     int dtype, int body, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, float scale,
     float inv_keep, unsigned threshold, unsigned seed_lo, unsigned seed_hi,
-    int batch_offset, void* stream) {
+    int batch_offset, int head_offset, void* stream) {
   Ptrs t{};
   t.q = q; t.k = k; t.v = v; t.kv_valid = kv_valid; t.o = out; t.lse = lse;
   t.bits = bits;
   return run<false>(dtype, body, t, B, H,
                     make_params(S, T, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                                 scale, inv_keep, threshold, seed_lo, seed_hi,
-                                batch_offset),
+                                batch_offset, head_offset),
                     stream);
 }
 
@@ -1288,7 +1293,7 @@ extern "C" int cris_attention_dropout_bwd(
     int D, int dtype, int body, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     float scale, float inv_keep, unsigned threshold, unsigned seed_lo,
-    unsigned seed_hi, int batch_offset, void* stream) {
+    unsigned seed_hi, int batch_offset, int head_offset, void* stream) {
   Ptrs t{};
   t.q = q; t.k = k; t.v = v; t.kv_valid = kv_valid; t.out = out;
   t.lse = const_cast<void*>(lse); t.dout = dout; t.delta = delta;
@@ -1296,6 +1301,6 @@ extern "C" int cris_attention_dropout_bwd(
   return run<true>(dtype, body, t, B, H,
                    make_params(S, T, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                                scale, inv_keep, threshold, seed_lo, seed_hi,
-                               batch_offset),
+                               batch_offset, head_offset),
                    stream);
 }

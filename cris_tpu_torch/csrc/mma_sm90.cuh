@@ -319,6 +319,8 @@ struct FlashDropout {
   float inv_keep;      // 1 / (1 - rate)
   int b0;              // the Philox batch word of batch row 0 (its row in
                        // the data-parallel global batch); pointers stay local
+  int h0;              // the Philox head word of head 0 (its head among the
+                       // heads tensor parallel splits); pointers stay local
 };
 
 // The flash-attention forward, on a grid of (64 query rows, head, batch)
@@ -411,8 +413,8 @@ __device__ __forceinline__ void flash_fwd_body(
       uint32_t mine = 0, send = 0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const uint4 w = keep_bits(it * 16 + 2 * j + grp_off, my_row, h,
-                                  b + dr.b0, dr.k0, dr.k1);
+        const uint4 w = keep_bits(it * 16 + 2 * j + grp_off, my_row,
+                                  h + dr.h0, b + dr.b0, dr.k0, dr.k1);
         const uint32_t k4 = (w.x >= dr.threshold ? 1u : 0u) |
                             (w.y >= dr.threshold ? 2u : 0u) |
                             (w.z >= dr.threshold ? 4u : 0u) |

@@ -22,14 +22,17 @@ The model runs in eval mode (running BN statistics, no dropout), as the
 JAX Evaluator's ``train=False``, whatever mode it is in: ``device_probs``,
 ``validate`` and ``inference`` give it back in the mode they found it in.
 
-Under data parallel each rank scores its own rows: ``validate`` the
+Under data parallel each data rank scores its own rows: ``validate`` the
 loader's shard (its ``valid`` mask drops the last batch's padding rows),
-``inference`` the refs ``rank, rank + world, ...``; then ``_allgather``
-concatenates every rank's per-sample IoUs and sums the intersections and
-unions, and every rank returns the same IoU, Pr@50..90 and oIoU. The
-forwards hold no collective, so a rank whose refs run out first sends
-nothing more to the card, where the JAX package's collective batches pad
-with dummy rows.
+``inference`` the refs ``rank, rank + world, ...`` of the data ranks;
+then ``_allgather`` concatenates every data rank's per-sample IoUs and
+sums the intersections and unions over the grid's data group, and every
+rank returns the same IoU, Pr@50..90 and oIoU. The ranks of a model group
+(tensor parallel) run the same refs through their slices of the model,
+and are counted once. Only a sharded model's forwards hold collectives,
+over its model group, whose ranks run the same batches; so a data rank
+whose refs run out first sends nothing more to the card, where the JAX
+package's collective batches pad with dummy rows.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import torch
 from ..data.codec import encode_jpeg, encode_png, read_mask
 from ..data.transforms import inverse_warp_prediction
 from ..ops.resize import resize2d
-from ..parallel import allgather_floats, process_count, process_index
+from ..parallel import allgather_floats, grid
 from ..utils.logging import logger
 from ..utils.tokenizer import tokenize
 from .metrics import EVAL_THRESHOLD, mask_inter_union, mask_iou, summarize_ious
@@ -229,14 +232,16 @@ class Evaluator:
 
     @staticmethod
     def _allgather(iou_list: List[float], inter_sum: float, union_sum: float):
-        """Every rank's per-sample IoUs, concatenated in rank order, and
-        the intersections and unions summed over the ranks (the JAX
-        Evaluator's gather, cris_tpu/engine/evaluator.py:170-197): the
+        """Every data rank's per-sample IoUs, concatenated in rank order,
+        and the intersections and unions summed over the data group (the
+        JAX Evaluator's gather, cris_tpu/engine/evaluator.py:170-197): the
         same on every rank."""
-        if process_count() == 1:
+        group = grid()
+        if group.data_size == 1:
             return iou_list, inter_sum, union_sum
-        merged = [v for row in allgather_floats(iou_list) for v in row]
-        sums = allgather_floats([inter_sum, union_sum])
+        merged = [v for row in allgather_floats(iou_list, group.data_group)
+                  for v in row]
+        sums = allgather_floats([inter_sum, union_sum], group.data_group)
         return (merged, sum(r[0] for r in sums), sum(r[1] for r in sums))
 
     def _finish_sample(self, probs, inv_mat, ori_size, mask_path):
@@ -259,10 +264,12 @@ class Evaluator:
         (quality 95, as ``cv2.imwrite`` writes it; records prewarped without
         ``--keep-ori`` have none, which one warning says) under
         ``vis_dir``. ``progress`` logs every tenth of the refs. Under data
-        parallel each rank takes refs ``rank, rank + world, ...``."""
+        parallel each data rank takes refs ``rank, rank + data ranks,
+        ...``."""
         iou_list: List[float] = []
         sums = [0.0, 0.0]  # cumulative intersection / union (oIoU)
-        mine = range(process_index(), len(dataset), process_count())
+        layout = grid()
+        mine = range(layout.data_rank, len(dataset), layout.data_size)
         total = len(mine)
         step = max(1, total // 10)
 

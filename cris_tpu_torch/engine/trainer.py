@@ -20,13 +20,22 @@ zero gradient, as ``jax.grad`` gives it, so that Adam and weight decay
 treat it as the JAX optimizer does.
 
 Data parallel: ``train_step`` and ``train_epoch`` take the model wrapped
-by ``parallel.data_parallel`` (DistributedDataParallel when there is more
-than one rank; the optimizer is built on the model it wraps). Each rank
-runs its share of the global batch; the gradients are averaged over the
-ranks in the backward, so every rank clips and steps the same global
-gradient, and the BatchNorms take the global batch's statistics.
-``train_epoch`` averages the logged metrics over the ranks, so its loss
-is the global batch's mean.
+by ``parallel.data_parallel`` (DistributedDataParallel over the grid's
+data group when it has more than one rank; the optimizer is built on the
+model it wraps). Each data rank runs its share of the global batch; the
+gradients are averaged over the data group in the backward, so every
+rank clips and steps the same global gradient, and the BatchNorms take
+the global batch's statistics. ``train_epoch`` averages the logged
+metrics over the data group, so its loss is the global batch's mean.
+
+Tensor parallel (a model split by ``models.shard_model``): the ranks of
+a model group run the same rows, each with its slices of the sharded
+parameters, and step them with their slices of the gradient and of
+Adam's moments. The replicated parameters' gradients are averaged over
+the model group before the step, so that the card's nondeterministic
+backward kernels cannot make the replicas part; the clip takes the norm
+of the whole model's gradient (``parallel.tensor.clip_global_norm_``),
+not of a rank's own slices.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models import param_group_label, resolve_dtype
-from ..parallel import all_reduce_sum, process_count
+from ..parallel import all_reduce_sum, grid
+from ..parallel.tensor import (clip_global_norm_, split_grid,
+                               sync_replicated_grads_)
 from ..utils.logging import AverageMeter, ExperimentTracker, ProgressMeter
 from ..utils.profiling import StepTimer
 from .evaluator import to_device
@@ -103,15 +114,25 @@ def _device_batch(batch, device, nchw: bool = False
 
 def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
     """The JAX ``apply_gradients`` on the parameters' ``.grad``: a missing
-    gradient becomes zeros, the global norm is clipped to the groups'
-    ``max_norm`` when it is set, then one Adam step and one schedule step."""
+    gradient becomes zeros; for a model split over a model group the
+    replicated parameters' gradients are averaged over the group
+    (``sync_replicated_grads_``); the global norm is clipped to the
+    groups' ``max_norm`` when it is set (for a split model the norm of
+    the whole model's gradient); then one Adam step and one schedule
+    step."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for param in params:
         if param.grad is None:
             param.grad = torch.zeros_like(param)
+    split = split_grid(params)  # None: the model is whole
+    if split is not None:
+        sync_replicated_grads_(params, split)
     max_norm = optimizer.param_groups[0].get("max_norm", 0.0)
     if max_norm:
-        torch.nn.utils.clip_grad_norm_(params, max_norm)
+        if split is None:
+            torch.nn.utils.clip_grad_norm_(params, max_norm)
+        else:
+            clip_global_norm_(params, max_norm, split)
     optimizer.step()
     scheduler.step()
 
@@ -169,7 +190,7 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
     so they bound its busy time from above), and the profiler window's
     ``StepTimer.window`` (None when no window closed in this epoch).
     Under data parallel ``images`` are this rank's, and the metrics are
-    averaged over the ranks at each drain (one all-reduce)."""
+    averaged over the data group at each drain (one all-reduce)."""
     dtype = resolve_dtype(cfg.get("precision", "bf16"))
     timer = StepTimer(cfg.get("profile_dir") if epoch == 1 else None)
     batch_time = AverageMeter("Batch", ":2.2f")
@@ -196,8 +217,10 @@ def train_epoch(model: torch.nn.Module, optimizer, scheduler, loader,
             return
         values = torch.stack([torch.stack([m["loss"], m["iou"], m["prec@50"]])
                               for _, m in pending])
-        if process_count() > 1:
-            values = all_reduce_sum(values) / process_count()
+        layout = grid()
+        if layout.data_size > 1:
+            values = (all_reduce_sum(values, layout.data_group)
+                      / layout.data_size)
         values = values.tolist()
         for (n, _), (loss, iou, pr50) in zip(pending, values):
             loss_meter.update(loss, n)

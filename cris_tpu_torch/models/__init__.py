@@ -7,7 +7,9 @@ BN-folded inference variant; ``clip_config`` (a CLIP archive's, from
 ``checkpoint.torch_convert``) takes the place of the preset that
 ``cfg.clip_pretrain`` names. Weights from the JAX package load through
 ``cris_tpu_torch.checkpoint.from_jax``. ``param_group_label`` splits the
-parameters into the optimizer's backbone and head groups.
+parameters into the optimizer's backbone and head groups. ``shard_model``
+(``build_segmenter``'s ``grid``) splits the full model over a model group
+for tensor parallel, by ``parallel.tensor.TP_RULES``.
 
 Precision (cris_tpu/models/__init__.py:48-66): "bf16" (autocast) or
 "fp32", and "int8": bf16 autocast, the three exact bf16 graph rewrites
@@ -26,6 +28,11 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+
+from ..parallel import Grid
+from ..parallel.tensor import (ColumnDropout, ColumnParallelLinear,
+                               RowParallelLinear, ShardedLayerNormF32,
+                               VocabParallelEmbedding, make_plan)
 
 from .clip import CLIP, CLIP_PRESETS, CLIPConfig, preset_from_name
 from .clip_resnet import AttentionPool2d, Bottleneck, ModifiedResNet
@@ -97,7 +104,8 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
                     fused_stem: bool = False,
                     clip_config: Optional[CLIPConfig] = None,
                     rewrites: Optional[bool] = None,
-                    quant: Optional[QuantConfig] = None) -> CRIS:
+                    quant: Optional[QuantConfig] = None,
+                    grid: Optional[Grid] = None) -> CRIS:
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
     train mode (batch-statistics BN, dropout) with ``train=True``, on the
     card unless ``device`` says otherwise. The CLIP architecture is
@@ -126,7 +134,10 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
     ``quant_int8`` (``layers.enable_int8``).
 
     On ``device="meta"`` the parameters have shapes and no storage;
-    otherwise they are initialised on the CPU from ``seed`` and moved."""
+    otherwise they are initialised on the CPU from ``seed`` and moved.
+    With a ``grid`` of more than one model rank the full model, so
+    initialised, is then split over its model group (``shard_model``):
+    every rank starts from one process's init."""
     if (fused_bottleneck or fused_stem) and train:
         raise ValueError("fused_bottleneck and fused_stem are inference "
                          "kernels: need train=False")
@@ -162,8 +173,57 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
                                 TransformerDecoderLayer)):
                 mod.remat = True
     if not meta:
-        init_weights(model, seed).to(device)
-    return model.train(train)
+        init_weights(model, seed)
+    if grid is not None:
+        shard_model(model, grid)
+    return model.to(device).train(train)
+
+
+def shard_model(model: nn.Module, grid: Grid) -> nn.Module:
+    """Split a full CRIS over ``grid``'s model group in place, as the JAX
+    mesh's rules shard it (``parallel.tensor.TP_RULES``, each only where
+    the group divides its dimension): the decoder's attentions by heads
+    (``MultiheadAttention.shard``), its FFN (fc1 column-parallel, its
+    LayerNorm and inner dropout on the rank's hidden columns, fc2
+    row-parallel), the text MLPs (c_fc column-, c_proj row-parallel), the
+    token embedding by vocabulary rows, and the projector's kernel
+    generator column-parallel with its output gathered. Records the plan
+    (``tp_plan``, {key: Shard}) and the grid (``tp_grid``) on the model,
+    which ``parallel.tensor``'s full state functions read. A grid of one
+    model rank leaves the model as it is."""
+    if grid.model_size == 1:
+        return model
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    plan = make_plan(shapes, grid.model_size)
+    for name, mod in list(model.named_modules()):
+        key = f"{name}." if name else ""
+        if isinstance(mod, MultiheadAttention):
+            if f"{key}in_proj_weight" in plan:
+                mod.shard(grid)
+        elif isinstance(mod, TransformerDecoderLayer):
+            if f"{key}ffn.0.weight" in plan:
+                ffn = mod.ffn
+                ffn[0] = ColumnParallelLinear(ffn[0], grid)
+                ffn[2] = ColumnDropout(ffn[2].p, grid)
+                ffn[3] = ShardedLayerNormF32(ffn[3], grid)
+                ffn[4] = RowParallelLinear(ffn[4], grid)
+        elif isinstance(mod, ResidualAttentionBlock):
+            if f"{key}mlp.c_fc.weight" in plan:
+                mod.mlp.c_fc = ColumnParallelLinear(mod.mlp.c_fc, grid)
+                mod.mlp.c_proj = RowParallelLinear(mod.mlp.c_proj, grid)
+        elif isinstance(mod, CLIP):
+            if f"{key}token_embedding.weight" in plan:
+                mod.token_embedding = VocabParallelEmbedding(
+                    mod.token_embedding, grid)
+        elif isinstance(mod, Projector):
+            if f"{key}txt.weight" in plan:
+                mod.txt = ColumnParallelLinear(mod.txt, grid, gather=True)
+    local = model.state_dict()
+    for k, spec in plan.items():  # every planned key was split, once
+        assert local[k].shape[spec.dim] * grid.model_size == \
+            shapes[k][spec.dim], k
+    model.tp_plan, model.tp_grid = plan, grid
+    return model
 
 
 def param_group_label(name: str) -> str:
@@ -184,5 +244,5 @@ __all__ = [
     "TransformerDecoder", "TransformerDecoderLayer", "UpConvBNReLU",
     "bce_with_logits", "build_segmenter", "calibrating", "enable_int8",
     "init_weights", "int8_sites", "is_int8", "param_group_label",
-    "preset_from_name", "quick_gelu", "resolve_dtype",
+    "preset_from_name", "quick_gelu", "resolve_dtype", "shard_model",
 ]

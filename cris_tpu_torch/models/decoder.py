@@ -15,13 +15,26 @@ Each attention site of each layer draws its own K2 seed from the CPU one
 each JAX layer its own stream; the elementwise dropouts draw their masks
 from the device one. Under data parallel, where the JAX package draws
 every mask over the global batch, each rank keeps the same K2 seeds and
-hands K2 its first global row (rank x local batch), so that K2 keys each
-global row's mask on that row; the device generator's seed has the rank
-folded in, so that no two ranks draw one elementwise mask (rank 0 and a
-single process keep the step's seed). Under ``remat`` a layer draws its
-two seeds and notes the device generator's state before the
-checkpointed call, and the call restores that state, so the recomputed
-forward in the backward draws the masks of the first.
+hands K2 its first global row (data rank x local batch), so that K2 keys
+each global row's mask on that row; the device generator's seed has the
+data rank folded in, so that no two data ranks draw one elementwise mask
+(data rank 0 and a single process keep the step's seed). Under ``remat``
+a layer draws its two seeds and notes the device generator's state
+before the checkpointed call, and the call restores that state, so the
+recomputed forward in the backward draws the masks of the first.
+
+Tensor parallel (``shard``, from ``models.shard_model``; the JAX
+package's column split of q/k/v and row split of out_proj and the FFN,
+cris_tpu/parallel/mesh.py:87-110): each rank of a model group projects
+and attends over its own heads, K2 keyed on their global heads
+(``head_offset``: model rank x local heads), and the row-parallel
+out_proj sums the heads' contributions over the group. The FFN's fc1
+and its LayerNorm hold the rank's hidden columns, its inner dropout
+keeps the rank's columns of the full mask, and fc2 sums over the group.
+The ranks of a model group share a data rank, hence the generators: the
+residual stream's masks are one process's on every rank. Where the heads
+do not divide over the group, q, k and v are gathered and the attention
+runs whole on every rank (head offset 0), then each keeps its columns.
 """
 
 from __future__ import annotations
@@ -35,7 +48,10 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..ops.kernels.dropout_mask import MAX_SEED
 from ..ops.posenc import sincos_1d, sincos_2d
-from ..parallel import process_index
+from ..parallel import Grid, data_rank
+from ..parallel.tensor import (RowParallelLinear, Shard, copy_to_model,
+                               gather_from_model, scatter_to_model,
+                               shard_parameter)
 from .layers import Dropout, LayerNormF32, remat
 
 # (CPU generator for the attention seeds, device generator for the masks)
@@ -70,6 +86,8 @@ class MultiheadAttention(nn.Module):
     packed slices and calls the shared attention core (K1, or K2 in
     training with dropout), never ``nn.MultiheadAttention.forward``."""
 
+    tp: Optional[Grid] = None  # the model group, once ``shard`` split it
+
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
@@ -79,21 +97,47 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
+    def shard(self, grid: Grid) -> None:
+        """Keep this model rank's rows of each of the q, k and v blocks of
+        ``in_proj_*`` (its heads' columns of q, k and v) and its columns
+        of ``out_proj``, which becomes row-parallel."""
+        spec = Shard(0, 3)
+        self.in_proj_weight = shard_parameter(self.in_proj_weight, spec, grid)
+        self.in_proj_bias = shard_parameter(self.in_proj_bias, spec, grid)
+        self.out_proj = RowParallelLinear(self.out_proj, grid)
+        self.tp = grid
+
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 dropout_seed: Optional[int] = None,
                 batch_offset: int = 0) -> torch.Tensor:
-        w, b, e = self.in_proj_weight, self.in_proj_bias, self.d_model
+        grid, heads, head_offset = self.tp, self.num_heads, 0
+        if grid is not None:
+            same = key is query
+            query = copy_to_model(query, grid)
+            key = query if same else copy_to_model(key, grid)
+            value = copy_to_model(value, grid)
+        w, b = self.in_proj_weight, self.in_proj_bias
+        e = w.shape[0] // 3  # this rank's columns of each of q, k, v
         q = F.linear(query, w[:e], b[:e])
         k = F.linear(key, w[e:2 * e], b[e:2 * e])
         v = F.linear(value, w[2 * e:], b[2 * e:])
+        whole = grid is not None and heads % grid.model_size != 0
+        if whole:
+            q, k, v = (gather_from_model(x, grid) for x in (q, k, v))
+        elif grid is not None:
+            heads //= grid.model_size
+            head_offset = grid.model_rank * heads
         rate = self.dropout if self.training else 0.0
-        out = dot_product_attention(q, k, v, self.num_heads,
+        out = dot_product_attention(q, k, v, heads,
                                     key_padding_mask=key_padding_mask,
                                     dropout_rate=rate,
                                     dropout_seed=dropout_seed,
-                                    batch_offset=batch_offset)
+                                    batch_offset=batch_offset,
+                                    head_offset=head_offset)
+        if whole:
+            out = scatter_to_model(out, grid)
         return self.out_proj(out)
 
 
@@ -185,7 +229,7 @@ class TransformerDecoder(nn.Module):
         """vis (B, D, H, W), txt (B, L, D), pad_mask (B, L) True = padding
         -> (B, D, H, W). In training with dropout the masks come from
         ``dropout_seed``, which is then required; under data parallel this
-        batch is rows ``rank x B ..`` of the global batch."""
+        batch is rows ``data rank x B ..`` of the global batch."""
         b, d, h, w = vis.shape
         vis_pos = torch.from_numpy(sincos_2d(d, h, w)).to(vis.device)
         txt_pos = torch.from_numpy(sincos_1d(d, txt.shape[1])).to(vis.device)
@@ -193,7 +237,7 @@ class TransformerDecoder(nn.Module):
         if self.training and self.dropout > 0.0:
             if dropout_seed is None:
                 raise ValueError("decoder dropout in training needs a dropout_seed")
-            rank = process_index()
+            rank = data_rank()
             rng, offset = dropout_rng(dropout_seed, vis.device, rank), rank * b
         x = vis.flatten(2).transpose(1, 2)
         for layer in self.layers:

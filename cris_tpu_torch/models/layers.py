@@ -68,7 +68,7 @@ from ..ops.kernels.bottleneck import compute_dtype
 from ..ops.quant import (dynamic_scale, int8_conv2d_static,
                          int8_phase_conv_static, quantize_packed)
 from ..ops.resize import upsample2x
-from ..parallel import all_reduce_sum, process_count
+from ..parallel import all_reduce_sum, grid
 
 
 class BatchNorm(nn.Module):
@@ -87,10 +87,12 @@ class BatchNorm(nn.Module):
     With more than one data-parallel rank, training normalises with the
     global batch's statistics (the JAX package's cross-replica mean over
     the data axis): the per-channel sums of x and x^2 and the count are
-    summed over the ranks in one differentiable all-reduce, and the mean
-    and E[x^2] - E[x]^2 are taken from them in f32. The gradient flows
-    back through that sum, and the running statistics, updated with the
-    global n / (n - 1), are equal on every rank."""
+    summed over the grid's data group in one differentiable all-reduce,
+    and the mean and E[x^2] - E[x]^2 are taken from them in f32. The
+    gradient flows back through that sum, and the running statistics,
+    updated with the global n / (n - 1), are equal on every rank. The
+    ranks of a model group (tensor parallel) hold the same rows and are
+    not summed, or each sample would count once a model rank."""
 
     momentum = 0.1
 
@@ -108,7 +110,8 @@ class BatchNorm(nn.Module):
                 dims = [0] + list(range(2, x.dim()))
                 x32 = x.float()
                 n = x.numel() // x.shape[1]
-                if process_count() == 1:
+                group = grid()
+                if group.data_size == 1:
                     mean = x32.mean(dims)
                     var = torch.clamp(x32.square().mean(dims) - mean.square(),
                                       min=0.0)
@@ -117,7 +120,7 @@ class BatchNorm(nn.Module):
                     c = x.shape[1]
                     sums = all_reduce_sum(torch.cat([
                         x32.sum(dims), x32.square().sum(dims),
-                        x32.new_full((1,), float(n))]))
+                        x32.new_full((1,), float(n))]), group.data_group)
                     n = sums[2 * c]  # the global count, kept on the device
                     mean = sums[:c] / n
                     var = torch.clamp(sums[c:2 * c] / n - mean.square(),

@@ -41,6 +41,7 @@ def dot_product_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     batch_offset: int = 0,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Attention over projected q (B, S, E) and k/v (B, T, E).
 
@@ -50,7 +51,8 @@ def dot_product_attention(
     training only (the caller passes a rate only in training); the keep
     mask is drawn from the seed, an int in [0, 2**63), for global batch
     rows ``batch_offset ..`` (a data-parallel rank's first row; 0 on one
-    process).
+    process) and global heads ``head_offset ..`` (a tensor-parallel rank's
+    first head; 0 on one process).
     Softmax is computed in float32 whatever the input dtype."""
     head_dim = q.shape[-1] // num_heads
     kv_valid = None if key_padding_mask is None else ~key_padding_mask
@@ -67,10 +69,10 @@ def dot_product_attention(
         if fused:
             return fused_attention_bse_dropout(q, k, v, num_heads, kv_valid,
                                                dropout_rate, dropout_seed,
-                                               batch_offset)
+                                               batch_offset, head_offset)
         return attention_dropout_plain(q, k, v, num_heads, kv_valid,
                                        dropout_rate, dropout_seed, attn_mask,
-                                       batch_offset)
+                                       batch_offset, head_offset)
     if fused:
         return fused_attention_bse(q, k, v, num_heads, kv_valid)
     return attention_plain(q, k, v, num_heads, kv_valid, attn_mask)

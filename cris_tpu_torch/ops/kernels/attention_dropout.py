@@ -11,7 +11,10 @@ keyed on (seed, batch, head, query row, key column)
 batch word is the row's place in the data-parallel global batch: every
 function here takes ``batch_offset``, the global row of batch row 0 (0 on
 one process), which the kernels add to the batch row where they draw the
-bits and nowhere else.
+bits and nowhere else. The head word is the head's place among the heads
+that tensor parallel splits over the ranks: ``head_offset``, the global
+head of head 0 (0 on one process), is added to the head in the same
+places.
 
 Two bodies, picked before each launch by ``attention_dropout_route`` with
 K1's gate (``attention_route``):
@@ -50,8 +53,8 @@ from .attention import (BODY_CODES, DTYPE_CODES, NEG_INF, ROUTES, _rows,
                         attention_route, check_cuda_inputs, merge_heads,
                         split_heads)
 from .build import check, load_library
-from .dropout_mask import (check_batch_offset, keep_mask, keep_threshold,
-                           mask_words, seed_words)
+from .dropout_mask import (check_batch_offset, check_head_offset, keep_mask,
+                           keep_threshold, mask_words, seed_words)
 
 
 def attention_dropout_plain(
@@ -64,6 +67,7 @@ def attention_dropout_plain(
     seed: int = 0,
     attn_mask: Optional[torch.Tensor] = None,
     batch_offset: int = 0,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch attention with inverted dropout on the weights.
 
@@ -88,7 +92,7 @@ def attention_dropout_plain(
         if threshold:
             b, h, s, t = weights.shape
             keep = keep_mask(seed, b, h, s, t, rate, weights.device,
-                             batch_offset)
+                             batch_offset, head_offset)
             weights = weights * keep / (1.0 - rate)
         out = torch.matmul(weights.to(vh.dtype).float(), vh.float())
     return merge_heads(out.to(q.dtype))
@@ -104,6 +108,7 @@ def attention_dropout_backward_plain(
     seed: int,
     g: torch.Tensor,
     batch_offset: int = 0,
+    head_offset: int = 0,
 ):
     """(dq, dk, dv) of ``attention_dropout_plain`` for the output gradient
     g, at the JAX backward kernel's rounding points (``_bwd_kernel``,
@@ -130,7 +135,8 @@ def attention_dropout_backward_plain(
                                         NEG_INF)
         w = torch.softmax(logits, dim=-1)
         b, h, s, t = w.shape
-        keep = keep_mask(seed, b, h, s, t, rate, w.device, batch_offset)
+        keep = keep_mask(seed, b, h, s, t, rate, w.device, batch_offset,
+                         head_offset)
         g_r = gh.to(v.dtype).float()
         wd = (torch.where(keep, w, 0.0) * inv_keep).to(v.dtype).float()
         dv = torch.matmul(wd.transpose(-1, -2), g_r)
@@ -153,10 +159,11 @@ def attention_dropout_route(q: torch.Tensor, k: torch.Tensor,
     return attention_route(q, k, v, q.shape[-1] // num_heads)
 
 
-def _scalars(d, rate, seed, batch, batch_offset):
+def _scalars(d, rate, seed, batch, batch_offset, heads, head_offset):
     seed_lo, seed_hi = seed_words(seed)
     return (float(d ** -0.5), float(1.0 / (1.0 - rate)), keep_threshold(rate),
-            seed_lo, seed_hi, check_batch_offset(batch_offset, batch))
+            seed_lo, seed_hi, check_batch_offset(batch_offset, batch),
+            check_head_offset(head_offset, heads))
 
 
 def _ptr(x):
@@ -164,7 +171,7 @@ def _ptr(x):
 
 
 def attention_dropout_forward(q, k, v, num_heads, kv_valid, rate, seed,
-                              batch_offset=0):
+                              batch_offset=0, head_offset=0):
     """(out, row log-sum-exp (B, H, S) f32, kv_valid as contiguous uint8 or
     None, packed keep mask (B, H, S, ceil(T / 32)) int32 on the tensor-core
     route or None) from the forward kernel, for CUDA tensors."""
@@ -185,7 +192,8 @@ def attention_dropout_forward(q, k, v, num_heads, kv_valid, rate, seed,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid),
             out.data_ptr(), lse.data_ptr(), _ptr(bits), b, s, t, num_heads,
             d, DTYPE_CODES[q.dtype], BODY_CODES[route], *strides,
-            *_scalars(d, rate, seed, b, batch_offset), stream,
+            *_scalars(d, rate, seed, b, batch_offset, num_heads, head_offset),
+            stream,
         )
     check(lib, err, "fused_attention_bse_dropout")
     fused_attention_bse_dropout.launches += 1
@@ -194,7 +202,8 @@ def attention_dropout_forward(q, k, v, num_heads, kv_valid, rate, seed,
 
 
 def attention_dropout_backward(q, k, v, num_heads, kv_valid, rate, seed,
-                               out, lse, bits, g, batch_offset=0):
+                               out, lse, bits, g, batch_offset=0,
+                               head_offset=0):
     """(dq, dk, dv) from the backward kernels, for CUDA tensors saved by
     the forward (``kv_valid`` as contiguous uint8 or None); the scalar
     route reads the forward's output ``out``, the tensor-core route the
@@ -231,7 +240,9 @@ def attention_dropout_backward(q, k, v, num_heads, kv_valid, rate, seed,
             _ptr(bits) if route == "tensor_cores" else None, g.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
             s, t, num_heads, d, DTYPE_CODES[q.dtype], BODY_CODES[route],
-            *strides, *_scalars(d, rate, seed, b, batch_offset), stream,
+            *strides,
+            *_scalars(d, rate, seed, b, batch_offset, num_heads, head_offset),
+            stream,
         )
     check(lib, err, "attention_dropout_backward")
     attention_dropout_backward.launches += 1
@@ -245,11 +256,13 @@ attention_dropout_backward.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 class _FusedAttentionDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, kv_valid, rate, seed, batch_offset):
+    def forward(ctx, q, k, v, num_heads, kv_valid, rate, seed, batch_offset,
+                head_offset):
         out, lse, kv_valid, bits = attention_dropout_forward(
-            q, k, v, num_heads, kv_valid, rate, seed, batch_offset)
+            q, k, v, num_heads, kv_valid, rate, seed, batch_offset,
+            head_offset)
         ctx.num_heads, ctx.rate, ctx.seed = num_heads, rate, seed
-        ctx.batch_offset = batch_offset
+        ctx.batch_offset, ctx.head_offset = batch_offset, head_offset
         # the scalar backward reads O; the tensor-core one reads the bits
         ctx.save_for_backward(q, k, v, kv_valid, out if bits is None else None,
                               lse, bits)
@@ -260,8 +273,8 @@ class _FusedAttentionDropout(torch.autograd.Function):
         q, k, v, kv_valid, out, lse, bits = ctx.saved_tensors
         dq, dk, dv = attention_dropout_backward(
             q, k, v, ctx.num_heads, kv_valid, ctx.rate, ctx.seed, out, lse,
-            bits, g, ctx.batch_offset)
-        return dq, dk, dv, None, None, None, None, None
+            bits, g, ctx.batch_offset, ctx.head_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fused_attention_bse_dropout(
@@ -273,20 +286,25 @@ def fused_attention_bse_dropout(
     rate: float,
     seed: int,
     batch_offset: int = 0,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Multi-head attention over (B, S, E) with inverted dropout at
     ``rate`` on the normalised weights, the keep mask drawn from ``seed``
     (an int in [0, 2**63)) for global batch rows ``batch_offset ..
-    batch_offset + B - 1``. Differentiable in q, k and v; the same seed
-    gives the same mask in the forward and the backward."""
+    batch_offset + B - 1`` and global heads ``head_offset .. head_offset +
+    num_heads - 1``. Differentiable in q, k and v; the same seed gives the
+    same mask in the forward and the backward."""
     keep_threshold(rate)
     seed_words(seed)
     batch_offset = check_batch_offset(batch_offset, q.shape[0])
+    head_offset = check_head_offset(head_offset, num_heads)
     if q.device.type == "cpu":
         return attention_dropout_plain(q, k, v, num_heads, kv_valid, rate,
-                                       seed, batch_offset=batch_offset)
+                                       seed, batch_offset=batch_offset,
+                                       head_offset=head_offset)
     return _FusedAttentionDropout.apply(q, k, v, num_heads, kv_valid,
-                                        float(rate), int(seed), batch_offset)
+                                        float(rate), int(seed), batch_offset,
+                                        head_offset)
 
 
 fused_attention_bse_dropout.launches = 0

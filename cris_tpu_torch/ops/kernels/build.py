@@ -154,7 +154,7 @@ def load_library() -> ctypes.CDLL:
                 ll, ll, ll, ll, ll, ll,  # q/k/v batch and row strides
                 f, f,                   # scale, 1 / (1 - rate)
                 u, u, u,                # keep threshold, seed words
-                i, p,                   # batch offset, stream
+                i, i, p,                # batch and head offsets, stream
             ]
             lib.cris_attention_dropout_fwd.argtypes = [
                 p, p, p, p, p, p, p,    # q, k, v, kv_valid, out, lse, bits

@@ -20,7 +20,11 @@ so four neighbouring key columns share one Philox call. Under data
 parallel ``b`` is the row's place in the global batch: a process whose
 batch starts at global row ``batch_offset`` draws rows
 ``batch_offset + 0, 1, ...``, the JAX package's per-(global row, head)
-seeding (attention_train.py:66-68), so that no two ranks share a mask. The CUDA kernel
+seeding (attention_train.py:66-68), so that no two ranks share a mask.
+Under tensor parallel ``h`` is likewise the head's place among all the
+heads: a rank whose heads start at global head ``head_offset`` draws heads
+``head_offset + 0, 1, ...``, the matching heads of the full launch's mask.
+The CUDA kernel
 (``cris_tpu_torch/csrc/attention_bse_dropout.cu``) computes the same bits
 with the same definition; the two must agree bit for bit. Its tensor-core
 forward also stores the mask packed to bits for its backward
@@ -87,18 +91,32 @@ def check_batch_offset(batch_offset: int, batch: int) -> int:
     return batch_offset
 
 
+def check_head_offset(head_offset: int, heads: int) -> int:
+    """``head_offset`` as an int, when heads ``head_offset .. + heads``
+    fit the counter's 32-bit head word as the CUDA kernels' int."""
+    head_offset = int(head_offset)
+    if head_offset < 0 or head_offset + heads > 2**31 - 1:
+        raise ValueError(f"heads {head_offset}..{head_offset + heads}"
+                         " outside [0, 2**31)")
+    return head_offset
+
+
 def keep_bits(seed: int, batch: int, heads: int, rows: int, cols: int,
-              device=None, batch_offset: int = 0) -> torch.Tensor:
+              device=None, batch_offset: int = 0,
+              head_offset: int = 0) -> torch.Tensor:
     """(batch, heads, rows, cols) int64 tensor of the 32-bit keep bits of
-    global batch rows ``batch_offset .. batch_offset + batch - 1``: rows
-    ``o:o + batch`` of ``keep_bits(seed, o + batch, ...)``, bit for bit."""
+    global batch rows ``batch_offset .. batch_offset + batch - 1`` and
+    global heads ``head_offset .. head_offset + heads - 1``: rows
+    ``o:o + batch`` and heads ``g:g + heads`` of
+    ``keep_bits(seed, o + batch, g + heads, ...)``, bit for bit."""
     k0, k1 = seed_words(seed)
     batch_offset = check_batch_offset(batch_offset, batch)
+    head_offset = check_head_offset(head_offset, heads)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     groups = (cols + 3) // 4
     words = philox4x32_10(
         ar(groups)[None, None, None, :], ar(rows)[None, None, :, None],
-        ar(heads)[None, :, None, None],
+        (ar(heads) + head_offset)[None, :, None, None],
         (ar(batch) + batch_offset)[:, None, None, None], k0, k1)
     words = [w.expand(batch, heads, rows, groups) for w in words]
     return torch.stack(words, dim=-1).reshape(batch, heads, rows,
@@ -106,12 +124,12 @@ def keep_bits(seed: int, batch: int, heads: int, rows: int, cols: int,
 
 
 def keep_mask(seed: int, batch: int, heads: int, rows: int, cols: int,
-              rate: float, device=None, batch_offset: int = 0
-              ) -> torch.Tensor:
+              rate: float, device=None, batch_offset: int = 0,
+              head_offset: int = 0) -> torch.Tensor:
     """(batch, heads, rows, cols) bool: True = the weight is kept."""
     threshold = keep_threshold(rate)
     return keep_bits(seed, batch, heads, rows, cols, device,
-                     batch_offset) >= threshold
+                     batch_offset, head_offset) >= threshold
 
 
 def mask_words(cols: int) -> int:
@@ -120,14 +138,14 @@ def mask_words(cols: int) -> int:
 
 
 def keep_bits_packed(seed: int, batch: int, heads: int, rows: int, cols: int,
-                     rate: float, device=None, batch_offset: int = 0
-                     ) -> torch.Tensor:
+                     rate: float, device=None, batch_offset: int = 0,
+                     head_offset: int = 0) -> torch.Tensor:
     """The keep mask packed to bits, as the tensor-core kernels write it:
     (batch, heads, rows, mask_words(cols)) int32 holding the uint32 words,
     bit ``j % 32`` of word ``j // 32`` set iff key column j is kept; the
     bits past ``cols`` are 0."""
     keep = keep_mask(seed, batch, heads, rows, cols, rate, device,
-                     batch_offset)
+                     batch_offset, head_offset)
     nw = mask_words(cols)
     keep = torch.nn.functional.pad(keep, (0, 32 * nw - cols))
     weights = 1 << torch.arange(32, dtype=torch.int64, device=keep.device)

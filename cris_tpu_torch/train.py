@@ -4,16 +4,21 @@ train.py:40-229), on one process or data parallel over several:
     python3 -m cris_tpu_torch.train --config config/refcoco/cris_r50.yaml \\
         [--device cpu] --opts TRAIN.epochs 2 ...
     torchrun --nproc_per_node=N -m cris_tpu_torch.train --config ... \\
-        [--device cpu] --opts ...
+        [--device cpu] --opts [Distributed.tp_size T] ...
 
 Under torchrun each rank takes ``cuda:{LOCAL_RANK}`` and joins the
-process group (NCCL; gloo with ``--device cpu``). ``batch_size`` and
-``batch_size_val`` are the global batches: each rank loads its 1 / N
+process group (NCCL; gloo with ``--device cpu``), and the N ranks form
+a grid of N / T data ranks by T model ranks (``Distributed.tp_size``,
+1 by default; ``cli.init_device``). ``batch_size`` and
+``batch_size_val`` are the global batches: each data rank loads its
 share of every batch (a batch that does not divide raises), the model
-trains under DistributedDataParallel with the BatchNorms synced over
-the global batch, and validation gathers every rank's IoUs. Rank 0
-alone logs, tracks, profiles and writes the checkpoints; every rank
-resumes from them.
+trains under DistributedDataParallel over the data group with the
+BatchNorms synced over the global batch, and validation gathers every
+data rank's IoUs. With T > 1 each model group runs its data rank's rows
+through the model split over its T ranks (``models.shard_model``: the
+decoder's heads and FFN, the text MLPs, the token embedding). Rank 0
+alone logs, tracks, profiles and writes the checkpoints, whole (every
+rank of its model group gathers them); every rank resumes from them.
 
 Seeds the run, builds CRIS (CLIP from the TorchScript archive
 ``clip_pretrain`` when that file exists, else the seeded preset; then
@@ -29,8 +34,9 @@ Logs to stderr and ``train.log`` in the output directory, ending with
 the best IoU, the training time and a line ``=> run: {...}``: the train
 steps, images, host seconds in the train epochs (less the profiler
 window's own start, stop and trace export, ``profiler_seconds``), images
-per second (the images summed over the ranks, the seconds rank 0's,
-and ``world_size``), the seconds spent validating, on the card the
+per second (the images summed over the data ranks, the seconds rank
+0's, and ``world_size`` with its grid, ``dp`` x ``tp``), the seconds
+spent validating, on the card the
 seconds between CUDA events around each step and their share of the
 host seconds (the events hold the card's waits for the host inside a
 step too: an upper bound on its busy share), the peak memory, the card's name and power limit, and
@@ -60,7 +66,7 @@ from .models import resolve_dtype
 from .ops.kernels import (attention_dropout_backward, fused_attention_bse,
                           fused_attention_bse_dropout)
 from .parallel import (allgather_floats, barrier, close_distributed,
-                       data_parallel, process_count, process_index)
+                       data_parallel, grid, process_count, process_index)
 from .utils import ExperimentTracker, init_random_seed
 from .utils.logging import log_exceptions, logger, setup_logger
 
@@ -93,17 +99,20 @@ def main(argv=None):
     """Train; returns (best IoU, the last epoch trained)."""
     cfg = cli.get_parser("CRIS training (PyTorch port)", argv)
     device = cli.init_device(cfg, "train")
-    rank, world = process_index(), process_count()
-    if cfg.batch_size % world or cfg.batch_size_val % world:
+    rank, world, layout = process_index(), process_count(), grid()
+    dp = layout.data_size
+    if cfg.batch_size % dp or cfg.batch_size_val % dp:
         raise ValueError(f"batch sizes ({cfg.batch_size}/"
                          f"{cfg.batch_size_val}) must divide evenly over "
-                         f"{world} processes")
+                         f"{dp} data ranks")
     launches = _launches()
     cfg.manual_seed = init_random_seed(cfg.get("manual_seed"))
     cfg.output_dir = os.path.join(cfg.output_folder, cfg.exp_name)
     setup_logger(cfg.output_dir, process_index=rank, filename="train.log",
                  mode="a")
-    logger.info(f"device: {device} ({card(device)}), rank {rank} of {world}")
+    logger.info(f"device: {device} ({card(device)}), rank {rank} of {world}"
+                f" (data {layout.data_rank} of {dp}, model "
+                f"{layout.model_rank} of {layout.model_size})")
     if rank != 0:  # the profiler window is rank 0's
         cfg.profile_dir = None
     tracker = ExperimentTracker(
@@ -121,21 +130,23 @@ def main(argv=None):
     val_data = RefDataset(cfg.val_lmdb, cfg.mask_root, cfg.dataset,
                           cfg.val_split, "val", cfg.input_size, cfg.word_len)
     train_loader = RefDataLoader(train_data,
-                                 batch_size=cfg.batch_size // world,
+                                 batch_size=cfg.batch_size // dp,
                                  shuffle=True, seed=cfg.manual_seed,
                                  drop_last=True,
                                  num_workers=cfg.get("workers", 8),
-                                 process_index=rank, process_count=world)
+                                 process_index=layout.data_rank,
+                                 process_count=dp)
     val_loader = RefDataLoader(val_data,
-                               batch_size=cfg.batch_size_val // world,
+                               batch_size=cfg.batch_size_val // dp,
                                shuffle=False,
                                num_workers=cfg.get("workers_val", 4),
-                               process_index=rank, process_count=world)
+                               process_index=layout.data_rank,
+                               process_count=dp)
 
     optimizer, scheduler = make_optimizer(model, cfg, len(train_loader))
     evaluator = Evaluator(model, cfg.input_size,
                           resolve_dtype(cfg.get("precision", "bf16")),
-                          batch_size=cfg.batch_size_val // world)
+                          batch_size=cfg.batch_size_val // dp)
 
     best_iou = 0.0
     start_epoch = last_epoch = cfg.get("start_epoch", 0)
@@ -146,7 +157,8 @@ def main(argv=None):
         best_iou = float(ckpt["best_iou"])
         logger.info(f"=> loaded checkpoint '{cfg.resume}' (epoch "
                     f"{start_epoch})")
-    trained = data_parallel(model)  # the model itself on one process
+    # the model itself with one data rank
+    trained = data_parallel(model, layout.data_group)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -171,12 +183,12 @@ def main(argv=None):
         is_best = iou >= best_iou
         best_iou = max(best_iou, iou)
         barrier()
-        if rank == 0:
-            save_checkpoint(cfg.output_dir, LAST_NAME, model, optimizer,
-                            scheduler, epoch=last_epoch, cur_iou=iou,
-                            best_iou=best_iou, prec=prec)
-            if is_best:
-                promote_best(cfg.output_dir)
+        # every rank gathers a split model's state; rank 0 writes it
+        save_checkpoint(cfg.output_dir, LAST_NAME, model, optimizer,
+                        scheduler, epoch=last_epoch, cur_iou=iou,
+                        best_iou=best_iou, prec=prec, write=rank == 0)
+        if rank == 0 and is_best:
+            promote_best(cfg.output_dir)
         barrier()
 
     tracker.finish()
@@ -184,8 +196,9 @@ def main(argv=None):
     total = str(datetime.timedelta(seconds=int(time.time() - start_time)))
     logger.info(f"* Training time {total} *")
     run = dict(totals)
-    run["images"] = int(sum(r[0] for r in allgather_floats([run["images"]])))
-    run["world_size"] = world
+    run["images"] = int(sum(r[0] for r in allgather_floats(
+        [run["images"]], layout.data_group)))
+    run.update(world_size=world, dp=dp, tp=layout.model_size)
     run["images_per_s"] = (run["images"] / run["seconds"] if run["seconds"]
                            else None)
     if device.type == "cuda":

@@ -374,10 +374,12 @@ def test_decoder_sites_draw_distinct_seeds(monkeypatch):
     seed."""
     seen = []
 
-    def record(q, k, v, num_heads, kv_valid, rate, seed, batch_offset=0):
+    def record(q, k, v, num_heads, kv_valid, rate, seed, batch_offset=0,
+               head_offset=0):
         seen.append(seed)
         return attention_dropout_plain(q, k, v, num_heads, kv_valid, rate, seed,
-                                       batch_offset=batch_offset)
+                                       batch_offset=batch_offset,
+                                       head_offset=head_offset)
 
     monkeypatch.setattr(port_ops, "fused_attention_bse_dropout", record)
     model = _port_tiny(0.1).train()

@@ -234,9 +234,11 @@ def test_tiny_cris_train_sites_take_tensor_cores(monkeypatch):
     calls = []
     kernel = port_ops.fused_attention_bse_dropout
 
-    def spy(q, k, v, num_heads, kv_valid, rate, seed, batch_offset=0):
+    def spy(q, k, v, num_heads, kv_valid, rate, seed, batch_offset=0,
+            head_offset=0):
         calls.append((q, k, v, num_heads))
-        return kernel(q, k, v, num_heads, kv_valid, rate, seed, batch_offset)
+        return kernel(q, k, v, num_heads, kv_valid, rate, seed, batch_offset,
+                      head_offset)
 
     monkeypatch.setattr(port_ops, "fused_attention_bse_dropout", spy)
     ccfg = CLIPConfig(64, 64, (1, 1, 1, 1), 16, None, 77, 49408, 64, 4, 2)

@@ -182,13 +182,13 @@ def runs(tmp_path_factory):
         single = two_steps(load_jax_variables(port_tiny(), variables).train(),
                            golden_batch())
         single["decoded"] = {}
-        rank_of = decoder_module.process_index
+        rank_of = decoder_module.data_rank
         for rank in range(2):  # the decoder as rank r of 2 would run it
-            decoder_module.process_index = lambda r=rank: r
+            decoder_module.data_rank = lambda r=rank: r
             try:
                 single["decoded"][rank] = decoder_output().detach()
             finally:
-                decoder_module.process_index = rank_of
+                decoder_module.data_rank = rank_of
         gathered = []
         single["validate"], single["inference"] = _evaluate_one_process(
             gathered)
@@ -402,15 +402,23 @@ def test_incomplete_launch_environment_raises(monkeypatch):
 
 
 def test_tp_size_2_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        data_parallel_size(-1, 2, world=2)
+    """tp 2 is accepted wherever it divides the ranks (the grid's data
+    size is what is left); it raises where it does not, as on one
+    process, and so does a dp x tp that is not the world."""
+    assert data_parallel_size(-1, 2, world=2) == 1
+    assert data_parallel_size(-1, 2, world=4) == 2
+    assert data_parallel_size(2, 2, world=4) == 2
     with pytest.raises(ValueError, match="dp=3"):
         data_parallel_size(3, 1, world=2)
+    with pytest.raises(ValueError, match="dp=1"):
+        data_parallel_size(1, 2, world=4)
+    with pytest.raises(ValueError, match="does not divide"):
+        data_parallel_size(-1, 2, world=3)
     assert data_parallel_size(-1, 1, world=4) == 4
     assert data_parallel_size(2, 1, world=2) == 2
     cfg = cli.get_parser(argv=["--config", TINY, "--device", "cpu", "--opts",
                                "Distributed.tp_size", "2"])
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    with pytest.raises(ValueError, match="does not divide 1"):
         cli.init_device(cfg, "train")
 
 
