@@ -189,8 +189,9 @@ def shard_model(model: nn.Module, grid: Grid) -> nn.Module:
     token embedding by vocabulary rows, and the projector's kernel
     generator column-parallel with its output gathered. Records the plan
     (``tp_plan``, {key: Shard}) and the grid (``tp_grid``) on the model,
-    which ``parallel.tensor``'s full state functions read. A grid of one
-    model rank leaves the model as it is."""
+    which ``parallel.tensor``'s full state functions read, and leaves
+    every module in the model's mode (train or eval). A grid of one model
+    rank leaves the model as it is."""
     if grid.model_size == 1:
         return model
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -223,7 +224,8 @@ def shard_model(model: nn.Module, grid: Grid) -> nn.Module:
         assert local[k].shape[spec.dim] * grid.model_size == \
             shapes[k][spec.dim], k
     model.tp_plan, model.tp_grid = plan, grid
-    return model
+    # the new modules start in train mode: an eval model would drop out
+    return model.train(model.training)
 
 
 def param_group_label(name: str) -> str:

@@ -23,6 +23,7 @@ planted fault must fail them.
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -43,7 +44,7 @@ from torch_tp_worker import STEP_SEED, model_at, step, tp_batch, tp_state
 from cris_tpu_torch.checkpoint import from_jax, load_cris_checkpoint
 from cris_tpu_torch.data import RefDataLoader, RefDataset
 from cris_tpu_torch.engine import Evaluator
-from cris_tpu_torch.models import build_segmenter
+from cris_tpu_torch.models import build_segmenter, shard_model
 from cris_tpu_torch.ops.kernels.attention_dropout import (
     attention_dropout_backward_plain, attention_dropout_plain,
     fused_attention_bse_dropout)
@@ -77,7 +78,7 @@ def _env():
 
 def _entry_script(out):
     """torchrun of the train entry at dp1 x tp4, then of the test entry
-    at dp2 x tp2 on its best_model.pth, in one shell."""
+    at dp2 x tp2 and at dp1 x tp4 on its best_model.pth, in one shell."""
     def torchrun(module, *opts):
         return subprocess.list2cmdline([
             sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -91,10 +92,10 @@ def _entry_script(out):
                      "DATA.val_lmdb", "synthetic://4?seed=2",
                      "TRAIN.batch_size", "4", "TRAIN.print_freq", "1",
                      "Distributed.tp_size", "4")
-    test = torchrun("cris_tpu_torch.test", *common,
-                    "TEST.test_lmdb", "synthetic://6?seed=4",
-                    "Distributed.tp_size", "2")
-    return f"{train} && {test}"
+    test = [torchrun("cris_tpu_torch.test", *common,
+                     "TEST.test_lmdb", "synthetic://6?seed=4",
+                     "Distributed.tp_size", str(tp)) for tp in (2, 4)]
+    return " && ".join([train, *test])
 
 
 def _jax_variables():
@@ -501,17 +502,21 @@ def test_one_process_checkpoint_resumes_under_tp2(runs):
 # --------------------------------------------------------------- entries
 
 def test_train_at_tp4_and_test_at_tp2_under_torchrun(runs):
-    """torchrun -m cris_tpu_torch.train at dp1 x tp4 and -m .test at dp2 x
-    tp2 on its best_model.pth: each logs one run line (rank 0) with its
-    grid; the checkpoint is whole and loads into one process."""
+    """torchrun -m cris_tpu_torch.train at dp1 x tp4, then -m .test at dp2
+    x tp2 and at dp1 x tp4 on its best_model.pth: each logs one run line
+    (rank 0) with its grid, the two tests the same pairs and IoU; the
+    checkpoint is whole and loads into one process."""
     log = runs["logs"]["entry"]
-    assert log.count("=> run: ") == 2, log[-3000:]
-    train, test = (json.loads(part.splitlines()[0])
-                   for part in log.split("=> run: ")[1:])
+    assert log.count("=> run: ") == 3, log[-3000:]
+    train, test2, test4 = (json.loads(part.splitlines()[0])
+                           for part in log.split("=> run: ")[1:])
     assert (train["world_size"], train["dp"], train["tp"]) == (4, 1, 4)
     assert train["steps"] == 2 and train["images"] == 8
-    assert (test["world_size"], test["dp"], test["tp"]) == (4, 2, 2)
-    assert test["pairs"] > 0
+    assert (test2["world_size"], test2["dp"], test2["tp"]) == (4, 2, 2)
+    assert (test4["world_size"], test4["dp"], test4["tp"]) == (4, 1, 4)
+    assert test2["pairs"] == test4["pairs"] > 0
+    ious = re.findall(r" - IoU=(\S+)", log)  # the test entry's result line
+    assert len(ious) == 2 and ious[0] == ious[1], ious
     out = os.path.join(runs["out"], "CRIS_TINY")
     sd = load_cris_checkpoint(os.path.join(out, "best_model.pth"))
     cfg = load_cfg_from_cfg_file(TINY)
@@ -519,6 +524,19 @@ def test_train_at_tp4_and_test_at_tp2_under_torchrun(runs):
         sd, strict=True)
     with open(os.path.join(out, "test.log")) as f:
         assert "IoU=" in f.read()
+
+
+def test_shard_model_keeps_the_model_in_its_mode():
+    """Split in eval (the test entry splits the loaded eval model) every
+    module stays in eval, so the FFN's column dropout is off; split in
+    training every module trains. Slicing needs no process group."""
+    cfg = load_cfg_from_cfg_file(TINY)
+    for train in (False, True):
+        model = build_segmenter(cfg, device="cpu", seed=0, train=train)
+        shard_model(model, Grid(model_rank=1, model_size=2))
+        assert all(m.training == train for m in model.modules())
+        assert type(model.decoder.layers[0].ffn[2]).__name__ == \
+            "ColumnDropout"
 
 
 def test_tp_size_1_leaves_the_model_and_the_grid_whole():
