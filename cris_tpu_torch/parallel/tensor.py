@@ -326,7 +326,8 @@ class ColumnParallelLinear(nn.Linear):
     rank, else each rank keeps its slice."""
 
     def __init__(self, full: nn.Linear, grid: Grid, gather: bool = False):
-        super().__init__(full.in_features, full.out_features // grid.model_size,
+        super().__init__(full.in_features,
+                         full.out_features // grid.model_size,
                          bias=full.bias is not None, device="meta")
         self.grid, self.gather = grid, gather
         self.weight = shard_parameter(full.weight, Shard(0), grid)
@@ -398,7 +399,8 @@ class ShardedLayerNormF32(nn.LayerNorm):
         group = self.grid.model_group
         with torch.autocast(x.device.type, enabled=False):
             x32 = x.float()
-            mean = all_reduce_sum(x32.sum(-1, keepdim=True), group) / self.width
+            mean = all_reduce_sum(x32.sum(-1, keepdim=True),
+                                  group) / self.width
             xc = x32 - mean
             var = all_reduce_sum(xc.square().sum(-1, keepdim=True),
                                  group) / self.width

@@ -7,10 +7,10 @@ dp1 x tp2 grid and the 4 of a dp2 x tp2 grid, each running every check
 of ``torch_tp_worker.py`` in one launch (tiny CRIS at ``tp_state``, f32,
 the rows of ``tp_batch`` that its data rank owns), and a 4-rank
 ``torchrun`` of ``python3 -m cris_tpu_torch.train --device cpu`` at
-``Distributed.tp_size 4``, then of ``.test`` at ``tp_size 2`` on what it
-wrote. While they run it takes the same steps on one process of the port
-and the gradient of the JAX package's loss on ``make_mesh(4, 2)``, the
-virtual 8-device mesh, with the JAX rules' shardings.
+``Distributed.tp_size 4``, then of ``.test`` at ``tp_size`` 2 and 4 on
+what it wrote. While they run it takes the same steps on one process of
+the port and the gradient of the JAX package's loss on ``make_mesh(4,
+2)``, the virtual 8-device mesh, with the JAX rules' shardings.
 
 Bars (tests/test_torch_parallel.py's, and JAX's own for the loss,
 tests/test_parallel.py:153-193): the loss within 1e-4 relative of one
