@@ -293,8 +293,30 @@ Phases (any failure raises, and the script exits non-zero):
    Evaluator.validate over the split model against one process (within
    1e-4); (c) torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train
    --opts Distributed.tp_size 2 over NCCL at R50 b64 bf16 on 16(c)'s 4
-   steps, its img/s beside 16(c)'s (on one card it says that no NCCL
-   tensor-parallel rate was measured).
+   steps, its img/s beside 16(c)'s, then torchrun -m cris_tpu_torch.test
+   --opts Distributed.tp_size 2 on its best_model.pth (its grid and IoU;
+   on one card it says that no NCCL tensor-parallel rate was measured).
+21. the ViT image tower, the int8 audit, the parity report and the int8
+   test entry under tensor parallel: (a) a seeded CLIP ViT-B/16 at its
+   published width (embed 512, 224 px, 12 layers of width 768, patch 16;
+   text 512 / 8 heads / 12 layers) traced into an archive and loaded
+   back (the inferred config equal, the weights bit for bit);
+   encode_image at B 32 in f32 on the card against the CPU (relative L2
+   <= 1e-4) and in bf16 beside f32, K1 12 a forward (f32 on the scalar
+   body, bf16 on the tensor cores); K1 alone at (32, 197, 768), 12 heads,
+   against its plain version as in phase 2, with SDPA and the bound;
+   the bf16 img/s; (b) python3 -m cris_tpu_torch.int8_error_audit at R50
+   416 px b8 with static scales, local and compound: a row a site, K8's
+   quantise pass once a site and batch and its GEMM once (four at a
+   phase site), neither's plain version; the worst and median rows,
+   compound's mask agreement with bf16; one site's scale x 1.05 raises
+   its rms_err / rms_ref; (d) python3 -m cris_tpu_torch.parity_report on
+   19(d)'s best_model.pth and val pack: its IoU the test entry's on the
+   split, its exit code its verdict (FAIL on seeded weights); (c) python3
+   -m cris_tpu_torch.quantize on that checkpoint, then the test entry at
+   precision int8 as one process and as 2 gloo ranks at dp1 x tp2 on the
+   one card: the IoU within 0.5 points, K8's launches equal on each
+   rank. Phase 21 runs phase 19 when it is not asked for.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -325,6 +347,9 @@ the card's name and power limit, and {"ok": true, "device": {...}}.
                                           # and test from its packs
     python3 chip_smoke.py --phases 20     # tensor parallel: K2's head
                                           # offset, 2 gloo ranks, torchrun
+    python3 chip_smoke.py --phases 21     # ViT-B/16 and K1 at its sites,
+                                          # the int8 audit, the parity
+                                          # report, int8 under tp (and 19)
 """
 
 import argparse
@@ -535,13 +560,13 @@ def expected_route(dtype, head_dim: int) -> str:
             else "scalar")
 
 
-def phase_kernel(fused, plain):
-    """K1 vs its plain version, on the route its dtype must take; CUDA-event
-    times back to back and on the device alone. Returns (rows,
-    max_abs_err, the decoder self-attention's bf16 row)."""
+def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
+    """K1 vs its plain version at ``sites``, on the route its dtype must
+    take; CUDA-event times back to back and on the device alone. Returns
+    (rows, max_abs_err, ``main_site``'s bf16 row)."""
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for site, b, s, t, h, d, masked, dtypes in K1_SITES:
+    for site, b, s, t, h, d, masked, dtypes in sites:
         e = h * d
         q = torch.randn(b, s, e, device="cuda", generator=gen)
         k = torch.randn(b, t, e, device="cuda", generator=gen)
@@ -614,7 +639,7 @@ def phase_kernel(fused, plain):
                   f"{row['plain_device_ms']:.4f} ms sdpa "
                   f"{row['library_device_ms']:.4f} ms; bound {b_ms:.4f} ms "
                   f"({b_by})", flush=True)
-    main = next(r for r in rows if r["site"] == "decoder self-attn"
+    main = next(r for r in rows if r["site"] == main_site
                 and r["dtype"] == "bfloat16")
     return rows, worst, main
 
@@ -2848,11 +2873,14 @@ def _run_group(cmd, timeout, **kwargs):
     return proc.returncode, log
 
 
-def _torchrun_train(n, *opts):
+def _torchrun_train(n, *opts, test=False):
     """torchrun --nproc_per_node=n -m cris_tpu_torch.train at R50 b64 bf16
     (config/refcoco/cris_r50.yaml), 1 epoch of DP_ENTRY_STEPS steps over
     JPEG records of the bench (phase 15's), the first 64 as the val set,
-    with ``opts`` appended to --opts: (its run line, seconds, its log)."""
+    with ``opts`` appended to --opts: (its run line, seconds, the K1 and
+    K2 launches summed over the ranks); with ``test``, then torchrun -m
+    cris_tpu_torch.test with the same ``opts`` on its best_model.pth over
+    the val set, and (its run line, its IoU line) as a fourth item."""
     from cris_tpu_torch.data import write_refpack
     from cris_tpu_torch.utils import cris_r50_refcoco
 
@@ -2883,6 +2911,19 @@ def _torchrun_train(n, *opts):
         seconds = time.perf_counter() - t0
         assert code == 0, f"torchrun {opts} exited {code}:\n{log[-6000:]}"
         run = _run_line(os.path.join(out, cfg.exp_name, "train.log"))
+        tested = None
+        if test:
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", f"--nproc_per_node={n}", "-m",
+                   "cris_tpu_torch.test", "--config",
+                   os.path.join("config", "refcoco", "cris_r50.yaml"),
+                   "--opts", "TEST.test_lmdb", val_pack, "DATA.mask_root",
+                   masks, "TRAIN.output_folder", out, *opts]
+            code, test_log = _run_group(cmd, DP_TIMEOUT, cwd=here, env=env)
+            assert code == 0, (f"torchrun test {opts} exited {code}:\n"
+                               f"{test_log[-6000:]}")
+            tested = (_run_line(os.path.join(out, cfg.exp_name, "test.log")),
+                      next(x for x in test_log.splitlines() if " - IoU=" in x))
     assert log.count("=> run: ") == 1, "more than rank 0 logged"
     assert run["world_size"] == n and run["steps"] == DP_ENTRY_STEPS, run
     assert run["images"] == DP_ENTRY_STEPS * b, run
@@ -2893,8 +2934,9 @@ def _torchrun_train(n, *opts):
         by_route = run["launches"][name]
         assert by_route == {"tensor_cores": [per_rank] * n,
                             "scalar": [0] * n}, (name, by_route)
-    return run, seconds, {name: sum(run["launches"][name]["tensor_cores"])
-                          for name in want}
+    launches = {name: sum(run["launches"][name]["tensor_cores"])
+                for name in want}
+    return (run, seconds, launches) + ((tested,) if test else ())
 
 
 def phase_dp_entry():
@@ -3268,13 +3310,15 @@ def phase_tp_entry(dp_run):
     Distributed.tp_size 2 over NCCL, on 16(c)'s steps, when the call has 2
     cards or more: its img/s beside 16(c)'s data-parallel run (``dp_run``,
     its run line), its grid, and each rank's K1 and K2 launches, all on
-    the tensor cores. With one card nothing runs."""
+    the tensor cores; then the test entry at tp_size 2 on its
+    best_model.pth (its grid and IoU line). With one card nothing runs."""
     n = torch.cuda.device_count()
     if n < 2:
         print("20(c) one card: no NCCL tensor-parallel rate was measured",
               flush=True)
         return None
-    run, seconds, launches = _torchrun_train(n, "Distributed.tp_size", "2")
+    run, seconds, launches, (test_run, iou_line) = _torchrun_train(
+        n, "Distributed.tp_size", "2", test=True)
     dp_rate = ("not run" if dp_run is None
                else f"{dp_run['images_per_s']:.2f} img/s")
     print(f"20(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train "
@@ -3284,7 +3328,14 @@ def phase_tp_entry(dp_run):
           f"parallel alone on the same steps: {dp_rate}; => run: "
           f"{json.dumps(run)} on {card_line()}", flush=True)
     assert (run["dp"], run["tp"]) == (n // 2, 2), run
-    return dict(run=run, seconds=seconds, cards=n, launches=launches)
+    print(f"20(c) then torchrun --nproc_per_node={n} -m cris_tpu_torch.test "
+          f"--opts Distributed.tp_size 2 on its best_model.pth over the val "
+          f"set: {iou_line.strip()}; => run: {json.dumps(test_run)}",
+          flush=True)
+    assert (test_run["dp"], test_run["tp"]) == (n // 2, 2), test_run
+    assert test_run["pairs"] > 0, test_run
+    return dict(run=run, seconds=seconds, cards=n, launches=launches,
+                test_run=test_run)
 
 
 def phase_tensor_parallel(k2, k2_fwd, plain_k2, keep_bits_packed, dp_run):
@@ -4558,7 +4609,7 @@ def check_rasterizer_fixture() -> int:
     return len(cases)
 
 
-def phase_prep(k1, k2, k2_bwd):
+def phase_prep(k1, k2, k2_bwd, keep=None):
     """19: dataset preparation on the card's machine, then train and test
     from its packs: (a) a REFER root from a seed; (b) python3 -m
     cris_tpu_torch.data_process (masks), .folder2pack for each split and
@@ -4568,7 +4619,9 @@ def phase_prep(k1, k2, k2_bwd):
     batch of the prewarped pack equals the raw pack's through the native
     data plane; (d) python3 -m cris_tpu_torch.train at R50 bf16 b16 from
     the prewarped pack, 1 epoch of 12 steps, validating on the val pack,
-    then python3 -m cris_tpu_torch.test on it."""
+    then python3 -m cris_tpu_torch.test on it. With ``keep`` (a directory)
+    best_model.pth, the prewarped val pack and the masks are copied there
+    for phase 21 (``out["kept"]``)."""
     import re
 
     from cris_tpu_torch import test as test_entry
@@ -4730,8 +4783,312 @@ def phase_prep(k1, k2, k2_bwd):
         out.update(losses=losses, best_iou=best, run=run, launches=counts,
                    by_route=routes, train_seconds=train_s, test_iou=iou,
                    test_run=test_run, test_K1=test_k1, test_seconds=test_s)
+        if keep is not None:
+            kept = dict(folder=os.path.join(keep, "out"),
+                        val_pack=os.path.join(keep, "val", "val.refpack"),
+                        mask_root=os.path.join(keep, "masks"))
+            kept["ckpt"] = os.path.join(kept["folder"], cfg.exp_name,
+                                        "best_model.pth")
+            for key in ("ckpt", "val_pack"):
+                os.makedirs(os.path.dirname(kept[key]))
+            shutil.copy(os.path.join(out_dir, "best_model.pth"), kept["ckpt"])
+            shutil.copy(os.path.join(warped, "val.refpack"), kept["val_pack"])
+            shutil.copytree(masks, kept["mask_root"])
+            out["kept"] = kept
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 19: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# phase 21: ViT-B/16 at its published width (OpenAI CLIP's ViT-B-16.pt:
+# embed 512, 224 px, 12 layers of width 768 and patch 16, the text tower
+# 512 wide with 8 heads and 12 layers); seeded weights
+VIT_B16 = (512, 224, 12, 768, 16, 77, 49408, 512, 8, 12)
+VIT_B = 32
+# K1 at the ViT's attention: 197 tokens (196 patches and CLS), 12 heads of
+# 64, in phase 2's form
+VIT_K1_SITES = [("ViT-B/16 attention", VIT_B, 197, 197, 12, 64, 0, BOTH)]
+VIT_SEED = 21
+INT8_IOU_BAR = 0.5  # points: tests/test_torch_tensor_parallel.py's bar
+
+
+def phase_vit(k1, plain):
+    """21(a): ViT-B/16 traced into an archive and loaded back (config and
+    weights equal), encode_image at B 32 in f32 on the card against the
+    CPU at phase 3's bar, in bf16 beside f32, K1 12 a forward, K1 alone at
+    the ViT's sites against its plain version, and the bf16 img/s."""
+    from cris_tpu_torch.checkpoint.torch_convert import (
+        load_clip_torchscript, save_clip_torchscript)
+    from cris_tpu_torch.models import CLIP, CLIPConfig, init_weights
+
+    t0 = time.perf_counter()
+    cfg = CLIPConfig(*VIT_B16)
+    clip = init_weights(CLIP(cfg), VIT_SEED).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_clip_torchscript(clip, os.path.join(tmp, "ViT-B-16.pt"),
+                                     cfg.image_resolution)
+        sd, inferred = load_clip_torchscript(path)
+    want = clip.state_dict()
+    assert inferred == cfg, (inferred, cfg)
+    assert set(sd) == set(want) and all(torch.equal(sd[k], v)
+                                        for k, v in want.items())
+    print(f"21(a) ViT-B/16 {cfg}: traced archive of {len(sd)} tensors loads "
+          f"back with the same config and weights bit for bit", flush=True)
+    gen = torch.Generator().manual_seed(VIT_SEED)
+    img = torch.randn(VIT_B, 3, 224, 224, generator=gen)
+    with torch.no_grad():
+        ref = clip.encode_image(img)
+        vit = clip.visual.cuda()
+        x = img.cuda()
+        reset_counts(k1)
+        f32 = vit(x)
+        torch.cuda.synchronize()
+        f32_routes = dict(k1.launches_by_route)
+        reset_counts(k1)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            bf16 = vit(x)
+        torch.cuda.synchronize()
+        bf16_routes = dict(k1.launches_by_route)
+        rel = _rel(f32.cpu(), ref)
+        rel_bf16 = _rel(bf16.float().cpu(), ref)
+
+        def forward():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return vit(x)
+        ms = cuda_ms(forward, 10)
+    layers = cfg.vision_layers
+    print(f"21(a) encode_image B {VIT_B} {tuple(f32.shape)}: f32 card vs CPU "
+          f"rel L2 {rel:.3e} (bar 1e-4), K1 {f32_routes}; bf16 vs f32 rel L2 "
+          f"{rel_bf16:.3e}, K1 {bf16_routes}; bf16 {ms:.3f} ms a batch, "
+          f"{VIT_B * 1e3 / ms:.1f} img/s on {card_line()}", flush=True)
+    assert f32.shape == (VIT_B, 196, cfg.embed_dim)
+    assert bool(torch.isfinite(bf16).all())
+    assert rel <= 1e-4, rel
+    assert f32_routes == {"tensor_cores": 0, "scalar": layers}, f32_routes
+    assert bf16_routes == {"tensor_cores": layers, "scalar": 0}, bf16_routes
+    rows, worst, main = phase_kernel(k1, plain, VIT_K1_SITES,
+                                     VIT_K1_SITES[0][0])
+    del vit, x
+    torch.cuda.empty_cache()
+    return dict(rows=rows, worst=worst, main=main, rel_l2_f32=rel,
+                rel_l2_bf16=rel_bf16, batch_ms=ms, img_per_s=VIT_B * 1e3 / ms,
+                launches={r: f32_routes[r] + bf16_routes[r]
+                          for r in f32_routes},
+                seconds=time.perf_counter() - t0)
+
+
+def phase_audit(k8, k8q):
+    """21(b): python3 -m cris_tpu_torch.int8_error_audit at R50 416 px b8
+    with static scales, local then compound: a row a site, K8's quantise
+    pass once a site and batch and its GEMM once (four at a phase site),
+    no plain version of either; the worst and median rows, compound's
+    mask agreement; one site's scale x 1.05 in the local model raises
+    that site's rms_err / rms_ref."""
+    from cris_tpu_torch import int8_error_audit as tool
+    from cris_tpu_torch.models import int8_sites
+
+    k8mod = importlib.import_module("cris_tpu_torch.ops.kernels.int8_conv")
+    plains = {name: getattr(k8mod, name) for name in (
+        "int8_conv_plain", "int8_conv_packed_plain", "int8_quantize_plain")}
+    plain_calls = []
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return call
+
+    t0, n_batches, out = time.perf_counter(), 2, {}
+    for name, fn in plains.items():
+        setattr(k8mod, name, counted(fn))
+    try:
+        for mode in ("local", "compound"):
+            reset_counts(k8, k8q)
+            res = tool.main(["--preset", "RN50", "--size", "416", "--batch",
+                             "8", "--static", "--mode", mode])
+            sites = [n for n in res["stats"]]
+            gemms = sum(4 if n.endswith(PHASE_SITES) else 1 for n in sites)
+            launches = {"K8": k8.launches, "int8_quantize": k8q.launches}
+            table = res["rows"]
+            median = sorted(table, key=lambda r: r[2])[len(table) // 2]
+            print(f"21(b) int8 audit {mode}: {len(table)} sites, worst "
+                  f"{table[0][:3]}, median {median[:3]}, agreement "
+                  f"{res['agreement']}; launches {launches} over "
+                  f"{n_batches} batches ({gemms} GEMMs a batch)", flush=True)
+            assert launches == {"K8": gemms * n_batches,
+                                "int8_quantize": len(sites) * n_batches}, \
+                launches
+            assert not plain_calls, plain_calls
+            assert len({r[0] for r in table}) == len(table) >= 50
+            assert all(np.isfinite(r[1]) and np.isfinite(r[2])
+                       for r in table)
+            out[mode] = dict(sites=len(table), worst=table[0][:3],
+                             median=median[:3],
+                             agreement=res["agreement"], launches=launches)
+            if mode == "compound":
+                assert 0.5 <= res["agreement"] <= 1.0, res["agreement"]
+                del res
+                continue
+            # the planted fault: the median site's scale x 1.05
+            model, stats, name = res["model"], res["stats"], median[3]
+            site = int8_sites(model)[name]
+            site.act_scale.mul_(1.05)
+            faulty, _ = tool.audit(model, tool.audit_batches(
+                n_batches, 8, 416, 17, torch.device("cuda")), "local")
+            before, after = (float(x[name][1] / x[name][3])
+                             for x in (stats, faulty))
+            print(f"21(b) {median[0]}'s scale x 1.05: rms_err/rms_ref "
+                  f"{before:.5f} -> {after:.5f}", flush=True)
+            assert after > before, (name, before, after)
+            out["fault"] = dict(site=median[0], before=before, after=after)
+            del model, res, site
+        torch.cuda.empty_cache()
+    finally:
+        for name, fn in plains.items():
+            setattr(k8mod, name, fn)
+    out["launches"] = {k: out["local"]["launches"][k]
+                       + out["compound"]["launches"][k]
+                       for k in ("K8", "int8_quantize")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _int8_test_rank(rank, port, argv, tmp):
+    """21(c)'s rank ``rank`` of TP_WORLD: joins a gloo group on cuda:0,
+    then runs python3 -m cris_tpu_torch.test's main at dp1 x tp2 (its
+    device step replaced by that group and its grid); writes its IoU and
+    K8's launches to tmp."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(TP_WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from cris_tpu_torch import cli
+    from cris_tpu_torch import test as test_entry
+    from cris_tpu_torch.ops import kernels
+    from cris_tpu_torch.parallel import (close_distributed, init_distributed,
+                                         init_grid)
+
+    device = init_distributed("cuda:0", backend="gloo")
+
+    def init_device(cfg, what):
+        grid = init_grid(cfg.get("dp_size", -1), cfg.get("tp_size", 1))
+        assert (grid.data_size, grid.model_size) == (1, TP_WORLD), grid
+        return device
+    cli.init_device = init_device
+    reset_counts(kernels.int8_conv, kernels.int8_quantize)
+    iou, _ = test_entry.main(argv)
+    torch.save({"iou": iou, "K8": kernels.int8_conv.launches,
+                "int8_quantize": kernels.int8_quantize.launches},
+               os.path.join(tmp, f"rank{rank}.pt"))
+    close_distributed()
+
+
+def phase_int8_tp(k8, k8q, kept):
+    """21(c): python3 -m cris_tpu_torch.quantize on phase 19's
+    best_model.pth over its val pack, then the test entry at precision
+    int8 on that pack: one process, and two gloo ranks at dp1 x tp2 on
+    the one card; the IoU within INT8_IOU_BAR points, K8's launches on
+    every rank equal to one process's."""
+    import multiprocessing
+    import socket
+
+    from cris_tpu_torch import quantize
+    from cris_tpu_torch import test as test_entry
+
+    t0 = time.perf_counter()
+    config = os.path.join("config", "refcoco", "cris_r50.yaml")
+    data = ["TRAIN.output_folder", kept["folder"], "DATA.mask_root",
+            kept["mask_root"]]
+    scales = quantize.main(["--config", config, "--batches", "2",
+                            "--batch-size", "16", "--opts", *data,
+                            "DATA.val_lmdb", kept["val_pack"]])
+    _close_log()
+    argv = ["--config", config, "--opts", *data, "TEST.test_lmdb",
+            kept["val_pack"], "TRAIN.precision", "int8"]
+    reset_counts(k8, k8q)
+    iou, _ = test_entry.main(argv)
+    _close_log()
+    single = {"iou": iou, "K8": k8.launches, "int8_quantize": k8q.launches}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_argv = argv + ["Distributed.tp_size", str(TP_WORLD)]
+        procs = [ctx.Process(target=_int8_test_rank,
+                             args=(r, port, tp_argv, tmp))
+                 for r in range(TP_WORLD)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DP_TIMEOUT)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * TP_WORLD, f"21(c) ranks exited {codes}"
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(TP_WORLD)]
+    gap = max(abs(r["iou"] - iou) * 100 for r in ranks)
+    print(f"21(c) the test entry at precision int8 ({scales}): one process "
+          f"IoU {100 * iou:.4f}, K8 {single['K8']}, quantise "
+          f"{single['int8_quantize']}; dp1 x tp{TP_WORLD} over gloo on the "
+          f"one card: IoU {[round(100 * r['iou'], 4) for r in ranks]}, K8 "
+          f"{[r['K8'] for r in ranks]}, quantise "
+          f"{[r['int8_quantize'] for r in ranks]}; gap {gap:.4f} points "
+          f"(bar {INT8_IOU_BAR})", flush=True)
+    assert gap <= INT8_IOU_BAR, gap
+    assert single["K8"] > 0 and single["int8_quantize"] > 0, single
+    for r in ranks:
+        assert (r["K8"], r["int8_quantize"]) == (
+            single["K8"], single["int8_quantize"]), (r, single)
+    return dict(iou=iou, tp_ious=[r["iou"] for r in ranks], gap_points=gap,
+                launches={k: single[k] * (1 + TP_WORLD)
+                          for k in ("K8", "int8_quantize")},
+                seconds=time.perf_counter() - t0)
+
+
+def phase_parity(kept, test_iou):
+    """21(d): python3 -m cris_tpu_torch.parity_report on phase 19's
+    best_model.pth and val pack in a process of its own: its val row's
+    IoU equals phase 19(d)'s test entry's on the same split, and its exit
+    code its printed verdict (FAIL on seeded weights)."""
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    report = os.path.join(kept["folder"], "parity.json")
+    cmd = [sys.executable, "-m", "cris_tpu_torch.parity_report", "--config",
+           os.path.join("config", "refcoco", "cris_r50.yaml"), "--ckpt",
+           kept["ckpt"], "--splits", "val", "--lmdb-root",
+           os.path.dirname(kept["val_pack"]), "--mask-root",
+           kept["mask_root"], "--json", report]
+    code, log = _run_group(cmd, 600, cwd=here,
+                           env=dict(os.environ, PYTHONPATH=here))
+    with open(report) as f:
+        got = json.load(f)
+    (row,) = got["rows"]
+    table = log[log.rindex("split "):].strip()
+    print(f"21(d) python3 -m cris_tpu_torch.parity_report exited {code} in "
+          f"{time.perf_counter() - t0:.1f} s:\n{table}\nIoU {row['iou']!r} "
+          f"against the test entry's {100 * test_iou!r} (19(d))", flush=True)
+    verdict = "PASS" if got["all_ok"] else "FAIL"
+    assert code == (0 if got["all_ok"] else 1), (code, got["all_ok"])
+    assert verdict in table and row["expected_iou"] == 69.52, row
+    assert abs(row["iou"] - 100 * test_iou) <= 1e-6, (row, test_iou)
+    return dict(code=code, verdict=verdict, row=row,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_21(k1, k1_plain, k8, k8q, prep):
+    """21: the ViT tower, the int8 audit, the parity report and the int8
+    test entry under tensor parallel (the last two on phase 19's kept
+    checkpoint and packs)."""
+    t0 = time.perf_counter()
+    out = {"vit": phase_vit(k1, k1_plain)}
+    out["audit"] = phase_audit(k8, k8q)
+    out["parity"] = phase_parity(prep["kept"], prep["test_iou"])
+    out["int8_tp"] = phase_int8_tp(k8, k8q, prep["kept"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 21: {out['seconds']:.1f} s on {card_line()}", flush=True)
     return out
 
 
@@ -4746,17 +5103,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     run_all = args.phases == "all"
-    wanted = set(range(2, 21)) if run_all else {
+    wanted = set(range(2, 22)) if run_all else {
         int(x) for x in args.phases.split(",")}
+    if 21 in wanted and 19 not in wanted:
+        print("chip_smoke: phase 21 takes phase 19's checkpoint and packs: "
+              "running phase 19 too", flush=True)
+        wanted.add(19)
 
-    from cris_tpu_torch import bench, engine
-    from cris_tpu_torch.checkpoint import fold_batchnorm
-    from cris_tpu_torch.models import build_segmenter, preset_from_name
-    from cris_tpu_torch.ops import kernels
     from cris_tpu_torch.ops.kernels import build
-    from cris_tpu_torch.ops.kernels.bottleneck import K5_TAILS
-    from cris_tpu_torch.serving import PredictService
-    from cris_tpu_torch.utils import cris_r50_refcoco, tokenize
+    from cris_tpu_torch.utils import cris_r50_refcoco
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4774,10 +5129,38 @@ def main() -> int:
         print(log.read_text(), flush=True)
 
     cfg = cris_r50_refcoco()
+    out = {}
+    keep = tempfile.mkdtemp()  # phase 19's files for phase 21
+    try:
+        run_phases(wanted, out, cfg, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    if not run_all:
+        print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
+              "prints no summary", flush=True)
+        return 0
+    print(json.dumps(summary(out)), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(wanted, out, cfg, keep):
+    """Phases 2-21 of ``wanted`` in order, each one's results into ``out``
+    (phase 19 keeps its checkpoint and packs in ``keep`` for phase 21)."""
+    from cris_tpu_torch import bench, engine
+    from cris_tpu_torch.checkpoint import fold_batchnorm
+    from cris_tpu_torch.models import build_segmenter, preset_from_name
+    from cris_tpu_torch.ops import kernels
+    from cris_tpu_torch.ops.kernels.bottleneck import K5_TAILS
+    from cris_tpu_torch.serving import PredictService
+    from cris_tpu_torch.utils import tokenize
+
     k1 = kernels.fused_attention_bse
     k2 = kernels.fused_attention_bse_dropout
     k5, k7 = kernels.fused_bottleneck, kernels.fused_stem_pool
-    out = {}
     # each phase reads from `kernels` only what it drives
     if 2 in wanted:
         out["k1_rows"], out["k1_worst"], out["k1_main"] = phase_kernel(
@@ -4845,22 +5228,16 @@ def main() -> int:
     if 18 in wanted:
         out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
     if 19 in wanted:
-        out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward)
+        out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward,
+                                 keep)
     if 20 in wanted:
         out["tp"] = phase_tensor_parallel(
             k2, kernels.attention_dropout_forward,
             kernels.attention_dropout_plain, kernels.keep_bits_packed,
             out["dp"]["entry"]["run"] if "dp" in out else None)
-    if not run_all:
-        print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
-              "prints no summary", flush=True)
-        return 0
-    print(json.dumps(summary(out)), flush=True)
-    print(card_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    if 21 in wanted:
+        out["p21"] = phase_21(k1, kernels.attention_plain, kernels.int8_conv,
+                              kernels.int8_quantize, out["prep"])
 
 
 def summary(out) -> dict:
@@ -4878,6 +5255,8 @@ def summary(out) -> dict:
     tp_py = {name: n + (tp_entry["launches"][name] if tp_entry else 0)
              for name, n in out["tp"]["ranks"]["launches"].items()}
     k2_fwd_routes, k2_bwd_routes, k1_train_routes = train_routes
+    p21 = out["p21"]  # phase 21
+    vit = p21["vit"]  # (a): one f32 and one bf16 forward, 12 K1 each
     # K2 at the train path's busiest site: self-attention, B 32, bf16
     main_k2 = next(r for r in out["k2_rows"] if r["site"].startswith(
         "decoder self-attn") and r["B"] == 32 and r["dtype"] == "bfloat16")
@@ -4959,7 +5338,8 @@ def summary(out) -> dict:
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
                      + bench["K1"] + test_path["K1"]
                      + train_py["launches"]["K1"] + ab_py["K1"]
-                     + dp_py["K1"] + front["K1"] + tp_py["K1"]),
+                     + dp_py["K1"] + front["K1"] + tp_py["K1"]
+                     + sum(vit["launches"].values())),
         "launches_by_path": {"serving": out["serving"]["K1"],
                              "train": k1_train_n,
                              "folded serving": folded["K1"],
@@ -4969,16 +5349,18 @@ def summary(out) -> dict:
                              "train.py A/B": ab_py["K1"],
                              "train.py torchrun": dp_py["K1"],
                              "HTTP front": front["K1"],
-                             "tensor parallel": tp_py["K1"]},
+                             "tensor parallel": tp_py["K1"],
+                             "ViT image tower": sum(vit["launches"].values())},
         "launches_by_route": {
             r: out["serving_routes"]["K1"][r] + k1_train_routes[r]
             + out["folded_routes"]["K1"][r]
             + (bench["K1"] + ab_py["K1"] + dp_py["K1"] + tp_py["K1"]
                if r == "tensor_cores" else 0)
             + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
-            + front["K1_by_route"][r]
+            + front["K1_by_route"][r] + vit["launches"][r]
             for r in k1_train_routes},
-        "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"]),
+        "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"],
+                           vit["worst"]),
         # on the device alone: the tensor-core body runs shorter than the
         # wrapper's host time, which back-to-back calls would time
         "ms": k1_main["device_ms"],
@@ -4991,6 +5373,11 @@ def summary(out) -> dict:
         "library_back_to_back_ms": k1_main["library_ms"],
         "library": "scaled_dot_product_attention",
         "site": "decoder self-attn, B 16 bf16, route " + k1_main["route"],
+        # phase 21(a): the ViT-B/16 tower's 12 sites a forward
+        "vit_site": {k: vit["main"][k] for k in (
+            "site", "B", "S", "H", "D", "route", "max_abs_err", "device_ms",
+            "ms", "plain_device_ms", "library_device_ms", "bound_ms",
+            "bound_by")},
     }, k2_entry("forward", 218, k2_fwd_n, bench["K2 fwd"], k2_fwd_routes,
                 out["k2_fwd_worst"]),
         k2_entry("backward", 248, k2_bwd_n, bench["K2 bwd"], k2_bwd_routes,
@@ -5056,9 +5443,14 @@ def summary(out) -> dict:
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/int8_conv.cu",
         "replaces": "cris_tpu/ops/quant.py:64",
-        "launches": i8["serving"]["K8"] + i8["bench_K8"],
+        "launches": (i8["serving"]["K8"] + i8["bench_K8"]
+                     + p21["audit"]["launches"]["K8"]
+                     + p21["int8_tp"]["launches"]["K8"]),
         "launches_by_path": {"int8 serving": i8["serving"]["K8"],
-                             "bench int8 pair": i8["bench_K8"]},
+                             "bench int8 pair": i8["bench_K8"],
+                             "int8 audit": p21["audit"]["launches"]["K8"],
+                             "int8 test entry, tp 1 and 2":
+                                 p21["int8_tp"]["launches"]["K8"]},
         "max_abs_err": max(r["max_abs_err"] for r in i8["sites"]),
         "ms": site["gemm_device_ms"],
         "plain_ms": site["gemm_plain_ms"],
@@ -5081,9 +5473,16 @@ def summary(out) -> dict:
         "route": "cuda",
         "source": "cris_tpu_torch/csrc/int8_conv.cu",
         "replaces": "cris_tpu/ops/quant.py:87",
-        "launches": i8["serving"]["int8_quantize"] + i8["bench_int8_quantize"],
-        "launches_by_path": {"int8 serving": i8["serving"]["int8_quantize"],
-                             "bench int8 pair": i8["bench_int8_quantize"]},
+        "launches": (i8["serving"]["int8_quantize"]
+                     + i8["bench_int8_quantize"]
+                     + p21["audit"]["launches"]["int8_quantize"]
+                     + p21["int8_tp"]["launches"]["int8_quantize"]),
+        "launches_by_path": {
+            "int8 serving": i8["serving"]["int8_quantize"],
+            "bench int8 pair": i8["bench_int8_quantize"],
+            "int8 audit": p21["audit"]["launches"]["int8_quantize"],
+            "int8 test entry, tp 1 and 2":
+                p21["int8_tp"]["launches"]["int8_quantize"]},
         "max_abs_err": max(r["max_abs_err"] for r in i8["quantize_sites"]),
         "ms": qrow["device_ms"],
         "plain_ms": qrow["plain_ms"],
@@ -5159,7 +5558,13 @@ def summary(out) -> dict:
                                 if k != "K1_by_route"},
                       "int8": {k: v for k, v in i8.items()
                                if k != "ab_rewrites"},
-                      "int8_ab_rewrites": i8["ab_rewrites"]}), flush=True)
+                      "int8_ab_rewrites": i8["ab_rewrites"],
+                      "phase_21": {
+                          "vit": {k: v for k, v in vit.items()
+                                  if k not in ("main", "rows")},
+                          "vit_k1": vit["rows"],
+                          **{k: v for k, v in p21.items()
+                             if k != "vit"}}}), flush=True)
     return {"kernels": kernels}
 
 

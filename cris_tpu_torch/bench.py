@@ -179,17 +179,25 @@ def eval_model(cfg, device, folded_sd, **switches) -> torch.nn.Module:
     return model.to(device)
 
 
-def int8_model(cfg, device) -> torch.nn.Module:
-    """The R50 eval model at precision int8 with its sites' scales
-    calibrated on the bench's own batches (``bench.py:129-150``)."""
-    cfg = CfgNode({**cfg, "precision": "int8"})
-    model = eval_model(cfg, device, folded_state(cfg), quant=INT8_QUANT)
+def calibrate(model: torch.nn.Module, cfg, device,
+              pct: float = 0.0) -> torch.nn.Module:
+    """Give ``model``'s int8 sites the scales of a bf16 calibration on the
+    bench's own batches (``bench.py:129-150``; with ``pct`` at that
+    percentile of |x|)."""
     calib = [(b["image"], b["word"]) for b in make_batches(
         CALIB_BATCHES, CALIB_B, cfg.input_size, cfg.word_len, device,
         CALIB_SEED)]
-    set_act_scales(model, calibrate_act_scales(model, calib,
+    set_act_scales(model, calibrate_act_scales(model, calib, pct=pct,
                                                dtype=torch.bfloat16))
     return model
+
+
+def int8_model(cfg, device) -> torch.nn.Module:
+    """The R50 eval model at precision int8 with its sites' scales
+    calibrated on the bench's own batches."""
+    cfg = CfgNode({**cfg, "precision": "int8"})
+    return calibrate(eval_model(cfg, device, folded_state(cfg),
+                                quant=INT8_QUANT), cfg, device)
 
 
 def eval_loop(model, cfg) -> Callable[[Sequence[Dict]], torch.Tensor]:

@@ -12,6 +12,10 @@ imported; its layout rules are mirrored here:
 - conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 - the decoder's separate q/k/v projections are packed into ``in_proj_*``.
 
+The image tower is the modified ResNet or the ViT (the inverse of the JAX
+``_convert_vit_visual``); ``clip_from_jax`` carries a standalone CLIP's
+variables (no ``backbone`` prefix, no head).
+
 The "quant" collection (the int8 sites' calibrated ``act_scale``) maps
 onto the port's sites by ``site_path`` / ``sites_of``: a site is the
 port's conv module, the JAX one the module that sowed the scale (the
@@ -125,14 +129,15 @@ def _visual(em: _Emitter, p, s, layers, prefix: str) -> None:
     em.bn(f"{key}.connect.1", ap["connect_bn"], aps["connect_bn"])
 
 
-def _text(em: _Emitter, p, prefix: str) -> None:
-    em.put(f"{prefix}.token_embedding.weight", p["token_embedding"])
-    em.put(f"{prefix}.positional_embedding", p["positional_embedding"])
-    em.put(f"{prefix}.text_projection", p["text_projection"])
-    em.norm(f"{prefix}.ln_final", p["ln_final"])
-    blocks = p["transformer"]
+def _key(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _blocks(em: _Emitter, blocks, prefix: str) -> None:
+    """CLIP's pre-LN blocks (``resblocks_{i}``) -> ``{prefix}.resblocks.i``
+    with torch's packed attention parameters."""
     for i in range(len(blocks)):
-        bp, key = blocks[f"resblocks_{i}"], f"{prefix}.transformer.resblocks.{i}"
+        bp, key = blocks[f"resblocks_{i}"], f"{prefix}.resblocks.{i}"
         em.put(f"{key}.attn.in_proj_weight",
                np.asarray(bp["attn_in_proj"]["kernel"]).T)
         em.put(f"{key}.attn.in_proj_bias", bp["attn_in_proj"]["bias"])
@@ -141,6 +146,38 @@ def _text(em: _Emitter, p, prefix: str) -> None:
         em.norm(f"{key}.ln_2", bp["ln_2"])
         em.dense(f"{key}.mlp.c_fc", bp["mlp_c_fc"])
         em.dense(f"{key}.mlp.c_proj", bp["mlp_c_proj"])
+
+
+def _vit(em: _Emitter, p, prefix: str) -> None:
+    """The ViT tower (cris_tpu/checkpoint/torch_convert.py:189-206
+    inverted)."""
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        em.put(f"{prefix}.{name}", p[name])
+    em.conv(f"{prefix}.conv1", p["conv1"])
+    em.norm(f"{prefix}.ln_pre", p["ln_pre"])
+    em.norm(f"{prefix}.ln_post", p["ln_post"])
+    _blocks(em, p["transformer"], f"{prefix}.transformer")
+
+
+def _text(em: _Emitter, p, prefix: str) -> None:
+    em.put(_key(prefix, "token_embedding.weight"), p["token_embedding"])
+    em.put(_key(prefix, "positional_embedding"), p["positional_embedding"])
+    em.put(_key(prefix, "text_projection"), p["text_projection"])
+    em.norm(_key(prefix, "ln_final"), p["ln_final"])
+    _blocks(em, p["transformer"], _key(prefix, "transformer"))
+
+
+def _clip(em: _Emitter, p, s, prefix: str) -> None:
+    """A CLIP's image tower, text tower and ``logit_scale``."""
+    visual = _key(prefix, "visual")
+    if "class_embedding" in p["visual"]:
+        _vit(em, p["visual"], visual)
+    else:
+        _visual(em, p["visual"], s["visual"], _stage_blocks(p["visual"]),
+                visual)
+    _text(em, p["text"], prefix)
+    if "logit_scale" in p:
+        em.put(_key(prefix, "logit_scale"), p["logit_scale"])
 
 
 def _neck(em: _Emitter, p, s) -> None:
@@ -202,15 +239,19 @@ def from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     p = unstack_scanned(variables["params"])
     s = unstack_scanned(variables.get("batch_stats", {}))
     em = _Emitter()
-    bp, bs = p["backbone"], s["backbone"]
-    _visual(em, bp["visual"], bs["visual"], _stage_blocks(bp["visual"]),
-            "backbone.visual")
-    _text(em, bp["text"], "backbone")
-    if "logit_scale" in bp:
-        em.put("backbone.logit_scale", bp["logit_scale"])
+    _clip(em, p["backbone"], s.get("backbone", {}), "backbone")
     _neck(em, p["neck"], s["neck"])
     _decoder(em, p["decoder"])
     _projector(em, p["proj"], s["proj"])
+    return em.sd
+
+
+def clip_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX CLIP variables (``visual``, ``text``, ``logit_scale``) -> the
+    port's CLIP state_dict under OpenAI CLIP's keys."""
+    em = _Emitter()
+    _clip(em, unstack_scanned(variables["params"]),
+          unstack_scanned(variables.get("batch_stats", {})), "")
     return em.sd
 
 

@@ -1,17 +1,18 @@
-"""OpenAI CLIP TorchScript archives (``RN50.pt``, ``RN101.pt``) -> the
-port's CLIP state_dict and architecture (counterpart of
-cris_tpu/checkpoint/torch_convert.py:51-110 and 319-328).
+"""OpenAI CLIP TorchScript archives (``RN50.pt``, ``RN101.pt``, and the
+ViT ones such as ``ViT-B-16.pt``) -> the port's CLIP state_dict and
+architecture (counterpart of cris_tpu/checkpoint/torch_convert.py:51-110
+and 319-328).
 
 The port keeps OpenAI CLIP's parameter names, so nothing is renamed or
 transposed: the archive's state_dict is read, its three scalar entries
 and BatchNorm's ``num_batches_tracked`` counters are dropped, half
 precision is widened to f32, and the architecture is inferred from the
-tensor shapes. The ViT image tower is not ported.
+tensor shapes.
 
 ``save_clip_torchscript`` is check support, not a path of the port: it
-writes the port's CLIP in that format for tests/test_torch_train_entry.py
-and ``chip_smoke.py`` phase 14 (no weights ship with the repository), and
-the package does not export it.
+writes the port's CLIP in that format for tests/test_torch_train_entry.py,
+tests/test_torch_vit.py and ``chip_smoke.py`` phases 14 and 21 (no
+weights ship with the repository), and the package does not export it.
 """
 
 from __future__ import annotations
@@ -27,24 +28,35 @@ ARCHIVE_EXTRAS = ("input_resolution", "context_length", "vocab_size")
 
 
 def infer_clip_config(sd: Mapping[str, torch.Tensor]) -> CLIPConfig:
-    """A ResNet CLIP's architecture from its state_dict's shapes, as the
-    JAX package infers it (``transformer_heads`` is width // 64, as for
-    every released archive)."""
+    """A CLIP's architecture from its state_dict's shapes, as the JAX
+    package infers it: a ViT tower when ``visual.proj`` is there (its
+    width from ``visual.conv1``, its layers from the attention blocks,
+    the resolution patch x grid), else the modified ResNet
+    (``transformer_heads`` is width // 64, as for every released
+    archive)."""
     if "visual.proj" in sd:
-        raise NotImplementedError("ViT CLIP archives are not ported; the "
-                                  "port builds ResNet image towers only")
-    vision_layers = tuple(
-        len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")})
-        for b in (1, 2, 3, 4))
-    output_width = round(
-        (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        conv1 = sd["visual.conv1.weight"]
+        vision_layers = len([k for k in sd if k.startswith("visual.")
+                             and k.endswith(".attn.in_proj_weight")])
+        vision_width, patch = conv1.shape[0], conv1.shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = patch * grid
+    else:
+        vision_layers = tuple(
+            len({k.split(".")[2] for k in sd
+                 if k.startswith(f"visual.layer{b}")})
+            for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        patch = None
+        image_resolution = 32 * round(
+            (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
     width = sd["ln_final.weight"].shape[0]
     return CLIPConfig(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=output_width * 32,
+        image_resolution=image_resolution,
         vision_layers=vision_layers,
-        vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
-        vision_patch_size=None,
+        vision_width=vision_width,
+        vision_patch_size=patch,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=width,

@@ -90,8 +90,9 @@ def build_model(cfg, device, train: bool = True) -> CRIS:
     Every backbone tensor must come from the archive but the attnpool's
     ``connect`` conv and BN, which CRIS adds to CLIP and a released
     archive lacks: they keep their init, as the reference's non-strict
-    load leaves them (a JAX package load needs them in the archive).
-    Under tensor parallel the full model so made is then split over this
+    load leaves them (a JAX package load needs them in the archive). A
+    ViT archive is refused with ``build_segmenter``'s ValueError. Under
+    tensor parallel the full model so made is then split over this
     rank's model group (``models.shard_model``)."""
     path = cfg.get("clip_pretrain")
     clip_sd, clip_config = None, None

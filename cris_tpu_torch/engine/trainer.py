@@ -31,11 +31,11 @@ metrics over the data group, so its loss is the global batch's mean.
 Tensor parallel (a model split by ``models.shard_model``): the ranks of
 a model group run the same rows, each with its slices of the sharded
 parameters, and step them with their slices of the gradient and of
-Adam's moments. The replicated parameters' gradients are averaged over
-the model group before the step, so that the card's nondeterministic
-backward kernels cannot make the replicas part; the clip takes the norm
-of the whole model's gradient (``parallel.tensor.clip_global_norm_``),
-not of a rank's own slices.
+Adam's moments. Every rank takes the model group's first rank's
+gradients of the replicated parameters before the step, so that the
+card's nondeterministic backward kernels cannot make the replicas part;
+the clip takes the norm of the whole model's gradient
+(``parallel.tensor.clip_global_norm_``), not of a rank's own slices.
 """
 
 from __future__ import annotations
@@ -114,9 +114,9 @@ def _device_batch(batch, device, nchw: bool = False
 
 def apply_gradients(optimizer: torch.optim.Optimizer, scheduler) -> None:
     """The JAX ``apply_gradients`` on the parameters' ``.grad``: a missing
-    gradient becomes zeros; for a model split over a model group the
-    replicated parameters' gradients are averaged over the group
-    (``sync_replicated_grads_``); the global norm is clipped to the
+    gradient becomes zeros; for a model split over a model group every
+    rank takes the group's first rank's gradients of the replicated
+    parameters (``sync_replicated_grads_``); the global norm is clipped to the
     groups' ``max_norm`` when it is set (for a split model the norm of
     the whole model's gradient); then one Adam step and one schedule
     step."""

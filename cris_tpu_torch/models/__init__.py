@@ -37,12 +37,14 @@ from ..parallel.tensor import (ColumnDropout, ColumnParallelLinear,
 from .clip import CLIP, CLIP_PRESETS, CLIPConfig, preset_from_name
 from .clip_resnet import AttentionPool2d, Bottleneck, ModifiedResNet
 from .clip_text import PackedAttention, ResidualAttentionBlock, Transformer
+from .clip_vit import VisionTransformer
 from .decoder import (MultiheadAttention, TransformerDecoder,
                       TransformerDecoderLayer)
-from .layers import (BatchNorm, Calibration, CatUpConvBNReLU, ConvBNReLU,
-                     CoordConv, Dropout, LayerNormF32, LinearBNReLU,
-                     QuantConfig, QuantConv, UpConvBNReLU, calibrating,
-                     enable_int8, int8_sites, quick_gelu)
+from .layers import (Audit, BatchNorm, Calibration, CatUpConvBNReLU,
+                     ConvBNReLU, CoordConv, Dropout, LayerNormF32,
+                     LinearBNReLU, QuantConfig, QuantConv, UpConvBNReLU,
+                     auditing, calibrating, enable_int8, int8_sites,
+                     quick_gelu)
 from .neck import FPN
 from .projector import Projector
 from .segmenter import CRIS, bce_with_logits
@@ -91,6 +93,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, AttentionPool2d):
             pos = mod.positional_embedding
             normal_(pos, pos.shape[1] ** -0.5)
+        elif isinstance(mod, VisionTransformer):
+            scale = mod.proj.shape[0] ** -0.5
+            for t in (mod.class_embedding, mod.positional_embedding,
+                      mod.proj):
+                normal_(t, scale)
         elif isinstance(mod, CLIP):
             normal_(mod.positional_embedding, 0.01)
             normal_(mod.text_projection, mod.text_projection.shape[0] ** -0.5)
@@ -109,7 +116,9 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
     """CRIS from a flat config (see config/*/*.yaml), in eval mode, or in
     train mode (batch-statistics BN, dropout) with ``train=True``, on the
     card unless ``device`` says otherwise. The CLIP architecture is
-    ``clip_config``, else the preset ``cfg.clip_pretrain`` names.
+    ``clip_config``, else the preset ``cfg.clip_pretrain`` names; a ViT
+    image tower is refused (a ValueError): the neck takes the ResNet's
+    three scales, as in the JAX package.
     ``cfg.remat`` (cris_tpu/models/__init__.py:66) recomputes each
     backbone bottleneck, text block and decoder layer in the backward;
     it acts in training only.
@@ -142,6 +151,10 @@ def build_segmenter(cfg, device="cuda", seed: int = 0, train: bool = False,
         raise ValueError("fused_bottleneck and fused_stem are inference "
                          "kernels: need train=False")
     clip_config = clip_config or preset_from_name(cfg.clip_pretrain)
+    if clip_config.is_vit:
+        raise ValueError("CRIS over a ViT image tower is not supported: "
+                         "CRIS's neck takes the ResNet's three feature "
+                         "scales (C3, C4, C5), and a ViT gives one")
     resolve_dtype(cfg.get("precision", "bf16"))  # an unknown one raises
     int8 = is_int8(cfg)
     if rewrites is None:
@@ -190,8 +203,10 @@ def shard_model(model: nn.Module, grid: Grid) -> nn.Module:
     generator column-parallel with its output gathered. Records the plan
     (``tp_plan``, {key: Shard}) and the grid (``tp_grid``) on the model,
     which ``parallel.tensor``'s full state functions read, and leaves
-    every module in the model's mode (train or eval). A grid of one model
-    rank leaves the model as it is."""
+    every module in the model's mode (train or eval). No int8 site is
+    split: the sites are convs, and the rules split only linears and
+    embeddings, so an int8 model keeps its scales and K8 on every rank. A
+    grid of one model rank leaves the model as it is."""
     if grid.model_size == 1:
         return model
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -238,13 +253,14 @@ def param_group_label(name: str) -> str:
 
 
 __all__ = [
-    "AttentionPool2d", "BatchNorm", "Bottleneck", "CLIP", "CLIPConfig",
-    "CLIP_PRESETS", "CRIS", "Calibration", "CatUpConvBNReLU", "ConvBNReLU",
-    "CoordConv", "Dropout", "FPN", "LayerNormF32", "LinearBNReLU",
-    "ModifiedResNet", "MultiheadAttention", "Projector", "QuantConfig",
-    "QuantConv", "ResidualAttentionBlock", "Transformer",
+    "AttentionPool2d", "Audit", "BatchNorm", "Bottleneck", "CLIP",
+    "CLIPConfig", "CLIP_PRESETS", "CRIS", "Calibration", "CatUpConvBNReLU",
+    "ConvBNReLU", "CoordConv", "Dropout", "FPN", "LayerNormF32",
+    "LinearBNReLU", "ModifiedResNet", "MultiheadAttention", "Projector",
+    "QuantConfig", "QuantConv", "ResidualAttentionBlock", "Transformer",
     "TransformerDecoder", "TransformerDecoderLayer", "UpConvBNReLU",
-    "bce_with_logits", "build_segmenter", "calibrating", "enable_int8",
-    "init_weights", "int8_sites", "is_int8", "param_group_label",
-    "preset_from_name", "quick_gelu", "resolve_dtype", "shard_model",
+    "VisionTransformer", "auditing", "bce_with_logits", "build_segmenter",
+    "calibrating", "enable_int8", "init_weights", "int8_sites", "is_int8",
+    "param_group_label", "preset_from_name", "quick_gelu", "resolve_dtype",
+    "shard_model",
 ]

@@ -1,6 +1,8 @@
 """CLIP dual encoder and architecture presets (counterpart of
 cris_tpu/models/clip.py:25-170). Parameter names follow OpenAI CLIP:
-``visual.*`` for the image tower and the text tower at the top level."""
+``visual.*`` for the image tower and the text tower at the top level.
+The image tower is the modified ResNet, or the ViT
+(``clip_vit.VisionTransformer``) when ``vision_layers`` is an int."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from torch import nn
 
 from .clip_resnet import ModifiedResNet
 from .clip_text import Transformer, encode_text
+from .clip_vit import VisionTransformer
 from .layers import LayerNormF32
 
 
@@ -20,7 +23,7 @@ from .layers import LayerNormF32
 class CLIPConfig:
     embed_dim: int
     image_resolution: int
-    vision_layers: Tuple[int, int, int, int]
+    vision_layers: Union[Tuple[int, int, int, int], int]
     vision_width: int
     vision_patch_size: Optional[int]
     context_length: int
@@ -30,7 +33,13 @@ class CLIPConfig:
     transformer_layers: int
 
     @property
+    def is_vit(self) -> bool:
+        return isinstance(self.vision_layers, int)
+
+    @property
     def vision_heads(self) -> int:
+        if self.is_vit:
+            return self.vision_width // 64
         return self.vision_width * 32 // 64
 
 
@@ -57,18 +66,27 @@ class CLIP(nn.Module):
                  fused_bottleneck: Union[bool, str] = False,
                  fused_stem: bool = False, rewrites: bool = False):
         super().__init__()
-        self.visual = ModifiedResNet(
-            layers=cfg.vision_layers,
-            output_dim=cfg.embed_dim,
-            heads=cfg.vision_heads,
-            input_resolution=cfg.image_resolution,
-            width=cfg.vision_width,
-            fold_bn=fold_bn,
-            pos_grid=pos_grid,
-            fused_bottleneck=fused_bottleneck,
-            fused_stem=fused_stem,
-            rewrites=rewrites,
-        )
+        if cfg.is_vit:
+            self.visual = VisionTransformer(
+                input_resolution=cfg.image_resolution,
+                patch_size=cfg.vision_patch_size,
+                width=cfg.vision_width,
+                layers=cfg.vision_layers,
+                heads=cfg.vision_heads,
+                output_dim=cfg.embed_dim)
+        else:
+            self.visual = ModifiedResNet(
+                layers=cfg.vision_layers,
+                output_dim=cfg.embed_dim,
+                heads=cfg.vision_heads,
+                input_resolution=cfg.image_resolution,
+                width=cfg.vision_width,
+                fold_bn=fold_bn,
+                pos_grid=pos_grid,
+                fused_bottleneck=fused_bottleneck,
+                fused_stem=fused_stem,
+                rewrites=rewrites,
+            )
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.transformer_width)
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, cfg.transformer_width))

@@ -23,7 +23,9 @@ its calibrated scale in the non-persistent buffer ``act_scale`` (the JAX
 "quant" collection; ``checkpoint.calibrate`` maps the two); without one a
 plain-conv site quantises with a dynamic scale and the other forms run
 their plain conv. Under ``calibrating()`` every site records its input's
-maxabs (or a percentile of |x|) and runs plain. Weights are quantised
+maxabs (or a percentile of |x|) and runs plain; under ``auditing(mode)``
+every site that runs int8 also runs plain and records the error
+(``python3 -m cris_tpu_torch.int8_error_audit``). Weights are quantised
 once per form and cached on the module.
 """
 
@@ -391,20 +393,67 @@ def calibrating(pct: float = 0.0):
         _calibration.state = None
 
 
+class Audit:
+    """Per-site running element-wise maximum over the audited forwards of
+    (max |err|, rms(err), max |ref|, rms(ref)) in f32, err the int8
+    result less the plain one (``stats``: site module -> (4,) tensor);
+    ``mode`` "local" feeds the plain result on, "compound" the int8 one."""
+
+    MODES = ("local", "compound")
+
+    def __init__(self, mode: str = "local"):
+        if mode not in self.MODES:
+            raise ValueError(f"audit mode {mode!r}: one of {self.MODES}")
+        self.mode = mode
+        self.stats: Dict[nn.Module, torch.Tensor] = {}
+
+    def record(self, site: nn.Module, got: torch.Tensor,
+               ref: torch.Tensor) -> None:
+        with torch.autocast(ref.device.type, enabled=False):
+            rf = ref.detach().float()
+            err = got.detach().float() - rf
+            stat = torch.stack([err.abs().amax(), err.square().mean().sqrt(),
+                                rf.abs().amax(), rf.square().mean().sqrt()])
+        prev = self.stats.get(site)
+        self.stats[site] = stat if prev is None else torch.maximum(prev, stat)
+
+
+@contextlib.contextmanager
+def auditing(mode: str = "local"):
+    """Within it, every int8 site that runs its static or dynamic form
+    also runs its plain conv, records the error into the yielded
+    ``Audit`` and returns the plain result ("local") or the int8 one
+    ("compound"): the JAX package's CRIS_INT8_AUDIT hook."""
+    audit = Audit(mode)
+    _calibration.audit = audit
+    try:
+        yield audit
+    finally:
+        _calibration.audit = None
+
+
 def quant_site(site: nn.Module, x: torch.Tensor, plain: Callable,
                static: Callable, dynamic: Optional[Callable] = None):
     """The JAX package's ``_quant_site``: record and run plain while
     calibrating; else the static form with the site's scale, else the
-    dynamic form if the site has one, else plain."""
+    dynamic form if the site has one, else plain. While ``auditing``,
+    a site that ran int8 also runs plain and records the error."""
     cal = getattr(_calibration, "state", None)
     if cal is not None:
         cal.record(site, x)
         return plain()
     if site.act_scale is not None:
-        return static(site.act_scale)
-    if dynamic is not None:
-        return dynamic()
-    return plain()
+        got = static(site.act_scale)
+    elif dynamic is not None:
+        got = dynamic()
+    else:
+        return plain()
+    audit = getattr(_calibration, "audit", None)
+    if audit is None:
+        return got
+    ref = plain()
+    audit.record(site, got, ref)
+    return got if audit.mode == "compound" else ref
 
 
 class QuantConv(nn.Conv2d):

@@ -12,9 +12,9 @@ takes such a slice and sums its partial product over the model group
 (``reduce_from_model``: the sum forward, the identity backward) before it
 adds its bias, once. Every model rank then holds the same activations,
 and the replicated parameters the same gradients, as one process on the
-model group's batch; ``sync_replicated_grads_`` averages the latter over
-the group, so that bits the card's backward does not reproduce cannot
-make the replicas part.
+model group's batch; ``sync_replicated_grads_`` gives every rank the
+group's first rank's copy of the latter, so that bits the card's backward
+does not reproduce cannot make the replicas part.
 
 Parameters are always initialised or loaded full and then sliced
 (``shard_state_dict``), and gathered full again to be saved
@@ -431,20 +431,25 @@ class ColumnDropout(nn.Module):
 
 def sync_replicated_grads_(params: Iterable[torch.Tensor],
                            grid: Grid) -> None:
-    """Average the gradients of the replicated parameters over the model
-    group, in one all-reduce of their concatenation. Every rank computes
-    them from the same values, but the card's backward is not bitwise
-    reproducible (atomics in cuDNN's and interpolate's backward), and
-    replicas stepped with gradients that differ in their last bits would
-    part; averaged, they stay one model. Where they are equal the average
-    is the same bits (tp is a power of two)."""
+    """Give every model rank the replicated parameters' gradients of the
+    model group's first rank, in one broadcast of their concatenation.
+    Every rank computes them from the same values, but the card's
+    backward is not bitwise reproducible (atomics in cuDNN's and
+    interpolate's backward), and replicas stepped with gradients that
+    differ in their last bits would part; with one rank's bits on every
+    rank they stay one model, at any tp (an average over the group would
+    round where tp is not a power of two, even where every rank holds
+    the same gradient). A grid of one model rank returns at once."""
+    if grid.model_size == 1:
+        return
     grads = [p.grad for p in params if p.grad is not None
              and getattr(p, "tp_shard", None) is None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat, group=grid.model_group)
-    flat /= grid.model_size
+    # the model group's first rank: grid[d, 0] is global rank d * tp
+    dist.broadcast(flat, src=grid.data_rank * grid.model_size,
+                   group=grid.model_group)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 

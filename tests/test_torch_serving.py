@@ -278,6 +278,9 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.data.refer, cris_tpu_torch.data.lmdb_backend\n"
         "import cris_tpu_torch.data_process, cris_tpu_torch.folder2pack\n"
         "import cris_tpu_torch.prewarp\n"
+        "import cris_tpu_torch.models.clip_vit\n"
+        "import cris_tpu_torch.int8_error_audit\n"
+        "import cris_tpu_torch.parity_report\n"
         "from cris_tpu_torch.data.refer import rasterize_polygons\n"
         "assert rasterize_polygons([[1, 1, 6, 1, 6, 6]], 8, 8).sum() == 21\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"

@@ -12,6 +12,11 @@ what it wrote. While they run it takes the same steps on one process of
 the port and the gradient of the JAX package's loss on ``make_mesh(4,
 2)``, the virtual 8-device mesh, with the JAX rules' shardings.
 
+Beside them run 3 ranks of dp1 x tp3 that only call
+``sync_replicated_grads_`` on planted gradients, and, after the test
+entry, ``python3 -m cris_tpu_torch.quantize`` and the test entry at
+precision int8 at tp 1, 2 and 4 on the same best_model.pth.
+
 Bars (tests/test_torch_parallel.py's, and JAX's own for the loss,
 tests/test_parallel.py:153-193): the loss within 1e-4 relative of one
 process and of JAX; each gathered gradient within 1e-4 + 1e-3 x its RMS
@@ -60,6 +65,10 @@ REPO = os.path.dirname(HERE)
 WORKER = os.path.join(HERE, "torch_tp_worker.py")
 TIMEOUT = 240  # seconds for every job of the fixture
 LAYOUTS = {"dp1xtp2": (2, 2), "dp2xtp2": (4, 2)}  # (world, tp)
+SYNC_LAYOUT = (3, 3)  # dp1 x tp3: sync_replicated_grads_ alone
+INT8_MARK = "== the int8 test entry =="  # starts the entry log's int8 part
+INT8_TPS = (1, 2, 4)
+IOU_BAR = 0.5  # points: the int8 test entry at tp 2 and 4 against tp 1
 DROPOUT_BAR = 1e-5  # relative: the same masks, f32 rounding alone
 
 
@@ -78,12 +87,15 @@ def _env():
 
 def _entry_script(out):
     """torchrun of the train entry at dp1 x tp4, then of the test entry
-    at dp2 x tp2 and at dp1 x tp4 on its best_model.pth, in one shell."""
-    def torchrun(module, *opts):
+    at dp2 x tp2 and at dp1 x tp4 on its best_model.pth, in one shell;
+    then python3 -m cris_tpu_torch.quantize writes quant_scales.npz beside
+    it and the test entry runs at precision int8 at dp1 x tp1 (one
+    process), tp2 and tp4."""
+    def torchrun(module, *opts, nproc=4):
         return subprocess.list2cmdline([
             sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node=4", "-m", module, "--config", TINY, "--device",
-            "cpu", "--opts", "TRAIN.output_folder", out, *opts])
+            f"--nproc_per_node={nproc}", "-m", module, "--config", TINY,
+            "--device", "cpu", "--opts", "TRAIN.output_folder", out, *opts])
 
     common = ["TRAIN.workers", "1", "TRAIN.workers_val", "1",
               "TRAIN.precision", "fp32", "TRAIN.batch_size_val", "4"]
@@ -95,7 +107,17 @@ def _entry_script(out):
     test = [torchrun("cris_tpu_torch.test", *common,
                      "TEST.test_lmdb", "synthetic://6?seed=4",
                      "Distributed.tp_size", str(tp)) for tp in (2, 4)]
-    return " && ".join([train, *test])
+    quantize = subprocess.list2cmdline([
+        sys.executable, "-m", "cris_tpu_torch.quantize", "--config", TINY,
+        "--device", "cpu", "--batches", "1", "--batch-size", "2",
+        "--min-ch", "16", "--pooled-min-ch", "32", "--upfold-min-ch", "32",
+        "--opts", "TRAIN.output_folder", out])
+    int8 = [torchrun("cris_tpu_torch.test", *common, "TRAIN.precision", "int8",
+                     "TEST.test_lmdb", "synthetic://6?seed=4",
+                     "Distributed.tp_size", str(tp), nproc=tp)
+            for tp in INT8_TPS]
+    return " && ".join([train, *test, f"echo '{INT8_MARK}'", quantize,
+                        *int8])
 
 
 def _jax_variables():
@@ -168,12 +190,14 @@ def runs(tmp_path_factory):
     procs = {"entry": subprocess.Popen(
         ["bash", "-c", _entry_script(out)], cwd=str(work), env=_env(),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
-    for name, (world, tp) in LAYOUTS.items():
+    jobs = [(name, world, tp, ()) for name, (world, tp) in LAYOUTS.items()]
+    jobs.append(("sync", *SYNC_LAYOUT, ("sync",)))
+    for name, world, tp, extra in jobs:
         port = _free_port()
         for rank in range(world):
             procs[name, rank] = subprocess.Popen(
                 [sys.executable, WORKER, str(rank), str(world), str(tp),
-                 str(port), str(work)],
+                 str(port), str(work), *extra],
                 cwd=REPO, env=_env(), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
     threads = torch.get_num_threads()
@@ -203,6 +227,9 @@ def runs(tmp_path_factory):
     ranks = {name: [torch.load(work / f"w{world}tp{tp}_rank{r}.pt",
                                weights_only=False) for r in range(world)]
              for name, (world, tp) in LAYOUTS.items()}
+    world, tp = SYNC_LAYOUT
+    ranks["sync"] = [torch.load(work / f"sync_w{world}tp{tp}_rank{r}.pt",
+                                weights_only=False) for r in range(world)]
     return {"work": work, "out": out, "ranks": ranks, "single": single,
             "jax": jax_run, "variables": variables, "logs": logs,
             "state": state}
@@ -507,6 +534,8 @@ def test_train_at_tp4_and_test_at_tp2_under_torchrun(runs):
     (rank 0) with its grid, the two tests the same pairs and IoU; the
     checkpoint is whole and loads into one process."""
     log = runs["logs"]["entry"]
+    assert log.count(INT8_MARK) == 1, log[-3000:]
+    log = log.split(INT8_MARK)[0]
     assert log.count("=> run: ") == 3, log[-3000:]
     train, test2, test4 = (json.loads(part.splitlines()[0])
                            for part in log.split("=> run: ")[1:])
@@ -547,3 +576,55 @@ def test_tp_size_1_leaves_the_model_and_the_grid_whole():
     model = build_segmenter(cfg, device="cpu", seed=0, grid=grid())
     assert not hasattr(model, "tp_plan")
     assert type(model.decoder.layers[0].ffn[0]) is torch.nn.Linear
+
+
+# --------------------------------------------- tp 3, int8 under the split
+
+def test_sync_replicated_grads_is_exact_at_tp3(runs):
+    """dp1 x tp3 over gloo: replicated gradients equal in value on every
+    rank come out bit-equal to them on every rank; gradients that differ
+    in their last bits (model rank r's moved to the r-th next float) come
+    out as model rank 0's on every rank; a sharded parameter's gradient
+    is left as it is. The average it replaces would not keep equal
+    gradients: ((g + g) + g) / 3 differs from g in f32."""
+    ranks = runs["ranks"]["sync"]
+    base = ranks[0]["sync"]["base"]
+    for r, got in enumerate(ranks):
+        assert got["grid"] == (0, 1, r, 3)
+        sync = got["sync"]
+        assert all(torch.equal(a, b) for a, b in zip(sync["base"], base))
+        if r:
+            assert not any(torch.equal(a, b) for a, b in zip(
+                sync["moved_input"], base))
+        for case in ("equal", "moved"):
+            grads, own = sync[case]
+            for g, b in zip(grads, base):
+                assert torch.equal(g, b), (r, case)
+            assert torch.equal(own, torch.full((5,), float(r))), (r, case)
+    g = base[0]
+    assert not torch.equal((g + g + g) / 3, g)
+
+
+def test_int8_test_entry_under_tp_matches_one_process(runs):
+    """python3 -m cris_tpu_torch.quantize writes quant_scales.npz beside
+    the tiny best_model.pth; the test entry at precision int8 reads it at
+    tp 1 (one process), 2 and 4, each with its grid in its run line and
+    every pair scored, and the IoUs agree within 0.5 points. The int8
+    sites are convs, which shard_model does not split."""
+    from cris_tpu_torch.checkpoint import load_act_scales
+
+    log = runs["logs"]["entry"].split(INT8_MARK)[1]
+    scales, gates = load_act_scales(os.path.join(
+        runs["out"], "CRIS_TINY", "quant_scales.npz"))
+    assert gates == dict(min_ch=16, pooled_min_ch=32, upfold_min_ch=32)
+    assert len(scales) >= 10
+    assert log.count(f"({len(scales)} sites)") == len(INT8_TPS), log[-3000:]
+    lines = [json.loads(part.splitlines()[0])
+             for part in log.split("=> run: ")[1:]]
+    assert [(r["world_size"], r["dp"], r["tp"]) for r in lines] == [
+        (tp, 1, tp) for tp in INT8_TPS]
+    assert len({r["pairs"] for r in lines}) == 1
+    ious = [float(x) for x in re.findall(r" - IoU=(\S+)", log)]
+    print(f"int8 test entry IoU at tp {INT8_TPS}: {ious}")
+    assert len(ious) == len(INT8_TPS)
+    assert all(abs(x - ious[0]) <= IOU_BAR for x in ious)

@@ -42,8 +42,8 @@ from cris_tpu_torch.checkpoint.torch_convert import save_clip_torchscript
 from cris_tpu_torch.data import RefDataLoader, RefDataset
 from cris_tpu_torch.engine import Evaluator, train_step
 from cris_tpu_torch.engine.evaluator import to_device
-from cris_tpu_torch.models import (CLIP, CLIP_PRESETS, build_segmenter,
-                                   init_weights)
+from cris_tpu_torch.models import (CLIP, CLIP_PRESETS, CLIPConfig,
+                                   build_segmenter, init_weights)
 from cris_tpu_torch.utils import (ExperimentTracker, StepTimer,
                                   init_random_seed, load_cfg_from_cfg_file)
 from cris_tpu_torch.utils.logging import logger
@@ -608,7 +608,9 @@ def test_archive_loads_into_the_same_weights_in_both_packages(archive):
 def test_build_model_takes_the_archive_or_the_seeded_preset(archive):
     """build_model with clip_pretrain an archive: backbone.* is the
     archive's bit for bit and the head the seeded init's; with a preset
-    name: all of it the seeded init's. A ViT archive is refused."""
+    name: all of it the seeded init's. A ViT state dict gives its ViT
+    config, and a ViT archive is refused with a ValueError naming the
+    tower."""
     path, clip = archive
     cfg = load_cfg_from_cfg_file(TINY)
     seeded = build_segmenter(cfg, device="cpu", seed=cfg.manual_seed,
@@ -624,8 +626,15 @@ def test_build_model_takes_the_archive_or_the_seeded_preset(archive):
     for k, v in seeded.items():
         if not k.startswith("backbone."):
             assert torch.equal(got[k], v), k
-    with pytest.raises(NotImplementedError, match="ViT"):
-        infer_clip_config({"visual.proj": torch.zeros(1)})
+    vit = init_weights(CLIP(CLIPConfig(64, 32, 2, 64, 8, 77, 49408, 64, 1,
+                                       2)), 1)
+    vit_cfg = infer_clip_config(vit.state_dict())
+    assert vit_cfg.is_vit and vit_cfg.vision_layers == 2
+    assert vit_cfg.image_resolution == 32 and vit_cfg.vision_patch_size == 8
+    cfg.clip_pretrain = save_clip_torchscript(vit, path + ".vit.pt",
+                                              image_resolution=32)
+    with pytest.raises(ValueError, match="ViT image tower"):
+        cli.build_model(cfg, "cpu")
 
 
 # -------------------------------------------------------------- remat

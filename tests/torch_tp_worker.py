@@ -1,7 +1,7 @@
 """Worker process for tests/test_torch_tensor_parallel.py: one rank of a
 tensor-parallel job of the PyTorch package over gloo on the CPU.
 
-    python torch_tp_worker.py <rank> <world> <tp> <port> <workdir>
+    python torch_tp_worker.py <rank> <world> <tp> <port> <workdir> [sync]
 
 Joins the process group through ``parallel.init_distributed`` (the
 environment torchrun would set, on localhost:<port>), lays the ranks out
@@ -18,7 +18,9 @@ CRIS split over its model group (f32, the weights of ``tp_state``):
 - a decoder layer whose heads the model group does not divide;
 - with two data ranks: ``Evaluator.validate`` and ``inference``.
 
-Writes ``<workdir>/w<world>tp<tp>_rank<rank>.pt``.
+Writes ``<workdir>/w<world>tp<tp>_rank<rank>.pt``. With ``sync`` it only
+runs ``sync_replicated_grads_`` on planted gradients (``sync_grads``) and
+writes ``<workdir>/sync_w<world>tp<tp>_rank<rank>.pt``.
 """
 
 import os
@@ -228,7 +230,40 @@ def checkpoints(work, grid, state, batch):
     return resumed
 
 
-def main(rank, world, tp, port, work):
+def sync_grads(grid):
+    """``sync_replicated_grads_`` over this rank's model group on three
+    replicated gradients: equal in value on every rank, then moved by
+    model rank r to the r-th next float (last bits that differ), beside a
+    sharded parameter's gradient, which it leaves as it is."""
+    from cris_tpu_torch.parallel.tensor import Shard, sync_replicated_grads_
+
+    gen = torch.Generator().manual_seed(11)
+    base = [torch.randn(shape, generator=gen)
+            for shape in ((4096,), (64, 33), (7,))]
+
+    def synced(grads):
+        params = []
+        for g in grads:
+            param = torch.nn.Parameter(torch.zeros_like(g))
+            param.grad = g.clone()
+            params.append(param)
+        own = torch.nn.Parameter(torch.zeros(5))
+        own.grad = torch.full((5,), float(grid.model_rank))
+        own.tp_shard = Shard(0)
+        sync_replicated_grads_(params + [own], grid)
+        return [p.grad for p in params], own.grad
+
+    def moved(g):
+        for _ in range(grid.model_rank):
+            g = torch.nextafter(g, torch.full_like(g, float("inf")))
+        return g
+
+    return {"base": base, "equal": synced(base),
+            "moved_input": [moved(g) for g in base],
+            "moved": synced([moved(g) for g in base])}
+
+
+def main(rank, world, tp, port, work, what="all"):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -245,6 +280,12 @@ def main(rank, world, tp, port, work):
     grid = init_grid(-1, tp)
     out = {"grid": (grid.data_rank, grid.data_size, grid.model_rank,
                     grid.model_size)}
+    if what == "sync":
+        out["sync"] = sync_grads(grid)
+        close_distributed()
+        torch.save(out, os.path.join(work, f"sync_w{world}tp{tp}_rank{rank}"
+                                           ".pt"))
+        return
     state = tp_state()
     batch = rows(tp_batch(), grid.data_rank, grid.data_size)
 
@@ -296,4 +337,4 @@ def main(rank, world, tp, port, work):
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:5]), sys.argv[5])
+    main(*(int(a) for a in sys.argv[1:5]), *sys.argv[5:])
