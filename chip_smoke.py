@@ -294,17 +294,24 @@ Phases (any failure raises, and the script exits non-zero):
    1e-4); (c) torchrun --nproc_per_node=<cards> -m cris_tpu_torch.train
    --opts Distributed.tp_size 2 over NCCL at R50 b64 bf16 on 16(c)'s 4
    steps, its img/s beside 16(c)'s, then torchrun -m cris_tpu_torch.test
-   --opts Distributed.tp_size 2 on its best_model.pth (its grid and IoU;
-   on one card it says that no NCCL tensor-parallel rate was measured).
+   --opts Distributed.tp_size 2 on its best_model.pth (its grid, IoU and
+   predicted foreground), then the test entry on 19(d)'s best_model.pth
+   and val pack at dp1 x tp2 over NCCL against one process, pair by pair:
+   rank 0's probability maps against one process's, the difference's L2
+   over theirs about their mean within a bar; on 2 cards or more it runs
+   phase 19 when it is not asked for, on one card it says that no NCCL
+   tensor-parallel rate was measured.
 21. the ViT image tower, the int8 audit, the parity report and the int8
    test entry under tensor parallel: (a) a seeded CLIP ViT-B/16 at its
    published width (embed 512, 224 px, 12 layers of width 768, patch 16;
    text 512 / 8 heads / 12 layers) traced into an archive and loaded
    back (the inferred config equal, the weights bit for bit);
    encode_image at B 32 in f32 on the card against the CPU (relative L2
-   <= 1e-4) and in bf16 beside f32, K1 12 a forward (f32 on the scalar
-   body, bf16 on the tensor cores); K1 alone at (32, 197, 768), 12 heads,
-   against its plain version as in phase 2, with SDPA and the bound;
+   <= 1e-4) and in bf16 beside f32 (relative L2 <= 3e-2), K1 12 a
+   forward (f32 on the scalar body, bf16 on the tensor cores); K1 alone
+   at (32, 197, 768), 12 heads, against its plain version as in phase 2,
+   with SDPA and the bound, contiguous and as the tower feeds it (q, k, v
+   the thirds of one (32, 197, 2304) tensor);
    the bf16 img/s; (b) python3 -m cris_tpu_torch.int8_error_audit at R50
    416 px b8 with static scales, local and compound: a row a site, K8's
    quantise pass once a site and batch and its GEMM once (four at a
@@ -315,8 +322,9 @@ Phases (any failure raises, and the script exits non-zero):
    split, its exit code its verdict (FAIL on seeded weights); (c) python3
    -m cris_tpu_torch.quantize on that checkpoint, then the test entry at
    precision int8 as one process and as 2 gloo ranks at dp1 x tp2 on the
-   one card: the IoU within 0.5 points, K8's launches equal on each
-   rank. Phase 21 runs phase 19 when it is not asked for.
+   one card: the IoU within 0.5 points, the probability maps against
+   one process's as in 20(c), K8's launches equal on each rank. Phase 21
+   runs phase 19 when it is not asked for.
 The last lines are a JSON summary of the kernels (with each one's bound:
 the larger of its bytes over 3.35 TB/s and its operations over the peak
 of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, and for K2 also its
@@ -572,13 +580,16 @@ def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
         k = torch.randn(b, t, e, device="cuda", generator=gen)
         v = torch.randn(b, t, e, device="cuda", generator=gen)
         valid = None
-        if masked == "rows":
+        if masked == "packed":  # the thirds of one packed in_proj output
+            packed = torch.cat([q, k, v], -1)
+        elif masked == "rows":
             valid = _word_valid(b, t)
         elif masked:
             valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
             valid[:, t - masked:] = False
         for dtype in dtypes:
-            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            qd, kd, vd = (packed.to(dtype).chunk(3, -1) if masked == "packed"
+                          else (q.to(dtype), k.to(dtype), v.to(dtype)))
             got, route = route_taken(fused, lambda: fused(qd, kd, vd, h, valid))
             assert route == expected_route(dtype, d), (site, dtype, route)
             ref = plain(qd, kd, vd, h, valid)
@@ -2880,7 +2891,8 @@ def _torchrun_train(n, *opts, test=False):
     with ``opts`` appended to --opts: (its run line, seconds, the K1 and
     K2 launches summed over the ranks); with ``test``, then torchrun -m
     cris_tpu_torch.test with the same ``opts`` on its best_model.pth over
-    the val set, and (its run line, its IoU line) as a fourth item."""
+    the val set, and (its run line, its IoU line, the share of the pixels
+    that its predictions mark as foreground) as a fourth item."""
     from cris_tpu_torch.data import write_refpack
     from cris_tpu_torch.utils import cris_r50_refcoco
 
@@ -2913,17 +2925,13 @@ def _torchrun_train(n, *opts, test=False):
         run = _run_line(os.path.join(out, cfg.exp_name, "train.log"))
         tested = None
         if test:
-            cmd = [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", f"--nproc_per_node={n}", "-m",
-                   "cris_tpu_torch.test", "--config",
-                   os.path.join("config", "refcoco", "cris_r50.yaml"),
-                   "--opts", "TEST.test_lmdb", val_pack, "DATA.mask_root",
-                   masks, "TRAIN.output_folder", out, *opts]
-            code, test_log = _run_group(cmd, DP_TIMEOUT, cwd=here, env=env)
-            assert code == 0, (f"torchrun test {opts} exited {code}:\n"
-                               f"{test_log[-6000:]}")
+            test_log, probs = _torchrun_test(n, os.path.join(tmp, "probs"), [
+                "--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+                "--opts", "TEST.test_lmdb", val_pack, "DATA.mask_root", masks,
+                "TRAIN.output_folder", out, *opts])
             tested = (_run_line(os.path.join(out, cfg.exp_name, "test.log")),
-                      next(x for x in test_log.splitlines() if " - IoU=" in x))
+                      next(x for x in test_log.splitlines() if " - IoU=" in x),
+                      float(np.mean([(p > THRESHOLD).mean() for p in probs])))
     assert log.count("=> run: ") == 1, "more than rank 0 logged"
     assert run["world_size"] == n and run["steps"] == DP_ENTRY_STEPS, run
     assert run["images"] == DP_ENTRY_STEPS * b, run
@@ -3305,20 +3313,107 @@ def phase_tp_ranks():
                 launches=launches, seconds=seconds)
 
 
-def phase_tp_entry(dp_run):
+# a test entry split over model ranks against one process on phase 19's
+# checkpoint and val pack (20(c): bf16 over NCCL; 21(c): int8 over gloo):
+# the probability maps that the entry thresholds, pair by pair, rank 0's
+# against one process's; their difference's L2 over the L2 of one
+# process's maps about their mean is held to PROB_BAR. On the H100 the
+# split's rounding alone read 0.056 (bf16 over NCCL) and 0.067 to 0.088
+# (int8), the row-parallel sums left out 1.12 (PERF.md §6); maps that do
+# not follow one process's read about 1.4
+PROB_BAR = 0.25
+THRESHOLD = 0.35  # the evaluator's
+# a torchrun rank of the test entry that saves its probability maps
+RECORD_TEST = ("import sys, chip_smoke; "
+               "chip_smoke._record_test(sys.argv[1], sys.argv[2:])")
+
+
+@contextlib.contextmanager
+def _recorded_probs():
+    """Yields a list that takes the probability maps of every batch the
+    Evaluator fetches in this process, in order."""
+    from cris_tpu_torch.engine.evaluator import Evaluator
+
+    got, fetch = [], Evaluator._fetch
+
+    def record(self, out, n):
+        rows = fetch(self, out, n)
+        got.append(rows)
+        return rows
+    Evaluator._fetch = record
+    try:
+        yield got
+    finally:
+        Evaluator._fetch = fetch
+
+
+def _record_test(path, argv):
+    """python3 -m cris_tpu_torch.test's main on ``argv`` (a rank of
+    torchrun, ``RECORD_TEST``); its pairs' probability maps are saved to
+    ``path``.{rank}.npy."""
+    from cris_tpu_torch import test as test_entry
+    from cris_tpu_torch.parallel import close_distributed, process_index
+
+    with _recorded_probs() as probs:
+        test_entry.main(argv)
+    np.save(f"{path}.{process_index()}.npy", np.concatenate(probs))
+    close_distributed()
+
+
+def _torchrun_test(n, path, argv):
+    """``_record_test`` on ``argv`` under torchrun over ``n`` ranks: (its
+    log, [each rank's probability maps])."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", "--no-python", sys.executable, "-c",
+           RECORD_TEST, path, *argv]
+    code, log = _run_group(cmd, DP_TIMEOUT, cwd=here,
+                           env=dict(os.environ, PYTHONPATH=here))
+    assert code == 0, f"torchrun test {argv} exited {code}:\n{log[-6000:]}"
+    return log, [np.load(f"{path}.{r}.npy") for r in range(n)]
+
+
+def _prob_gaps(what, got, want):
+    """Rank 0's probability maps ``got`` against one process's ``want``
+    (each (pairs, S, S)): prints and returns the difference's L2 over
+    the L2 of ``want`` about its mean (``rel_l2``, its bar PROB_BAR), the
+    largest difference, and the share of the pixels on the other side of
+    the threshold, over all pairs and in the worst pair."""
+    assert got.shape == want.shape and len(want), (got.shape, want.shape)
+    flips = ((got > THRESHOLD) != (want > THRESHOLD)).mean((1, 2))
+    row = dict(pairs=len(want),
+               rel_l2=float(np.linalg.norm(got - want)
+                            / np.linalg.norm(want - want.mean())),
+               max_abs=float(np.abs(got - want).max()),
+               flipped=float(flips.mean()), worst_pair=float(flips.max()),
+               pairs_flipped=int((flips > 0).sum()),
+               foreground=float((want > THRESHOLD).mean()))
+    print(f"{what}: {row['pairs']} pairs' probability maps, L2 of the "
+          f"difference over one process's about its mean {row['rel_l2']:.3e} "
+          f"(bar {PROB_BAR}), largest difference "
+          f"{row['max_abs']:.3e}; pixels across the threshold "
+          f"{row['flipped']:.3e} (worst pair {row['worst_pair']:.3e}, "
+          f"{row['pairs_flipped']} pairs with any); one process's "
+          f"foreground {row['foreground']:.4f}", flush=True)
+    return row
+
+
+def phase_tp_entry(dp_run, prep):
     """20(c): ``_torchrun_train`` on every card with --opts
     Distributed.tp_size 2 over NCCL, on 16(c)'s steps, when the call has 2
     cards or more: its img/s beside 16(c)'s data-parallel run (``dp_run``,
     its run line), its grid, and each rank's K1 and K2 launches, all on
-    the tensor cores; then the test entry at tp_size 2 on its
-    best_model.pth (its grid and IoU line). With one card nothing runs."""
+    the tensor cores; the test entry at tp_size 2 on its best_model.pth
+    (its grid, IoU line and predicted foreground); then the test entry at
+    dp1 x tp2 on phase 19's checkpoint (``prep``) against one process,
+    pair by pair (``_prob_gaps``). With one card nothing runs."""
     n = torch.cuda.device_count()
     if n < 2:
         print("20(c) one card: no NCCL tensor-parallel rate was measured",
               flush=True)
         return None
-    run, seconds, launches, (test_run, iou_line) = _torchrun_train(
-        n, "Distributed.tp_size", "2", test=True)
+    run, seconds, launches, (test_run, iou_line, foreground) = \
+        _torchrun_train(n, "Distributed.tp_size", "2", test=True)
     dp_rate = ("not run" if dp_run is None
                else f"{dp_run['images_per_s']:.2f} img/s")
     print(f"20(c) torchrun --nproc_per_node={n} -m cris_tpu_torch.train "
@@ -3330,24 +3425,49 @@ def phase_tp_entry(dp_run):
     assert (run["dp"], run["tp"]) == (n // 2, 2), run
     print(f"20(c) then torchrun --nproc_per_node={n} -m cris_tpu_torch.test "
           f"--opts Distributed.tp_size 2 on its best_model.pth over the val "
-          f"set: {iou_line.strip()}; => run: {json.dumps(test_run)}",
-          flush=True)
+          f"set: {iou_line.strip()}, its predictions {foreground:.4f} "
+          f"foreground; => run: {json.dumps(test_run)}", flush=True)
     assert (test_run["dp"], test_run["tp"]) == (n // 2, 2), test_run
     assert test_run["pairs"] > 0, test_run
+    from cris_tpu_torch import test as test_entry
+
+    kept = prep["kept"]
+    argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+            "--opts", "TRAIN.output_folder", kept["folder"], "TEST.test_lmdb",
+            kept["val_pack"], "DATA.mask_root", kept["mask_root"]]
+    with _recorded_probs() as probs:
+        iou, _ = test_entry.main(argv)
+    _close_log()
+    with tempfile.TemporaryDirectory() as tmp:
+        log, split = _torchrun_test(TP_WORLD, os.path.join(tmp, "probs"),
+                                    argv + ["Distributed.tp_size",
+                                            str(TP_WORLD)])
+    print(f"20(c) the test entry on 19(d)'s best_model.pth and val pack: one "
+          f"process IoU={100 * iou:.2f}; torchrun --nproc_per_node="
+          f"{TP_WORLD} --opts Distributed.tp_size {TP_WORLD} (bf16, NCCL, "
+          f"dp1 x tp{TP_WORLD}): "
+          f"{next(x for x in log.splitlines() if ' - IoU=' in x).strip()}; "
+          f"model ranks' maps equal: {np.array_equal(*split)}", flush=True)
+    pairs = _prob_gaps(f"20(c) dp1 x tp{TP_WORLD} over NCCL against one "
+                       f"process", split[0], np.concatenate(probs))
+    assert pairs["rel_l2"] <= PROB_BAR, pairs
     return dict(run=run, seconds=seconds, cards=n, launches=launches,
-                test_run=test_run)
+                test_run=test_run, test_foreground=foreground,
+                prep_iou=iou, prep_maps=pairs)
 
 
-def phase_tensor_parallel(k2, k2_fwd, plain_k2, keep_bits_packed, dp_run):
+def phase_tensor_parallel(k2, k2_fwd, plain_k2, keep_bits_packed, dp_run,
+                          prep):
     """20: K2 with a head offset, two gloo ranks splitting R50 on the one
-    card, and the train entry at tp_size 2 under torchrun over NCCL."""
+    card, and the train and test entries at tp_size 2 under torchrun over
+    NCCL (the test entry also on phase 19's checkpoint, ``prep``)."""
     t0 = time.perf_counter()
     out = {"k2_head_offset": phase_k2_head_offset(k2, k2_fwd, plain_k2,
                                                   keep_bits_packed)}
     torch.cuda.empty_cache()
     out["ranks"] = phase_tp_ranks()
     torch.cuda.empty_cache()
-    out["entry"] = phase_tp_entry(dp_run)
+    out["entry"] = phase_tp_entry(dp_run, prep)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 20: {out['seconds']:.1f} s on {card_line()}", flush=True)
     return out
@@ -4609,7 +4729,7 @@ def check_rasterizer_fixture() -> int:
     return len(cases)
 
 
-def phase_prep(k1, k2, k2_bwd, keep=None):
+def phase_prep(k1, k2, k2_bwd, work):
     """19: dataset preparation on the card's machine, then train and test
     from its packs: (a) a REFER root from a seed; (b) python3 -m
     cris_tpu_torch.data_process (masks), .folder2pack for each split and
@@ -4619,9 +4739,9 @@ def phase_prep(k1, k2, k2_bwd, keep=None):
     batch of the prewarped pack equals the raw pack's through the native
     data plane; (d) python3 -m cris_tpu_torch.train at R50 bf16 b16 from
     the prewarped pack, 1 epoch of 12 steps, validating on the val pack,
-    then python3 -m cris_tpu_torch.test on it. With ``keep`` (a directory)
-    best_model.pth, the prewarped val pack and the masks are copied there
-    for phase 21 (``out["kept"]``)."""
+    then python3 -m cris_tpu_torch.test on it. Everything is made under
+    ``work``, where best_model.pth, the prewarped val pack and the masks
+    stay for phases 20(c) and 21 (``out["kept"]``)."""
     import re
 
     from cris_tpu_torch import test as test_entry
@@ -4636,165 +4756,156 @@ def phase_prep(k1, k2, k2_bwd, keep=None):
     b, size = 16, cfg.input_size
     py = sys.executable
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root, prep = os.path.join(tmp, "refer"), os.path.join(tmp, "prep")
-        t0 = time.perf_counter()
-        made = write_refer_root(root)
-        print(f"19(a) REFER root from seed {PREP_SEED}: {made} "
-              f"({PREP_SIZE[0]} x {PREP_SIZE[1]} JPEGs, splits "
-              f"{PREP_SPLITS}) in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        assert made["refs"] == sum(PREP_SPLITS.values())
+    tmp = work
+    root, prep = os.path.join(tmp, "refer"), os.path.join(tmp, "prep")
+    t0 = time.perf_counter()
+    made = write_refer_root(root)
+    print(f"19(a) REFER root from seed {PREP_SEED}: {made} "
+          f"({PREP_SIZE[0]} x {PREP_SIZE[1]} JPEGs, splits "
+          f"{PREP_SPLITS}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    assert made["refs"] == sum(PREP_SPLITS.values())
 
-        # (b) the three entries
-        packs, warped = os.path.join(prep, "pack"), os.path.join(prep, "warped")
-        masks = os.path.join(prep, "masks", "refcoco")
-        stages = {"data_process": _run_entries([[
-            py, "-m", "cris_tpu_torch.data_process", "--data_root", root,
-            "--output_dir", prep, "--dataset", "refcoco", "--split", "unc",
-            "--generate_mask"]])}
-        stages["folder2pack"] = _run_entries([[
-            py, "-m", "cris_tpu_torch.folder2pack", "-j",
-            os.path.join(prep, "anns", "refcoco", f"{s}.json"), "-i",
-            os.path.join(root, "images", "mscoco", "images", "train2014"),
-            "-m", masks, "-o", packs] for s in PREP_SPLITS])
-        stages["prewarp"] = _run_entries([
-            [py, "-m", "cris_tpu_torch.prewarp", "-i",
-             os.path.join(packs, f"{s}.refpack"), "-o",
-             os.path.join(warped, f"{s}.refpack"), "--input-size", str(size)]
-            + (["--keep-ori"] if s == "val" else []) for s in ("train", "val")])
-        rates = {k: _stage_rate(v) for k, v in stages.items()}
-        counts = {}
-        for folder, names in ((packs, PREP_SPLITS), (warped, ("train", "val"))):
-            for s in names:
-                reader = RefPackReader(os.path.join(folder, f"{s}.refpack"))
-                counts[f"{os.path.basename(folder)}/{s}"] = len(reader)
-                assert len(reader) == PREP_SPLITS[s], (folder, s, len(reader))
-                reader.close()
-        refer = REFER(root, "refcoco", "unc")
-        for ref_id, ref in refer.Refs.items():
-            with open(os.path.join(masks, f"{ref_id}.png"), "rb") as f:
-                got = decode_mask(f.read())
-            assert np.array_equal(got, refer.getMask(ref)["mask"] * 255), ref_id
-        n_fixture = check_rasterizer_fixture()
-        print(f"19(b) data_process, folder2pack ({len(PREP_SPLITS)} splits "
-              f"at once), prewarp (train, val --keep-ori, at once) in "
-              f"subprocesses: records {counts}; {len(refer.Refs)} mask PNGs "
-              f"decode to REFER.getMask's masks; the {n_fixture} fixture "
-              f"annotations rasterise to cv2.fillPoly's digests; refs/s a "
-              f"stage on the card's host (in the entries' loops, one "
-              f"process each; wall s with the processes' start): "
-              + ", ".join(f"{k} {r['refs_per_s']:.2f} ({r['refs']} refs, "
-                          f"{r['wall_seconds']:.1f} s)"
-                          for k, r in rates.items()), flush=True)
-        out.update(records=counts, stages=rates, fixture=n_fixture)
+    # (b) the three entries
+    packs, warped = os.path.join(prep, "pack"), os.path.join(prep, "warped")
+    masks = os.path.join(prep, "masks", "refcoco")
+    stages = {"data_process": _run_entries([[
+        py, "-m", "cris_tpu_torch.data_process", "--data_root", root,
+        "--output_dir", prep, "--dataset", "refcoco", "--split", "unc",
+        "--generate_mask"]])}
+    stages["folder2pack"] = _run_entries([[
+        py, "-m", "cris_tpu_torch.folder2pack", "-j",
+        os.path.join(prep, "anns", "refcoco", f"{s}.json"), "-i",
+        os.path.join(root, "images", "mscoco", "images", "train2014"),
+        "-m", masks, "-o", packs] for s in PREP_SPLITS])
+    stages["prewarp"] = _run_entries([
+        [py, "-m", "cris_tpu_torch.prewarp", "-i",
+         os.path.join(packs, f"{s}.refpack"), "-o",
+         os.path.join(warped, f"{s}.refpack"), "--input-size", str(size)]
+        + (["--keep-ori"] if s == "val" else []) for s in ("train", "val")])
+    rates = {k: _stage_rate(v) for k, v in stages.items()}
+    counts = {}
+    for folder, names in ((packs, PREP_SPLITS), (warped, ("train", "val"))):
+        for s in names:
+            reader = RefPackReader(os.path.join(folder, f"{s}.refpack"))
+            counts[f"{os.path.basename(folder)}/{s}"] = len(reader)
+            assert len(reader) == PREP_SPLITS[s], (folder, s, len(reader))
+            reader.close()
+    refer = REFER(root, "refcoco", "unc")
+    for ref_id, ref in refer.Refs.items():
+        with open(os.path.join(masks, f"{ref_id}.png"), "rb") as f:
+            got = decode_mask(f.read())
+        assert np.array_equal(got, refer.getMask(ref)["mask"] * 255), ref_id
+    n_fixture = check_rasterizer_fixture()
+    print(f"19(b) data_process, folder2pack ({len(PREP_SPLITS)} splits "
+          f"at once), prewarp (train, val --keep-ori, at once) in "
+          f"subprocesses: records {counts}; {len(refer.Refs)} mask PNGs "
+          f"decode to REFER.getMask's masks; the {n_fixture} fixture "
+          f"annotations rasterise to cv2.fillPoly's digests; refs/s a "
+          f"stage on the card's host (in the entries' loops, one "
+          f"process each; wall s with the processes' start): "
+          + ", ".join(f"{k} {r['refs_per_s']:.2f} ({r['refs']} refs, "
+                      f"{r['wall_seconds']:.1f} s)"
+                      for k, r in rates.items()), flush=True)
+    out.update(records=counts, stages=rates, fixture=n_fixture)
 
-        # (c) the first train batch, prewarped against raw through the plane
-        first = {}
-        with plane_calls() as calls:
-            for name, folder in (("warped", warped), ("raw", packs)):
-                data = RefDataset(os.path.join(folder, "train.refpack"), masks,
-                                  cfg.dataset, "train", "train", size,
-                                  cfg.word_len)
-                loader = RefDataLoader(data, batch_size=b, shuffle=True,
-                                       seed=cfg.manual_seed, drop_last=True,
-                                       num_workers=1)
-                loader.set_epoch(1)
-                first[name] = next(iter(loader))
-        assert calls == [b], calls  # the raw pack's batch alone
-        assert set(first["warped"]) == set(first["raw"])
-        for key, value in first["raw"].items():
-            assert np.array_equal(first["warped"][key], value), key
-        print(f"19(c) the first b{b} train batch of the prewarped pack equals "
-              f"the raw pack's through the native data plane bit for bit "
-              f"({sorted(first['raw'])}); plane calls {calls}", flush=True)
+    # (c) the first train batch, prewarped against raw through the plane
+    first = {}
+    with plane_calls() as calls:
+        for name, folder in (("warped", warped), ("raw", packs)):
+            data = RefDataset(os.path.join(folder, "train.refpack"), masks,
+                              cfg.dataset, "train", "train", size,
+                              cfg.word_len)
+            loader = RefDataLoader(data, batch_size=b, shuffle=True,
+                                   seed=cfg.manual_seed, drop_last=True,
+                                   num_workers=1)
+            loader.set_epoch(1)
+            first[name] = next(iter(loader))
+    assert calls == [b], calls  # the raw pack's batch alone
+    assert set(first["warped"]) == set(first["raw"])
+    for key, value in first["raw"].items():
+        assert np.array_equal(first["warped"][key], value), key
+    print(f"19(c) the first b{b} train batch of the prewarped pack equals "
+          f"the raw pack's through the native data plane bit for bit "
+          f"({sorted(first['raw'])}); plane calls {calls}", flush=True)
 
-        # (d) train from the prewarped pack, then test on the val pack
-        steps = PREP_SPLITS["train"] // b
-        val_batches = -(-PREP_SPLITS["val"] // cfg.batch_size_val)
-        sites = 2 * cfg.num_layers
-        argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
-                "--opts", "DATA.train_lmdb",
-                os.path.join(warped, "train.refpack"),
-                "DATA.val_lmdb", os.path.join(warped, "val.refpack"),
-                "DATA.mask_root", masks, "TRAIN.batch_size", str(b),
-                "TRAIN.epochs", "1", "TRAIN.print_freq", "4",
-                "TRAIN.output_folder", tmp]
-        reset_counts(k1, k2, k2_bwd)
-        t0 = time.perf_counter()
-        best, last = entry.main(argv)
-        train_s = time.perf_counter() - t0
-        counts = {"K1": k1.launches, "K2 fwd": k2.launches,
-                  "K2 bwd": k2_bwd.launches}
-        routes = {"K1": dict(k1.launches_by_route),
-                  "K2 fwd": dict(k2.launches_by_route),
-                  "K2 bwd": dict(k2_bwd.launches_by_route)}
-        _close_log()
-        out_dir = os.path.join(tmp, cfg.exp_name)
-        log_path = os.path.join(out_dir, "train.log")
-        with open(log_path) as f:
-            log = f.read()
-        run = _run_line(log_path)
-        losses = [float(x) for x in re.findall(r"Loss=(\S+)", log)]
-        print(f"19(d) python3 -m cris_tpu_torch.train (R50 {size} px, b{b}, "
-              f"bf16, seeded weights, the prewarped pack, 1 epoch of {steps} "
-              f"steps, val on the prewarped val pack): losses {losses}, best "
-              f"IoU {best:.6f}; launches {counts}, by route {routes}; main "
-              f"{train_s:.1f} s", flush=True)
-        print(f"19(d) => run: {json.dumps(run)}", flush=True)
-        assert last == 1 and losses and all(np.isfinite(losses)), losses
-        want = {"K1": steps + 7 * val_batches, "K2 fwd": sites * steps,
-                "K2 bwd": sites * steps}
-        assert counts == want, (counts, want)
-        for name, n in want.items():
-            assert routes[name] == {"tensor_cores": n, "scalar": 0}, routes
-        assert run["steps"] == steps and run["images"] == steps * b, run
+    # (d) train from the prewarped pack, then test on the val pack
+    steps = PREP_SPLITS["train"] // b
+    val_batches = -(-PREP_SPLITS["val"] // cfg.batch_size_val)
+    sites = 2 * cfg.num_layers
+    argv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+            "--opts", "DATA.train_lmdb",
+            os.path.join(warped, "train.refpack"),
+            "DATA.val_lmdb", os.path.join(warped, "val.refpack"),
+            "DATA.mask_root", masks, "TRAIN.batch_size", str(b),
+            "TRAIN.epochs", "1", "TRAIN.print_freq", "4",
+            "TRAIN.output_folder", tmp]
+    reset_counts(k1, k2, k2_bwd)
+    t0 = time.perf_counter()
+    best, last = entry.main(argv)
+    train_s = time.perf_counter() - t0
+    counts = {"K1": k1.launches, "K2 fwd": k2.launches,
+              "K2 bwd": k2_bwd.launches}
+    routes = {"K1": dict(k1.launches_by_route),
+              "K2 fwd": dict(k2.launches_by_route),
+              "K2 bwd": dict(k2_bwd.launches_by_route)}
+    _close_log()
+    out_dir = os.path.join(tmp, cfg.exp_name)
+    log_path = os.path.join(out_dir, "train.log")
+    with open(log_path) as f:
+        log = f.read()
+    run = _run_line(log_path)
+    losses = [float(x) for x in re.findall(r"Loss=(\S+)", log)]
+    print(f"19(d) python3 -m cris_tpu_torch.train (R50 {size} px, b{b}, "
+          f"bf16, seeded weights, the prewarped pack, 1 epoch of {steps} "
+          f"steps, val on the prewarped val pack): losses {losses}, best "
+          f"IoU {best:.6f}; launches {counts}, by route {routes}; main "
+          f"{train_s:.1f} s", flush=True)
+    print(f"19(d) => run: {json.dumps(run)}", flush=True)
+    assert last == 1 and losses and all(np.isfinite(losses)), losses
+    want = {"K1": steps + 7 * val_batches, "K2 fwd": sites * steps,
+            "K2 bwd": sites * steps}
+    assert counts == want, (counts, want)
+    for name, n in want.items():
+        assert routes[name] == {"tensor_cores": n, "scalar": 0}, routes
+    assert run["steps"] == steps and run["images"] == steps * b, run
 
-        targv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
-                 "--opts", "TRAIN.output_folder", tmp, "TEST.test_lmdb",
-                 os.path.join(warped, "val.refpack"), "DATA.mask_root", masks]
-        reader = RefPackReader(os.path.join(warped, "val.refpack"))
-        pairs = sum(reader[i]["num_sents"] for i in range(len(reader)))
-        reader.close()
-        reset_counts(k1)
-        t0 = time.perf_counter()
-        iou, prec = test_entry.main(targv)
-        test_s = time.perf_counter() - t0
-        test_k1, test_routes = k1.launches, dict(k1.launches_by_route)
-        _close_log()
-        with open(os.path.join(out_dir, "test.log")) as f:
-            test_log = f.read()
-        test_run = _run_line(os.path.join(out_dir, "test.log"))
-        batches = -(-pairs // cfg.batch_size_val)
-        print(f"19(d) python3 -m cris_tpu_torch.test on the prewarped val pack: "
-              f"IoU {100 * iou:.2f}, "
-              + ", ".join(f"{k} {100 * v:.2f}" for k, v in prec.items())
-              + f"; {test_run['pairs']} pairs in {test_run['batches']} "
-              f"batches, {test_run['pairs_per_s']:.2f} pairs/s; K1 {test_k1} "
-              f"({test_routes}); main {test_s:.1f} s", flush=True)
-        print(f"19(d) test => run: {json.dumps(test_run)}", flush=True)
-        assert "IoU=" in test_log, test_log[-2000:]
-        assert test_run["pairs"] == pairs and test_run["batches"] == batches
-        assert test_run["pairs_per_s"] > 0, test_run
-        assert test_k1 == 7 * batches, (test_k1, batches)
-        assert test_routes == {"tensor_cores": test_k1, "scalar": 0}
-        assert all(np.isfinite(v) and 0.0 <= v <= 1.0
-                   for v in [iou, *prec.values()]), (iou, prec)
-        out.update(losses=losses, best_iou=best, run=run, launches=counts,
-                   by_route=routes, train_seconds=train_s, test_iou=iou,
-                   test_run=test_run, test_K1=test_k1, test_seconds=test_s)
-        if keep is not None:
-            kept = dict(folder=os.path.join(keep, "out"),
-                        val_pack=os.path.join(keep, "val", "val.refpack"),
-                        mask_root=os.path.join(keep, "masks"))
-            kept["ckpt"] = os.path.join(kept["folder"], cfg.exp_name,
-                                        "best_model.pth")
-            for key in ("ckpt", "val_pack"):
-                os.makedirs(os.path.dirname(kept[key]))
-            shutil.copy(os.path.join(out_dir, "best_model.pth"), kept["ckpt"])
-            shutil.copy(os.path.join(warped, "val.refpack"), kept["val_pack"])
-            shutil.copytree(masks, kept["mask_root"])
-            out["kept"] = kept
+    targv = ["--config", os.path.join("config", "refcoco", "cris_r50.yaml"),
+             "--opts", "TRAIN.output_folder", tmp, "TEST.test_lmdb",
+             os.path.join(warped, "val.refpack"), "DATA.mask_root", masks]
+    reader = RefPackReader(os.path.join(warped, "val.refpack"))
+    pairs = sum(reader[i]["num_sents"] for i in range(len(reader)))
+    reader.close()
+    reset_counts(k1)
+    t0 = time.perf_counter()
+    iou, prec = test_entry.main(targv)
+    test_s = time.perf_counter() - t0
+    test_k1, test_routes = k1.launches, dict(k1.launches_by_route)
+    _close_log()
+    with open(os.path.join(out_dir, "test.log")) as f:
+        test_log = f.read()
+    test_run = _run_line(os.path.join(out_dir, "test.log"))
+    batches = -(-pairs // cfg.batch_size_val)
+    print(f"19(d) python3 -m cris_tpu_torch.test on the prewarped val pack: "
+          f"IoU {100 * iou:.2f}, "
+          + ", ".join(f"{k} {100 * v:.2f}" for k, v in prec.items())
+          + f"; {test_run['pairs']} pairs in {test_run['batches']} "
+          f"batches, {test_run['pairs_per_s']:.2f} pairs/s; K1 {test_k1} "
+          f"({test_routes}); main {test_s:.1f} s", flush=True)
+    print(f"19(d) test => run: {json.dumps(test_run)}", flush=True)
+    assert "IoU=" in test_log, test_log[-2000:]
+    assert test_run["pairs"] == pairs and test_run["batches"] == batches
+    assert test_run["pairs_per_s"] > 0, test_run
+    assert test_k1 == 7 * batches, (test_k1, batches)
+    assert test_routes == {"tensor_cores": test_k1, "scalar": 0}
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in [iou, *prec.values()]), (iou, prec)
+    out.update(losses=losses, best_iou=best, run=run, launches=counts,
+               by_route=routes, train_seconds=train_s, test_iou=iou,
+               test_run=test_run, test_K1=test_k1, test_seconds=test_s)
+    out["kept"] = dict(folder=tmp, ckpt=os.path.join(out_dir, "best_model.pth"),
+                       val_pack=os.path.join(warped, "val.refpack"),
+                       mask_root=masks)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 19: {out['seconds']:.1f} s", flush=True)
     return out
@@ -4806,8 +4917,14 @@ def phase_prep(k1, k2, k2_bwd, keep=None):
 VIT_B16 = (512, 224, 12, 768, 16, 77, 49408, 512, 8, 12)
 VIT_B = 32
 # K1 at the ViT's attention: 197 tokens (196 patches and CLS), 12 heads of
-# 64, in phase 2's form
-VIT_K1_SITES = [("ViT-B/16 attention", VIT_B, 197, 197, 12, 64, 0, BOTH)]
+# 64, in phase 2's form: contiguous, then as the tower feeds it, q, k and
+# v the thirds of one (B, 197, 2304) in_proj output (a row stride of 2304)
+VIT_K1_SITES = [("ViT-B/16 attention", VIT_B, 197, 197, 12, 64, 0, BOTH),
+                ("ViT-B/16 attention, packed", VIT_B, 197, 197, 12, 64,
+                 "packed", BOTH)]
+# encode_image's bf16 output against f32, rel L2: 1.024e-02 on the H100
+# (PERF.md §6)
+VIT_BF16_BAR = 3e-2
 VIT_SEED = 21
 INT8_IOU_BAR = 0.5  # points: tests/test_torch_tensor_parallel.py's bar
 
@@ -4859,11 +4976,12 @@ def phase_vit(k1, plain):
     layers = cfg.vision_layers
     print(f"21(a) encode_image B {VIT_B} {tuple(f32.shape)}: f32 card vs CPU "
           f"rel L2 {rel:.3e} (bar 1e-4), K1 {f32_routes}; bf16 vs f32 rel L2 "
-          f"{rel_bf16:.3e}, K1 {bf16_routes}; bf16 {ms:.3f} ms a batch, "
+          f"{rel_bf16:.3e} (bar {VIT_BF16_BAR}), K1 {bf16_routes}; bf16 {ms:.3f} ms a batch, "
           f"{VIT_B * 1e3 / ms:.1f} img/s on {card_line()}", flush=True)
     assert f32.shape == (VIT_B, 196, cfg.embed_dim)
     assert bool(torch.isfinite(bf16).all())
     assert rel <= 1e-4, rel
+    assert rel_bf16 <= VIT_BF16_BAR, rel_bf16
     assert f32_routes == {"tensor_cores": 0, "scalar": layers}, f32_routes
     assert bf16_routes == {"tensor_cores": layers, "scalar": 0}, bf16_routes
     rows, worst, main = phase_kernel(k1, plain, VIT_K1_SITES,
@@ -4956,8 +5074,9 @@ def phase_audit(k8, k8q):
 def _int8_test_rank(rank, port, argv, tmp):
     """21(c)'s rank ``rank`` of TP_WORLD: joins a gloo group on cuda:0,
     then runs python3 -m cris_tpu_torch.test's main at dp1 x tp2 (its
-    device step replaced by that group and its grid); writes its IoU and
-    K8's launches to tmp."""
+    device step replaced by that group and its grid); writes its IoU, K8's
+    launches and its pairs' probability maps to tmp, then those of a run
+    with a planted fault (no sum after the row-parallel layers)."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
                       LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(TP_WORLD),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -4965,7 +5084,8 @@ def _int8_test_rank(rank, port, argv, tmp):
     from cris_tpu_torch import test as test_entry
     from cris_tpu_torch.ops import kernels
     from cris_tpu_torch.parallel import (close_distributed, init_distributed,
-                                         init_grid)
+                                         init_grid, tensor)
+    from torch.nn import functional as F
 
     device = init_distributed("cuda:0", backend="gloo")
 
@@ -4975,10 +5095,23 @@ def _int8_test_rank(rank, port, argv, tmp):
         return device
     cli.init_device = init_device
     reset_counts(kernels.int8_conv, kernels.int8_quantize)
-    iou, _ = test_entry.main(argv)
-    torch.save({"iou": iou, "K8": kernels.int8_conv.launches,
-                "int8_quantize": kernels.int8_quantize.launches},
-               os.path.join(tmp, f"rank{rank}.pt"))
+    with _recorded_probs() as probs:
+        iou, _ = test_entry.main(argv)
+    out = {"iou": iou, "K8": kernels.int8_conv.launches,
+           "int8_quantize": kernels.int8_quantize.launches,
+           "probs": torch.from_numpy(np.concatenate(probs))}
+    # planted: the row-parallel layers without their sum over the model
+    # group, each rank keeping its partial product
+    real_row = tensor.RowParallelLinear.forward
+    tensor.RowParallelLinear.forward = lambda self, x: F.linear(
+        x, self.weight, self.bias)
+    try:
+        with _recorded_probs() as probs:
+            test_entry.main(argv)
+    finally:
+        tensor.RowParallelLinear.forward = real_row
+    out["fault_probs"] = torch.from_numpy(np.concatenate(probs))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     close_distributed()
 
 
@@ -4986,8 +5119,10 @@ def phase_int8_tp(k8, k8q, kept):
     """21(c): python3 -m cris_tpu_torch.quantize on phase 19's
     best_model.pth over its val pack, then the test entry at precision
     int8 on that pack: one process, and two gloo ranks at dp1 x tp2 on
-    the one card; the IoU within INT8_IOU_BAR points, K8's launches on
-    every rank equal to one process's."""
+    the one card; the IoU within INT8_IOU_BAR points, the probability
+    maps against one process's (``_prob_gaps``; a planted fault in the
+    ranks must fail the bar), K8's launches on every rank equal to one
+    process's."""
     import multiprocessing
     import socket
 
@@ -5005,7 +5140,8 @@ def phase_int8_tp(k8, k8q, kept):
     argv = ["--config", config, "--opts", *data, "TEST.test_lmdb",
             kept["val_pack"], "TRAIN.precision", "int8"]
     reset_counts(k8, k8q)
-    iou, _ = test_entry.main(argv)
+    with _recorded_probs() as probs:
+        iou, _ = test_entry.main(argv)
     _close_log()
     single = {"iou": iou, "K8": k8.launches, "int8_quantize": k8q.launches}
     with socket.socket() as sock:
@@ -5038,12 +5174,19 @@ def phase_int8_tp(k8, k8q, kept):
           f"{[r['int8_quantize'] for r in ranks]}; gap {gap:.4f} points "
           f"(bar {INT8_IOU_BAR})", flush=True)
     assert gap <= INT8_IOU_BAR, gap
+    one = np.concatenate(probs)
+    pairs = _prob_gaps(f"21(c) int8 at dp1 x tp{TP_WORLD} over gloo against "
+                       f"one process", ranks[0]["probs"].numpy(), one)
+    fault = _prob_gaps(f"21(c) the same with the row-parallel sums left out "
+                       f"(planted)", ranks[0]["fault_probs"].numpy(), one)
+    assert pairs["rel_l2"] <= PROB_BAR < fault["rel_l2"], \
+        (pairs, fault)
     assert single["K8"] > 0 and single["int8_quantize"] > 0, single
     for r in ranks:
         assert (r["K8"], r["int8_quantize"]) == (
             single["K8"], single["int8_quantize"]), (r, single)
     return dict(iou=iou, tp_ious=[r["iou"] for r in ranks], gap_points=gap,
-                launches={k: single[k] * (1 + TP_WORLD)
+                maps=pairs, planted_maps=fault, launches={k: single[k] * (1 + TP_WORLD)
                           for k in ("K8", "int8_quantize")},
                 seconds=time.perf_counter() - t0)
 
@@ -5105,9 +5248,11 @@ def main() -> int:
     run_all = args.phases == "all"
     wanted = set(range(2, 22)) if run_all else {
         int(x) for x in args.phases.split(",")}
-    if 21 in wanted and 19 not in wanted:
-        print("chip_smoke: phase 21 takes phase 19's checkpoint and packs: "
-              "running phase 19 too", flush=True)
+    # phase 21, and 20(c) on 2 cards or more, test phase 19's checkpoint
+    takers = {21} | ({20} if torch.cuda.device_count() >= 2 else set())
+    if wanted & takers and 19 not in wanted:
+        print(f"chip_smoke: phases {sorted(wanted & takers)} take phase 19's "
+              f"checkpoint and packs: running phase 19 too", flush=True)
         wanted.add(19)
 
     from cris_tpu_torch.ops.kernels import build
@@ -5130,11 +5275,11 @@ def main() -> int:
 
     cfg = cris_r50_refcoco()
     out = {}
-    keep = tempfile.mkdtemp()  # phase 19's files for phase 21
+    work = tempfile.mkdtemp()  # phase 19's files, for phases 20(c) and 21
     try:
-        run_phases(wanted, out, cfg, keep)
+        run_phases(wanted, out, cfg, work)
     finally:
-        shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
     if not run_all:
         print(f"chip_smoke: phases 1, {sorted(wanted)} passed; a subset "
               "prints no summary", flush=True)
@@ -5147,9 +5292,10 @@ def main() -> int:
     return 0
 
 
-def run_phases(wanted, out, cfg, keep):
+def run_phases(wanted, out, cfg, work):
     """Phases 2-21 of ``wanted`` in order, each one's results into ``out``
-    (phase 19 keeps its checkpoint and packs in ``keep`` for phase 21)."""
+    (phase 19 makes its checkpoint and packs in ``work``, for phases 20(c)
+    and 21)."""
     from cris_tpu_torch import bench, engine
     from cris_tpu_torch.checkpoint import fold_batchnorm
     from cris_tpu_torch.models import build_segmenter, preset_from_name
@@ -5229,12 +5375,13 @@ def run_phases(wanted, out, cfg, keep):
         out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
     if 19 in wanted:
         out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward,
-                                 keep)
+                                 work)
     if 20 in wanted:
         out["tp"] = phase_tensor_parallel(
             k2, kernels.attention_dropout_forward,
             kernels.attention_dropout_plain, kernels.keep_bits_packed,
-            out["dp"]["entry"]["run"] if "dp" in out else None)
+            out["dp"]["entry"]["run"] if "dp" in out else None,
+            out.get("prep"))
     if 21 in wanted:
         out["p21"] = phase_21(k1, kernels.attention_plain, kernels.int8_conv,
                               kernels.int8_quantize, out["prep"])

@@ -64,18 +64,16 @@ def audit_batches(n: int, b: int, size: int, word_len: int, device
 
 @torch.no_grad()
 def audit(model: torch.nn.Module, batches: Sequence, mode: str = "local",
-          dtype: Optional[torch.dtype] = torch.bfloat16,
           plain_model: Optional[torch.nn.Module] = None):
     """({site name: (4,) f32 numpy stats, the worst over the batches},
     the mean mask agreement with ``plain_model`` or None) of ``model``'s
-    int8 sites under ``auditing(mode)``; ``dtype`` the autocast dtype
-    (None: f32). Raises when no site engaged."""
+    int8 sites under ``auditing(mode)``, in bf16 autocast. Raises when no
+    site engaged."""
     names = {mod: name for name, mod in int8_sites(model).items()}
     agree = []
     with auditing(mode) as record:
         for img, word in batches:
-            with torch.autocast(img.device.type, dtype=dtype or torch.float32,
-                                enabled=dtype is not None):
+            with torch.autocast(img.device.type, dtype=torch.bfloat16):
                 pred = model(img, word)
                 if plain_model is not None:
                     ref = plain_model(img, word)
@@ -149,7 +147,7 @@ def main(argv=None) -> dict:
     stats, agreement = audit(
         model, audit_batches(args.n_batches, args.batch, args.size,
                              cfg.word_len, device),
-        args.mode, torch.bfloat16, plain)
+        args.mode, plain)
 
     tag = ("static" + (f"-p{args.pct}" if args.pct else "-maxabs")
            if args.static else "dynamic")
