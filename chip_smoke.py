@@ -104,7 +104,11 @@ Phases (any failure raises, and the script exits non-zero):
    gradient at the self-attention, and on head views of K1's (B, S, E)
    rows with K1's bits; K4 at four folded R50 1x1 convs, the decoder
    FFN's fc1 and fc2 and the JAX test's ragged (300, 70) -> 130; K6 at the
-   decoder's, the FFN's and the text encoder's LN widths; then K6 on the
+   decoder's, the FFN's and the text encoder's LN widths, its backward's
+   bits equal on repeated calls (also after calls at the other sites) and
+   held at ragged row counts (1, 31, 272, 10 821 x C 128, 512, 2048: a
+   short tail tile, grids smaller than the SMs), its partition (R,
+   stages, grid) and share of its bound printed; then K6 on the
    inputs of every decoder LayerNormF32 and K4 on every FFN fc1's, as one
    b16 bf16 folded R50 forward ran them (forward hooks), against the
    modules' outputs. Each count equals the calls made. Each K3 and K4
@@ -1975,26 +1979,75 @@ def phase_kernel_api(api, cfg, build_segmenter):
         record("K4", key, err, times, nbytes, 2.0 * m * n * kk, dt, M=m, K=kk,
                N=n, residual=r is not None, relu=relu)
 
+    from cris_tpu_torch.ops.kernels.layernorm import (backward_fused,
+                                                      backward_partition)
+
     plain6, plain6_bwd = api["layer_norm_plain"], api["layer_norm_backward_plain"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     F = torch.nn.functional
+
+    def check6_bwd(what, x, sc, g, got6):
+        """K6's backward against the plain version: dx at the phase-2 bars,
+        dscale and dbias (f32 sums over every row) at the f32 bars and each
+        column within the rounding its sum can have (_sum_bar)."""
+        dx, ds, db = got6
+        rdx, rds, rdb = plain6_bwd(x, sc, g)
+        err = _check(dx, rdx, x.dtype, what + " dx")
+        xf, gf = x.float(), g.float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        xhat = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + 1e-5)
+        for name, a, b_, terms in (("dscale", ds, rds, gf * xhat),
+                                   ("dbias", db, rdb, gf)):
+            err = max(err, _check(a, b_, torch.float32, f"{what} {name}"))
+            e, bar = (a - b_).abs(), _sum_bar(terms)
+            assert (e <= bar).all(), (what, name, e.max().item(),
+                                      bar.min().item())
+        return err
+
+    def same_bits(what, *calls):
+        for other in calls[1:]:
+            assert all(torch.equal(a, b_) for a, b_ in zip(calls[0], other)), \
+                f"{what}: the bits differ between calls"
+
+    # the same bits on every call: each site once more after the drive's
+    # calls at the other sites, then twice in a row
+    with torch.no_grad():
+        for key, (x, sc, bi, g) in inputs["K6"].items():
+            same_bits(f"K6 bwd {key[1]} {key[2]}", got[key][1:],
+                      k6_bwd(x, sc, g), k6_bwd(x, sc, g))
+    # ragged row counts: a short tail tile, grids smaller than the SMs
+    ragged = []
+    for rows_n in (1, 31, B * 17, B * 676 + 5):
+        for c in (128, 512, 2048):
+            for dt in dtypes:
+                x = randn(rows_n, c).mul(2).add(1).to(dt)
+                sc, g = 1 + 0.1 * randn(c), randn(rows_n, c).to(dt)
+                what = f"K6 bwd {rows_n} x {c} {dt}"
+                with torch.no_grad():
+                    first = k6_bwd(x, sc, g)
+                    same_bits(what, first, k6_bwd(x, sc, g))
+                r, stages, grid = backward_partition(rows_n, c,
+                                                     x.element_size(), sms)
+                ragged.append(dict(rows=rows_n, C=c,
+                                   dtype=str(dt).replace("torch.", ""),
+                                   max_abs_err=check6_bwd(what, x, sc, g,
+                                                          first),
+                                   R=r, stages=stages, grid=grid,
+                                   fused=backward_fused(c, r)))
+    worst["K6 bwd"] = max(r["max_abs_err"] for r in ragged)
+    print(f"K6 bwd at {len(ragged)} ragged shapes (rows 1, 31, {B * 17}, "
+          f"{B * 676 + 5} x C 128, 512, 2048, f32 and bf16): within the "
+          f"bars, the same bits twice; max|err| "
+          f"{max(r['max_abs_err'] for r in ragged):.3e}; grids "
+          f"{sorted({r['grid'] for r in ragged})} on {sms} SMs, "
+          f"{sum(r['fused'] for r in ragged)} fused", flush=True)
+
     for key, (x, sc, bi, g) in inputs["K6"].items():
         dt = key[2]
         out, dx, ds, db = got[key]
         what = f"K6 {key[1]} {dt}"
         err_f = _check(out, plain6(x, sc, bi), dt, what + " out")
-        rdx, rds, rdb = plain6_bwd(x, sc, g)
-        err_b = _check(dx, rdx, dt, what + " dx")
-        xf, gf = x.float(), g.float()
-        xc = xf - xf.mean(-1, keepdim=True)
-        xhat = xc * torch.rsqrt(xc.square().mean(-1, keepdim=True) + 1e-5)
-        for name, a, b_, terms in (("dscale", ds, rds.sum(0), gf * xhat),
-                                   ("dbias", db, rdb.sum(0), gf)):
-            # f32 sums over every row: the f32 bars, and each column within
-            # the rounding its sum can have
-            err_b = max(err_b, _check(a, b_, torch.float32, f"{what} {name}"))
-            e, bar = (a - b_).abs(), _sum_bar(terms)
-            assert (e <= bar).all(), (what, name, e.max().item(),
-                                      bar.min().item())
+        err_b = check6_bwd(what, x, sc, g, (dx, ds, db))
         w_dt, b_dt = sc.to(dt), bi.to(dt)
         with torch.no_grad():
             lib_f = lambda: F.layer_norm(x, x.shape[-1:], w_dt, b_dt)  # noqa: E731
@@ -2004,16 +2057,25 @@ def phase_kernel_api(api, cfg, build_segmenter):
         y_lib = F.layer_norm(xg, x.shape[-1:], wg, bg)
         lib_b = lambda: torch.autograd.grad(y_lib, (xg, wg, bg), g,  # noqa: E731
                                             retain_graph=True)
-        plain_b = lambda x, sc, g: [  # noqa: E731
-            t.sum(0) if i else t for i, t in enumerate(plain6_bwd(x, sc, g))]
-        t_b = _timed_api(k6_bwd, plain_b, lib_b, (x, sc, g))
+        t_b = _timed_api(k6_bwd, plain6_bwd, lib_b, (x, sc, g))
         del y_lib
         rows_n, c = x.shape
         es = x.element_size()
+        r, stages, grid = backward_partition(rows_n, c, es, sms)
         record("K6 fwd", key, err_f, t_f, es * 2 * rows_n * c + 8 * c,
                10.0 * rows_n * c, torch.float32, rows=rows_n, C=c)
+        fused = backward_fused(c, r)
         record("K6 bwd", key, err_b, t_b, es * 3 * rows_n * c + 12 * c,
-               20.0 * rows_n * c, torch.float32, rows=rows_n, C=c)
+               20.0 * rows_n * c, torch.float32, rows=rows_n, C=c, R=r,
+               stages=stages, grid=grid, fused=fused)
+        row = rows[-1]
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        print(f"K6 bwd {key[1]} {row['dtype']}: {row['device_ms']:.4f} ms "
+              f"on the device alone, F.layer_norm's backward "
+              f"{row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms, {row['share_of_bound']:.1%} of the bound; R {r}, "
+              f"{stages} stages, grid {grid} on {sms} SMs, "
+              f"{'fused' if fused else 'row warps and sweep'}", flush=True)
 
     # the model's own activations, against the modules' outputs
     model_err = {"K4": 0.0, "K6": 0.0}
@@ -2030,7 +2092,8 @@ def phase_kernel_api(api, cfg, build_segmenter):
     seconds = time.perf_counter() - t0
     print(f"phase 11: {seconds:.1f} s", flush=True)
     return dict(rows=rows, worst=worst, launches=launches, by_route=by_route,
-                model_max_abs_err=model_err, seconds=seconds)
+                model_max_abs_err=model_err, k6_ragged=ragged,
+                seconds=seconds)
 
 
 def _run_line(path: str) -> dict:
@@ -5678,6 +5741,10 @@ def summary(out) -> dict:
         if kernel in api["by_route"]:
             entry["launches_by_route"] = api["by_route"][kernel]
             entry["site"] += ", route " + row["route"]
+        if kernel == "K6 bwd":
+            entry["partition"] = {k: row[k] for k in ("R", "stages", "grid",
+                                                      "fused")}
+            entry["share_of_bound"] = row["share_of_bound"]
         kernels.append(entry)
     print(json.dumps({"k1_shapes": out["k1_rows"],
                       "k1_grad": out["k1_grad_rows"],
@@ -5685,6 +5752,7 @@ def summary(out) -> dict:
                       "k5_shapes": out["k5_rows"], "k7": out["k7_rows"],
                       "folded_forward_ab_b16_bf16": out["ab"],
                       "kernel_api": api["rows"],
+                      "kernel_api_k6_ragged": api["k6_ragged"],
                       "kernel_api_on_model_activations":
                           api["model_max_abs_err"],
                       "kernel_api_seconds": api["seconds"],

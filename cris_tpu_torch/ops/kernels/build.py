@@ -144,8 +144,9 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.cris_layer_norm_fwd.restype = i
             lib.cris_layer_norm_bwd.argtypes = [
-                p, p, p, p, p, p,       # x, scale, g, dx, dscale/dbias parts
-                i, i, i, i, i,          # rows, C, blocks, chunk, dtype
+                p, p, p, p,             # x, scale, g, dx
+                p, p, p,                # sums, partial rows, sync words
+                i, i, i, i, i, i,       # rows, C, R, stages, grid, dtype
                 ctypes.c_float, p,      # eps, stream
             ]
             lib.cris_layer_norm_bwd.restype = i

@@ -16,37 +16,84 @@ backward is ``layer_norm_backward``, which likewise takes
 falls back. ``layer_norm.launches`` and ``layer_norm_backward.launches``
 count the two kernels' launches.
 
-The backward returns dscale and dbias as per-block partial sums, (nb, C)
-in f32 with block b summing the rows of ``backward_blocks``' chunk b; the
-wrapper sums them with ``torch.sum``, as the JAX wrapper sums its (nb, 8,
-C) partials (:149). The JAX function's ``interpret`` argument is Pallas's
-CPU mode; the port has none, so it is dropped.
+The backward returns dx and the finished dscale and dbias, as the JAX rule
+does (``_bwd_rule``, :149), from one cooperative launch. Its kernel walks
+the rows in tiles of R rows on a persistent grid, block b taking tiles b,
+b + grid, ...; ``backward_partition`` picks R, the ring's stages and the
+grid from (rows, C, dtype, SMs), ``backward_fused`` says which schedule
+the kernel runs, and the kernel sums the grid's partial rows itself, in a
+fixed order: the same bits on every call. The JAX function's
+``interpret`` argument is Pallas's CPU mode; the port has none, so it is
+dropped.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
-import torch.nn.functional as F
 
 from .attention import DTYPE_CODES
 from .build import check, load_library
 
-MAX_CHANNELS = 8192  # a row in registers: 16 values a thread, 16 warps
-BWD_MAX_BLOCKS = 264  # two a streaming multiprocessor on the H100
-BWD_MIN_ROWS = 16  # rows a backward block sums at least
+MAX_CHANNELS = 8192  # the forward's row in registers: 16 values a thread
+# The backward's partition (csrc/layernorm.cu): a stage holds a tile's x
+# and g, about BWD_STAGE_BYTES, or one row where a row is larger; the ring
+# holds up to BWD_STAGES stages within BWD_RING_BYTES of shared memory.
+BWD_STAGE_BYTES = 32 * 1024
+BWD_STAGES = 4
+BWD_RING_BYTES = 200 * 1024
+# and its schedule: 8 row warps and 8 sweep warps, or, at C <= 512 with
+# tiles of 8 rows or more, 16 row warps that sum dscale and dbias
+BWD_ROW_WARPS = 8
+BWD_FUSED_MAX_C = 512
 
 
 def supports(c: int) -> bool:
     """The JAX gate (``supports``, layernorm.py:155: C a multiple of 128)
-    and the kernel's register-held row (C at most 8192)."""
+    and the kernels' widths (C at most 8192)."""
     return c % 128 == 0 and c <= MAX_CHANNELS
 
 
-def backward_blocks(rows: int):
-    """(nb, chunk): the backward's blocks and the rows each sums (the last
-    block may sum fewer)."""
-    chunk = max(BWD_MIN_ROWS, -(-rows // BWD_MAX_BLOCKS))
-    return -(-rows // chunk), chunk
+def backward_partition(rows: int, c: int, itemsize: int, sms: int):
+    """(R, stages, grid) of the backward kernel for rows x C values of
+    itemsize bytes on a card of sms SMs: tiles of R contiguous rows, the
+    ring's stages, and min(sms, tiles) blocks, block b walking tiles b, b +
+    grid, ... The busiest block walks as few tiles as stages of at most
+    BWD_STAGE_BYTES (or one row) allow, and R is the smallest tile that
+    keeps that count, so that the blocks' rows differ by at most a tile."""
+    row_bytes = 2 * c * itemsize  # a row of x and of g
+    most = max(1, BWD_STAGE_BYTES // row_bytes)
+    walk = -(-rows // (sms * most))  # tiles of the busiest block
+    r = -(-rows // (sms * walk))
+    grid = min(sms, -(-rows // r))
+    stages = min(BWD_STAGES, BWD_RING_BYTES // (r * row_bytes))
+    return r, stages, grid
+
+
+def backward_fused(c: int, r: int) -> bool:
+    """Whether the backward kernel runs its fused schedule at width C and
+    tiles of R rows: all 16 consumer warps take rows and sum dscale and
+    dbias themselves, in place of 8 row warps and a column sweep."""
+    return c <= BWD_FUSED_MAX_C and r >= BWD_ROW_WARPS
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the backward kernel's meeting counters, one a (device, stream, grid):
+# the blocks of each call add one each, so that a counter stays a multiple
+# of its grid between calls; calls on two streams share nothing
+_syncs: dict = {}
+
+
+def _sync(device, stream: int, grid: int) -> torch.Tensor:
+    key = (device.index, stream, grid)
+    if key not in _syncs:
+        _syncs[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _syncs[key]
 
 
 def _stats(x2, eps):
@@ -69,8 +116,7 @@ def layer_norm_plain(x, scale, bias, eps=1e-5):
 
 def layer_norm_backward_plain(x, scale, g, eps=1e-5):
     """The backward in plain PyTorch, ``_bwd_kernel``'s math: returns dx in
-    x's dtype and the (nb, C) f32 partial sums of dscale and dbias, block b
-    summing rows [b * chunk, (b + 1) * chunk) of ``backward_blocks``."""
+    x's dtype and dscale and dbias, f32 sums over every row."""
     c = x.shape[-1]
     with torch.autocast(x.device.type, enabled=False):
         x2 = x.reshape(-1, c).float()
@@ -79,10 +125,8 @@ def layer_norm_backward_plain(x, scale, g, eps=1e-5):
         gs = g2 * scale.float()
         dx = rstd * (gs - gs.mean(dim=-1, keepdim=True)
                      - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
-        nb, chunk = backward_blocks(x2.shape[0])
-        pad = (0, 0, 0, nb * chunk - x2.shape[0])
-        ds = F.pad(g2 * xhat, pad).view(nb, chunk, c).sum(dim=1)
-        db = F.pad(g2, pad).view(nb, chunk, c).sum(dim=1)
+        ds = (g2 * xhat).sum(dim=0)
+        db = g2.sum(dim=0)
     return dx.to(x.dtype).reshape(x.shape), ds, db
 
 
@@ -131,30 +175,30 @@ def _launch_bwd(x, scale, g, eps):
         raise ValueError(f"layer_norm: g {tuple(g.shape)} != x {tuple(x.shape)}")
     scale = _affine(scale, x)
     rows, c = x2.shape
-    nb, chunk = backward_blocks(rows)
+    sms = _sms(x.device)
+    r, stages, grid = backward_partition(rows, c, x2.element_size(), sms)
     dx = torch.empty_like(x2)
-    parts = torch.empty(2, nb, c, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    part = torch.empty(2, grid, c, dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cris_layer_norm_bwd(
             x2.data_ptr(), scale.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), rows, c, nb, chunk,
+            sums.data_ptr(), part.data_ptr(),
+            _sync(x.device, stream, grid).data_ptr(), rows, c, r, stages, grid,
             DTYPE_CODES[x.dtype], float(eps), stream)
     check(lib, err, "layer_norm_backward")
     layer_norm_backward.launches += 1
-    return dx.reshape(x.shape), parts[0], parts[1]
+    return dx.reshape(x.shape), sums[0], sums[1]
 
 
 def layer_norm_backward(x, scale, g, eps=1e-5):
     """(dx, dscale, dbias) of ``layer_norm`` for the output gradient g:
-    dx in x's dtype, dscale and dbias in f32, summed from the per-block
-    partials."""
+    dx in x's dtype, dscale and dbias finished f32 sums over the rows."""
     if x.device.type == "cpu":
-        dx, ds, db = layer_norm_backward_plain(x, scale, g, eps)
-    else:
-        dx, ds, db = _launch_bwd(x, scale, g, eps)
-    return dx, torch.sum(ds, dim=0), torch.sum(db, dim=0)
+        return layer_norm_backward_plain(x, scale, g, eps)
+    return _launch_bwd(x, scale, g, eps)
 
 
 layer_norm_backward.launches = 0

@@ -6,6 +6,8 @@ tolerances (1e-5 for attention and the matmul, 2e-5 for LayerNorm, 1e-4
 for gradients), bf16 at 2e-2. The CUDA kernels are held against these
 plain versions on the card by chip_smoke.py phase 11."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -208,41 +210,169 @@ def test_layer_norm_gradients_match_jax_grad():
                                    atol=1e-4)
 
 
+# the backward kernel's sweep threads (csrc/layernorm.cu: kSweepThreads)
+SWEEP_THREADS = 256
+
+
+def _bwd_schedule(x, scale, g, sms, eps=1e-5):
+    """layer_norm_bwd_kernel's schedule in plain f32 torch, on a card of sms
+    SMs: backward_partition's tiles of R rows, block b walking tiles b, b +
+    grid, ...; each row's dx from its own statistics; dscale and dbias as
+    each block sums them over its tiles in order, either fused (row slot
+    i R + r of the block to row warp (i R + r) % 16, the warps added in
+    order) or by the column sweep (row k of a tile to thread group
+    k % groups, the groups added in order); the finish, lane l of a warp
+    adding blocks l, l + 32, ... in order, then the warp's xor butterfly
+    over the 32 lanes' sums. Returns dx, dscale, dbias, the (2, grid, C)
+    partial rows and (R, stages, grid). Asserts that every row is summed
+    once."""
+    c = x.shape[-1]
+    x2, g2 = x.reshape(-1, c).float(), g.reshape(-1, c).float()
+    rows = x2.shape[0]
+    r, stages, grid = port_ln.backward_partition(rows, c, x.element_size(),
+                                                 sms)
+    xc = x2 - x2.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gs = g2 * scale.float()
+    dx = rstd * (gs - gs.mean(-1, keepdim=True)
+                 - xhat * (gs * xhat).mean(-1, keepdim=True))
+    if port_ln.backward_fused(c, r):
+        groups = 2 * port_ln.BWD_ROW_WARPS
+        group_of = lambda i, k: (i * r + k) % groups  # noqa: E731
+    else:
+        nvec = c // (16 // x.element_size())
+        groups = 1 if nvec >= SWEEP_THREADS else SWEEP_THREADS // nvec
+        group_of = lambda i, k: k % groups  # noqa: E731
+    tiles = -(-rows // r)
+    part = torch.zeros(2, grid, c)
+    summed = torch.zeros(rows, dtype=torch.int64)
+    for b in range(grid):
+        acc = torch.zeros(groups, 2, c)
+        for i, t in enumerate(range(b, tiles, grid)):
+            for k in range(min(r, rows - t * r)):
+                row = t * r + k
+                summed[row] += 1
+                acc[group_of(i, k), 0] += g2[row] * xhat[row]
+                acc[group_of(i, k), 1] += g2[row]
+        for grp in range(groups):
+            part[:, b] += acc[grp]
+    assert (summed == 1).all()
+    lanes = torch.stack([_in_order(part[:, lane::32]) for lane in range(32)])
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[[lane ^ off for lane in range(32)]]
+    sums = lanes[0]
+    return dx.to(x.dtype).reshape(x.shape), sums[0], sums[1], part, (
+        r, stages, grid)
+
+
+def _in_order(blocks):
+    """(2, n, C) -> (2, C): the n rows added one after another, in f32."""
+    total = torch.zeros(blocks.shape[0], blocks.shape[2])
+    for k in range(blocks.shape[1]):
+        total += blocks[:, k]
+    return total
+
+
+@pytest.mark.parametrize("sms", [132, 2])
 @pytest.mark.parametrize("rows,want", [
-    (1, (1, 16)), (16, (1, 16)), (100, (7, 16)), (4224, (264, 16)),
-    (10816, (264, 41)),  # the decoder's LN sites at B 16
+    (1, {132: (1, 4, 1), 2: (1, 4, 1)}),
+    (16, {132: (1, 4, 16), 2: (8, 4, 2)}),
+    (100, {132: (1, 4, 100), 2: (13, 4, 2)}),
+    (4224, {132: (16, 4, 132), 2: (16, 4, 2)}),
+    (10816, {132: (14, 4, 132), 2: (16, 4, 2)}),  # the decoder's LN sites
 ])
-def test_layer_norm_backward_blocks(rows, want):
-    nb, chunk = port_ln.backward_blocks(rows)
-    assert (nb, chunk) == want
-    assert (nb - 1) * chunk < rows <= nb * chunk <= rows + chunk - 1
+def test_layer_norm_backward_blocks(rows, want, sms):
+    """backward_partition at the decoder's width (C 512, bf16): every row in
+    one tile, at most one block an SM and a tile a block, a stage of at
+    most BWD_STAGE_BYTES and the ring within BWD_RING_BYTES, the blocks'
+    tile counts at most one apart."""
+    r, stages, grid = port_ln.backward_partition(rows, 512, 2, sms)
+    assert (r, stages, grid) == want[sms]
+    tiles = -(-rows // r)
+    assert (tiles - 1) * r < rows <= tiles * r
+    assert 1 <= grid <= min(sms, tiles)
+    assert r * 2 * 512 * 2 <= port_ln.BWD_STAGE_BYTES
+    assert stages * r * 2 * 512 * 2 <= port_ln.BWD_RING_BYTES
+    per_block = [len(range(b, tiles, grid)) for b in range(grid)]
+    assert max(per_block) - min(per_block) <= 1
 
 
-def test_layer_norm_backward_partials_per_block():
-    """100 rows: six blocks of 16 and a last one of 4. Each partial row is
-    its block's sum of g * xhat (dscale) and of g (dbias); their sum is
-    JAX's."""
+@pytest.mark.parametrize("sms", [132, 2])
+def test_layer_norm_backward_partials_per_block(sms):
+    """100 rows of 128: each of the schedule's partial rows is its block's
+    sum of g * xhat (dscale) and of g (dbias) over the tiles it walks;
+    the finished sums and dx are JAX's, and layer_norm_backward's."""
     x, s, b = _ln_inputs((4, 25, 128), 25)
     g = np.random.RandomState(26).randn(4, 25, 128).astype(np.float32)
-    dx, ds, db = port_ln.layer_norm_backward_plain(T(x), T(s), T(g))
-    assert ds.shape == db.shape == (7, 128) and ds.dtype == torch.float32
+    dx, ds, db, part, (r, _, grid) = _bwd_schedule(T(x), T(s), T(g), sms)
+    assert part.shape == (2, grid, 128) and part.dtype == torch.float32
     x2, g2 = x.reshape(100, 128).astype(np.float64), g.reshape(100, 128)
     xc = x2 - x2.mean(-1, keepdims=True)
     xhat = xc / np.sqrt((xc ** 2).mean(-1, keepdims=True) + 1e-5)
-    for i in range(7):
-        rows = slice(16 * i, min(16 * i + 16, 100))
-        np.testing.assert_allclose(ds[i].numpy(), (g2 * xhat)[rows].sum(0),
-                                   rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(db[i].numpy(), g2[rows].sum(0), rtol=1e-5,
-                                   atol=1e-5)
+    tiles = -(-100 // r)
+    for i in range(grid):
+        mine = np.concatenate([np.arange(t * r, min(t * r + r, 100))
+                               for t in range(i, tiles, grid)])
+        np.testing.assert_allclose(part[0, i].numpy(),
+                                   (g2 * xhat)[mine].sum(0), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(part[1, i].numpy(), g2[mine].sum(0),
+                                   rtol=1e-5, atol=1e-5)
     _, vjp = jax.vjp(lambda *a: jax_layer_norm(*a, 1e-5, True),
                      *(jnp.asarray(a) for a in (x, s, b)))
-    for got, want in zip((dx, ds.sum(0), db.sum(0)), vjp(jnp.asarray(g))):
+    for got, want in zip((dx, ds, db), vjp(jnp.asarray(g))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4)
-    sums = layer_norm_backward(T(x), T(s), T(g))
-    for got, want in zip(sums, (dx, ds.sum(0), db.sum(0))):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for got, want in zip(layer_norm_backward(T(x), T(s), T(g)), (dx, ds, db)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,c,itemsize,fused", [
+    (10816, 512, 2, True), (10816, 512, 4, True),    # the decoder's LNs
+    (10816, 2048, 2, False), (10816, 2048, 4, False),  # the FFN's LN
+    (272, 512, 2, False), (272, 512, 4, False),      # the text LN
+])
+def test_layer_norm_backward_schedule_at_sites(rows, c, itemsize, fused):
+    """On 132 SMs the decoder's LNs take the fused schedule (tiles of 8 or
+    more rows at C 512), the FFN's and the text encoder's the sweep."""
+    r, _, _ = port_ln.backward_partition(rows, c, itemsize, 132)
+    assert port_ln.backward_fused(c, r) == fused
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ln_vjp(rows, c, dtype):
+    """Inputs (x, scale, g as numpy, x and g on the dtype's grid) and JAX
+    layer_norm's vjp (dx, dscale, dbias) in interpret mode."""
+    x, s, b = _ln_inputs((rows, c), 27 + rows + c)
+    g = np.random.RandomState(28 + rows).randn(rows, c).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    xj, gj = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
+    _, vjp = jax.vjp(lambda *a: jax_layer_norm(*a, 1e-5, True), xj,
+                     jnp.asarray(s), jnp.asarray(b))
+    return (_f32(xj), s, _f32(gj)), tuple(_f32(t) for t in vjp(gj))
+
+
+@pytest.mark.parametrize("sms", [132, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [128, 512, 2048])
+@pytest.mark.parametrize("rows", [1, 31, 100, 272])
+def test_layer_norm_backward_schedule_matches_jax(rows, c, dtype, sms):
+    """The backward kernel's schedule, emulated (_bwd_schedule), against
+    JAX layer_norm's vjp in interpret mode and against the plain version:
+    f32 at 1e-4, bf16 at the file's BF16."""
+    (x, s, g), want = _jax_ln_vjp(rows, c, dtype)
+    tdt = getattr(torch, dtype)
+    xt, gt = T(x).to(tdt), T(g).to(tdt)
+    got = _bwd_schedule(xt, T(s), gt, sms)[:3]
+    assert got[0].dtype == tdt and got[0].shape == (rows, c)
+    assert got[1].dtype == got[2].dtype == torch.float32
+    plain = port_ln.layer_norm_backward_plain(xt, T(s), gt)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else BF16
+    for a, w, p_ in zip(got, want, plain):
+        np.testing.assert_allclose(a.float().numpy(), w, **tol)
+        np.testing.assert_allclose(a.float().numpy(), p_.float().numpy(),
+                                   **tol)
 
 
 @pytest.mark.parametrize("c", [64, 128, 200, 2048, 8192, 8320])
