@@ -203,22 +203,26 @@ Phases (any failure raises, and the script exits non-zero):
    measured).
 17. the HTTP front and the predict entry (cris_tpu_torch.serving,
    python3 -m cris_tpu_torch.predict): (a) the committed fixtures of
-   tests/torch_codec_fixtures (a 640 x 480 progressive 4:2:0 JPEG and its
-   baseline twin, RGBA, 4-bit palette, 16-bit gray and Adam7 PNGs) decode
-   to the sha256 digests OpenCV gave (digests.json) under both flags, and
-   the progressive fixture's host decode time beside its twin's; (b)
+   tests/torch_codec_fixtures (a 640 x 480 progressive 4:2:0 JPEG, its
+   baseline and lossy WebP twins, RGBA, 4-bit palette, 16-bit gray and
+   Adam7 PNGs, a lossless WebP with alpha, an RLE8 BMP, a PPM and a CMYK
+   JPEG) decode to the sha256 digests OpenCV gave (digests.json) under
+   both flags, and their host decode times (the WebP and the progressive
+   JPEG beside the baseline twin); (b)
    make_server over an R50 PredictService (416 px, bf16, BN folded,
    seed-0 weights read from best_model.pth) on a thread: /healthz, the
    progressive JPEG with 3 sentences (rle), the RGBA PNG with 1 (png_b64),
    an image_path request, {} and undecodable bytes (400 each), then 20
    requests of 1 and 20 of 4 sentences (median and p90 on the host clock);
-   K1 7 times a device batch, all on the tensor cores; every mask equal to
+   K1 7 times a device batch, all on the tensor cores; then, in a count
+   window of their own, the lossy WebP, the BMP, the PPM and the CMYK JPEG
+   (K1 7 a device batch again); every mask equal to
    PredictService.predict on the decoded image; predict alone on this
    thread and from a fresh thread a call, and a b1 device batch on one
    thread against a fresh thread a call; (c) python3 -m
-   cris_tpu_torch.predict at R50 on the card with the same weights: two
-   masks (0 / 255, the image's size) and two overlays, each the JPEG of
-   its mask's blend.
+   cris_tpu_torch.predict at R50 on the card with the same weights, on the
+   lossy WebP fixture: two masks (0 / 255, the image's size) and two
+   overlays, each the JPEG of its mask's blend.
 18. int8 serving (precision int8: bf16 with the three graph rewrites and
    the int8 sites on K8, cris_tpu_torch/csrc/int8_conv.cu: a quantise
    pass once a site, then the wgmma GEMM): (b) python3 -m
@@ -3596,17 +3600,19 @@ def _on_fresh_thread(fn, *args):
 
 
 def phase_front(k1):
-    """17: (a) the committed decoder fixtures to OpenCV's digests, and the
-    progressive fixture's host decode time against its baseline twin; (b)
+    """17: (a) the committed decoder fixtures to OpenCV's digests, and
+    their host decode times (the lossy WebP and progressive JPEG against
+    the baseline twin); (b)
     the HTTP front (serving.make_server) over an R50 PredictService at 416
     px, bf16, BN folded, seed-0 weights from best_model.pth: /healthz, a
     progressive JPEG with 3 sentences (rle), an RGBA PNG with 1 (png_b64),
     an image_path request, {} and undecodable bytes (400 each), then 20
     requests of 1 and 20 of 4 sentences timed on the host clock; K1 7 times
-    a device batch, all on the tensor cores; every mask equal to
-    PredictService.predict on the decoded pixels; (c) python3 -m
-    cris_tpu_torch.predict on the card with the same weights: its masks
-    and overlays."""
+    a device batch, all on the tensor cores; a lossy WebP, an RLE8 BMP, a
+    PPM and a CMYK JPEG in a count window of their own; every mask equal
+    to PredictService.predict on the decoded pixels; (c) python3 -m
+    cris_tpu_torch.predict on the card with the same weights on the lossy
+    WebP fixture: its masks and overlays."""
     import threading
 
     from cris_tpu_torch.data import codec
@@ -3632,20 +3638,31 @@ def phase_front(k1):
           f"digests under both flags: {sorted(data)}", flush=True)
     prog, base = (data[f"{k}_420_640x480.jpg"]
                   for k in ("progressive", "baseline"))
-    decode_ms = {"progressive": [], "baseline": []}
+    # the 640 x 480 image as progressive and baseline JPEG and lossy WebP,
+    # then every 160 x 120 fixture, 20 decodes each in turns
+    timed = {"progressive": prog, "baseline": base,
+             "lossy webp": data["lossy_640x480.webp"]}
+    timed.update({n: b for n, b in data.items() if "160x120" in n})
+    decode_ms = {k: [] for k in timed}
     for _ in range(20):
-        for kind, buf in (("progressive", prog), ("baseline", base)):
+        for kind, buf in timed.items():
             t0 = time.perf_counter()
             codec.decode_image(buf)
             decode_ms[kind].append((time.perf_counter() - t0) * 1e3)
     decode = {k: {"median_ms": _pct(v, 50), "p90_ms": _pct(v, 90)}
               for k, v in decode_ms.items()}
-    print(f"17(a) host decode of the 640x480 4:2:0 fixture, 20 each in "
-          f"turns: progressive median {decode['progressive']['median_ms']:.3f}"
-          f" ms (p90 {decode['progressive']['p90_ms']:.3f}), baseline "
-          f"{decode['baseline']['median_ms']:.3f} ms (p90 "
-          f"{decode['baseline']['p90_ms']:.3f}); {os.cpu_count()} host cores;"
-          f" card {card}", flush=True)
+    print(f"17(a) host decode of the 640x480 fixture, 20 each in turns: "
+          f"lossy WebP median {decode['lossy webp']['median_ms']:.3f} ms "
+          f"(p90 {decode['lossy webp']['p90_ms']:.3f}), its baseline 4:2:0 "
+          f"JPEG twin {decode['baseline']['median_ms']:.3f} ms (p90 "
+          f"{decode['baseline']['p90_ms']:.3f}), progressive JPEG "
+          f"{decode['progressive']['median_ms']:.3f} ms (p90 "
+          f"{decode['progressive']['p90_ms']:.3f}); {os.cpu_count()} host "
+          f"cores; card {card}", flush=True)
+    small = ", ".join(f"{n} {decode[n]['median_ms']:.3f} ms"
+                      for n in sorted(timed) if "160x120" in n)
+    print(f"17(a) host decode of the 160x120 fixtures, median of 20: "
+          f"{small}; card {card}", flush=True)
 
     cfg = cris_r50_refcoco()
     assert (cfg.input_size, cfg.precision) == (416, "bf16")
@@ -3731,6 +3748,50 @@ def phase_front(k1):
               f"{len(batches)} device batches ({launches / len(batches):.0f} "
               f"a batch), by route {by_route}", flush=True)
 
+        # the formats the decoder took up after the JPEG / PNG slice, in a
+        # count window of their own (the front's K1 total above stays the
+        # one the kernels line has carried)
+        formats = [
+            ("lossy webp", {"image_b64": b64["lossy_640x480.webp"],
+                            "sentences": ["the man on the left", "a red car"],
+                            "format": "rle"}),
+            ("bmp", {"image_b64": b64["rle8_160x120.bmp"],
+                     "sentence": "the bright patch", "format": "png_b64"}),
+            ("ppm", {"image_b64": b64["rgb_160x120.ppm"],
+                     "sentence": "the sky", "format": "rle"}),
+            ("cmyk jpeg", {"image_b64": b64["cmyk_160x120.jpg"],
+                           "sentences": ["a", "the b"], "format": "rle"}),
+        ]
+        del batches[:]
+        service.evaluator.predict_probs = counted
+        server = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            reset_counts(k1)
+            for name, req in formats:
+                status, replies[name] = _http(url, req)
+                assert status == 200, (name, replies[name])
+                assert (replies[name]["height"], replies[name]["width"]) == \
+                    codec.decode_image(base64.b64decode(req["image_b64"])).shape[:2]
+            format_launches = k1.launches
+            format_by_route = dict(k1.launches_by_route)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        assert batches == [2, 1, 1, 2], batches
+        assert format_launches == 7 * len(batches), format_launches
+        assert format_by_route == {"tensor_cores": 7 * len(batches),
+                                   "scalar": 0}, format_by_route
+        print(f"17(b) the front answers a lossy WebP (640x480), an RLE8 BMP, "
+              f"a PPM and a CMYK JPEG (160x120) with 200 and their sizes; K1 "
+              f"{format_launches} launches in {len(batches)} device batches "
+              f"({format_launches / len(batches):.0f} a batch), by route "
+              f"{format_by_route}", flush=True)
+        requests += formats
+
         # every mask equals PredictService.predict on the decoded pixels
         service.evaluator.predict_probs = inner
         with open(path, "rb") as f:
@@ -3794,9 +3855,8 @@ def phase_front(k1):
         del service
         torch.cuda.empty_cache()
 
-        # (c) the predict entry, on the card
-        image = os.path.abspath(os.path.join(FIXTURES,
-                                             "progressive_420_640x480.jpg"))
+        # (c) the predict entry, on the card, on the lossy WebP fixture
+        image = os.path.abspath(os.path.join(FIXTURES, "lossy_640x480.webp"))
         out = os.path.join(tmp, "out")
         os.makedirs(out)
         cmd = [sys.executable, "-m", "cris_tpu_torch.predict", "--config",
@@ -3809,7 +3869,7 @@ def phase_front(k1):
                               timeout=600)
         predict_s = time.perf_counter() - t0
         assert proc.returncode == 0, proc.stderr[-4000:]
-        bgr = codec.decode_image(data["progressive_420_640x480.jpg"])
+        bgr = codec.decode_image(data["lossy_640x480.webp"])
         assert sorted(os.listdir(out)) == ["mask_0.png", "mask_1.png",
                                            "overlay_0.jpg", "overlay_1.jpg"]
         foreground = []
@@ -3822,12 +3882,13 @@ def phase_front(k1):
             with open(os.path.join(out, f"overlay_{i}.jpg"), "rb") as f:
                 written = f.read()
             assert written == codec.encode_jpeg(overlay(bgr, mask), 95)
-        print(f"17(c) python3 -m cris_tpu_torch.predict at R50 on the card: "
-              f"2 masks of {bgr.shape[:2]} ({foreground} px foreground) and "
+        print(f"17(c) python3 -m cris_tpu_torch.predict at R50 on the card, "
+              f"on the lossy WebP fixture: 2 masks of {bgr.shape[:2]} ({foreground} px foreground) and "
               f"2 overlays (each the JPEG of the blend of its mask) in "
               f"{predict_s:.1f} s with the process start", flush=True)
     return {"K1": launches, "K1_by_route": by_route,
-            "device_batches": len(batches), "latency": latency,
+            "device_batches": want // 7, "latency": latency,
+            "formats_K1": format_launches,
             "b1_batch_by_thread": batch,
             "decode": decode, "service_build_s": build_s,
             "predict_entry_s": predict_s, "card": card}

@@ -18,7 +18,11 @@
 //     above or below as context, the top and bottom rows replicated as
 //     jdmainct.c does), and box replication when a component is at most
 //     two samples wide, as jinit_upsampler picks it;
-//   - jdcolor.c's YCbCr -> RGB tables in 16-bit fixed point.
+//   - jdcolor.c's YCbCr -> RGB tables in 16-bit fixed point, an RGB-coded
+//     file (Adobe transform 0, or 'R' 'G' 'B' components and no JFIF) read
+//     as is (gray by rgb_gray_convert), and for 4 components libjpeg's
+//     CMYK output (YCCK through ycck_cmyk_convert) turned to BGR or gray
+//     as OpenCV's icvCvt_CMYK2BGR / icvCvt_CMYK2Gray turn it.
 // A progressive file is absorbed whole before the output pass, as libjpeg
 // does it outside buffered-image mode; when its scans leave every
 // coefficient exact, libjpeg's block smoothing has nothing to do and the
@@ -27,8 +31,8 @@
 // refused.
 // Only integer arithmetic is used for JPEG, so its bits do not depend on
 // the compiler.
-// Lossless, arithmetic-coded and hierarchical frames, 12-bit samples, CMYK
-// and RGB-coded JPEGs, and corrupt or truncated streams are refused with a
+// Lossless, arithmetic-coded and hierarchical frames, 12-bit samples, and
+// corrupt or truncated streams are refused with a
 // message that names the marker or the fault. The APP1 orientation tag is
 // applied as OpenCV's ApplyExifOrientation applies it.
 //
@@ -44,6 +48,10 @@
 // The inflate is RFC 1950/1951 (stored, fixed and dynamic blocks,
 // Adler-32), written here because the zlib header is not known to exist on
 // every host.
+//
+// decode() sniffs the format from its magic bytes and hands WebP, BMP and
+// PNM / PAM to webp_decode.cc and bmp_pnm_decode.cc; anything else is
+// refused with a message naming what the first bytes say it is.
 //
 // The encoder writes baseline JPEG (SOF0) as libjpeg's defaults do: a JFIF
 // APP0, the Annex K tables scaled by IJG quality, 4:2:0 for color, the
@@ -239,14 +247,14 @@ struct Jpeg {
   int scans = 0;
   // Progressive: the Al of each coefficient's (zigzag index) last scan,
   // -1 before its first, as libjpeg's coef_bits.
-  int coef_bits[3][64];
+  int coef_bits[4][64];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   long long app1_off = -1, app1_len = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
 
   Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {
     for (auto& bits : coef_bits) {
@@ -294,9 +302,12 @@ struct Jpeg {
     if ((long long)width * height > kMaxPixels) {
       fail("SOF: %d x %d pixels is too large", width, height);
     }
-    if (ncomp != 1 && ncomp != 3) {
-      fail("SOF%d: %d components (CMYK or other) are not supported",
-           marker - 0xC0, ncomp);
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
+      fail("SOF%d: %d components are not supported", marker - 0xC0, ncomp);
+    }
+    if (stop - pos != 3 * (size_t)ncomp) {
+      fail("SOF%d: %d components do not fit the segment length", marker - 0xC0,
+           ncomp);
     }
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
@@ -458,7 +469,7 @@ struct Jpeg {
   // block (jdhuff.c).
   void sequential_scan(Component* const* sc, int ns, const int* td,
                        const int* ta, BitReader& br) {
-    int pred[3] = {0, 0, 0};
+    int pred[4] = {0, 0, 0, 0};
     each_block(sc, ns, br, [&](int i, int16_t* blk) {
       int s = br.decode(dc[td[i]]);
       if (s > 15) fail("SOS: corrupt entropy-coded data (DC size %d)", s);
@@ -479,7 +490,7 @@ struct Jpeg {
           break;
         }
       }
-    }, [&] { pred[0] = pred[1] = pred[2] = 0; });
+    }, [&] { pred[0] = pred[1] = pred[2] = pred[3] = 0; });
   }
 
   // One scan of a progressive frame, as jdphuff.c decodes it: DC first
@@ -490,10 +501,10 @@ struct Jpeg {
   void progressive_scan(Component* const* sc, int ns, const int* td,
                         const int* ta, int ss, int se, int ah, int al,
                         BitReader& br) {
-    int pred[3] = {0, 0, 0};
+    int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     const int p1 = 1 << al, m1 = -p1;
-    auto reset = [&] { pred[0] = pred[1] = pred[2] = eobrun = 0; };
+    auto reset = [&] { pred[0] = pred[1] = pred[2] = pred[3] = eobrun = 0; };
     // a run of 2^r plus r more bits of end-of-band, this block included
     auto eob_run = [&](int r) { return (1 << r) + br.bits(r); };
     auto refine = [&](int16_t& c) {  // a correction bit of a nonzero c
@@ -575,8 +586,8 @@ struct Jpeg {
     if (!frame) fail("SOS: no frame header before the scan");
     int ns = u8();
     if (ns < 1 || ns > ncomp) fail("SOS: bad component count %d", ns);
-    Component* sc[3];
-    int td[3], ta[3];
+    Component* sc[4];
+    int td[4], ta[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       sc[i] = nullptr;
@@ -589,6 +600,11 @@ struct Jpeg {
     }
     int ss = u8(), se = u8(), ahal = u8(), ah = ahal >> 4, al = ahal & 15;
     if (pos != stop) fail("SOS: bad segment length");
+    if (ns > 1) {  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) fail("SOS: %d blocks in an MCU (libjpeg allows 10)", blocks);
+    }
     // the tables the scan decodes with
     const bool dc_coded = !progressive || (ss == 0 && ah == 0);
     const bool ac_coded = !progressive || ss > 0;
@@ -901,6 +917,27 @@ std::vector<uint8_t> upsample(const Jpeg& j, const Component& c) {
   return out;
 }
 
+// jdcolor.c build_ycc_rgb_table, SCALEBITS 16
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int32_t one_half = 1 << 15;
+    for (int i = 0; i < 256; ++i) {
+      int32_t x = i - 128;
+      cr_r[i] = (int)((91881 * x + one_half) >> 16);   // FIX(1.40200)
+      cb_b[i] = (int)((116130 * x + one_half) >> 16);  // FIX(1.77200)
+      cr_g[i] = -46802 * x;                            // -FIX(0.71414)
+      cb_g[i] = -22554 * x + one_half;                 // -FIX(0.34414)
+    }
+  }
+};
+
+inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// The output pass: libjpeg's colour conversion to what OpenCV asks of it
+// (JCS_EXT_BGR or JCS_GRAYSCALE; JCS_CMYK for 4 components, then OpenCV's
+// icvCvt_CMYK2BGR / icvCvt_CMYK2Gray).
 void decode_jpeg(Jpeg& j, cris::Image& img, int channels) {
   j.parse();
   int W = j.width, H = j.height;
@@ -910,39 +947,69 @@ void decode_jpeg(Jpeg& j, cris::Image& img, int channels) {
   img.channels = channels;
   img.pixels.resize(n * channels);
   uint8_t* out = img.pixels.data();
-  if (j.ncomp == 3 && !j.ycbcr()) fail("APP14: RGB-coded JPEG is not supported");
-  int used = channels == 1 ? 1 : j.ncomp;
+  const bool rgb = j.ncomp == 3 && !j.ycbcr();
+  const bool cmyk = j.ncomp == 4;
+  // gray from YCbCr is the Y plane alone; every other case needs them all
+  const int used = channels == 1 && !rgb && !cmyk ? 1 : j.ncomp;
   for (int i = 0; i < used; ++i) inverse_dct(j.comp[i]);
   std::vector<uint8_t> y = upsample(j, j.comp[0]);
-  if (channels == 1) {
-    std::memcpy(out, y.data(), n);
+  if (used == 1) {
+    if (channels == 1) {
+      std::memcpy(out, y.data(), n);
+    } else {
+      for (size_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+    }
     return;
   }
-  if (j.ncomp == 1) {
-    for (size_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+  std::vector<uint8_t> c1 = upsample(j, j.comp[1]), c2 = upsample(j, j.comp[2]);
+  static const YccTables t;
+  if (rgb) {
+    for (size_t i = 0; i < n; ++i) {
+      const int r = y[i], g = c1[i], b = c2[i];
+      if (channels == 1) {  // rgb_gray_convert: FIX(0.299), FIX(0.587), FIX(0.114)
+        out[i] = (uint8_t)((19595 * r + 38470 * g + 7471 * b + (1 << 15)) >> 16);
+      } else {
+        out[3 * i] = (uint8_t)b;
+        out[3 * i + 1] = (uint8_t)g;
+        out[3 * i + 2] = (uint8_t)r;
+      }
+    }
     return;
   }
-  std::vector<uint8_t> cb = upsample(j, j.comp[1]), cr = upsample(j, j.comp[2]);
-  // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
-  int cr_r[256], cb_b[256];
-  int32_t cr_g[256], cb_g[256];
-  const int32_t one_half = 1 << 15;
-  for (int i = 0; i < 256; ++i) {
-    int32_t x = i - 128;
-    cr_r[i] = (int)((91881 * x + one_half) >> 16);   // FIX(1.40200)
-    cb_b[i] = (int)((116130 * x + one_half) >> 16);  // FIX(1.77200)
-    cr_g[i] = -46802 * x;                            // -FIX(0.71414)
-    cb_g[i] = -22554 * x + one_half;                 // -FIX(0.34414)
+  if (!cmyk) {
+    for (size_t i = 0; i < n; ++i) {
+      int yy = y[i], b = c1[i], r = c2[i];
+      out[3 * i + 2] = clamp255(yy + t.cr_r[r]);
+      out[3 * i + 1] = clamp255(yy + (int)((t.cb_g[b] + t.cr_g[r]) >> 16));
+      out[3 * i + 0] = clamp255(yy + t.cb_b[b]);
+    }
+    return;
   }
-  auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+  std::vector<uint8_t> k = upsample(j, j.comp[3]);
+  // Adobe transform 0: CMYK as stored; no Adobe marker: CMYK; any other
+  // transform: YCCK, turned to CMYK by ycck_cmyk_convert
+  const bool ycck = j.adobe && j.adobe_transform != 0;
   for (size_t i = 0; i < n; ++i) {
-    int yy = y[i], b = cb[i], r = cr[i];
-    out[3 * i + 2] = clamp(yy + cr_r[r]);
-    out[3 * i + 1] = clamp(yy + (int)((cb_g[b] + cr_g[r]) >> 16));
-    out[3 * i + 0] = clamp(yy + cb_b[b]);
+    int c = y[i], m = c1[i], ye = c2[i];
+    const int kk = k[i];
+    if (ycck) {
+      const int yy = y[i], cb = c1[i], cr = c2[i];
+      c = clamp255(255 - (yy + t.cr_r[cr]));
+      m = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+      ye = clamp255(255 - (yy + t.cb_b[cb]));
+    }
+    c = kk - ((255 - c) * kk >> 8);
+    m = kk - ((255 - m) * kk >> 8);
+    ye = kk - ((255 - ye) * kk >> 8);
+    if (channels == 1) {  // OpenCV's 14-bit weights, c as red
+      out[i] = (uint8_t)((ye * 1868 + m * 9617 + c * 4899 + (1 << 13)) >> 14);
+    } else {
+      out[3 * i] = (uint8_t)ye;
+      out[3 * i + 1] = (uint8_t)m;
+      out[3 * i + 2] = (uint8_t)c;
+    }
   }
 }
-
 
 // ----------------------------------------------------------------- EXIF
 
@@ -956,6 +1023,10 @@ inline uint32_t get32(const uint8_t* p, bool le) {
             : ((uint32_t)p[0] << 24 | (uint32_t)p[1] << 16 |
                (uint32_t)p[2] << 8 | p[3]);
 }
+
+}  // namespace
+
+namespace cris {
 
 // The orientation tag (0x0112) of a TIFF-structured EXIF block, read as
 // OpenCV's EXIF reader reads it: IFD0's entries; 1 when there is none or
@@ -983,15 +1054,9 @@ int exif_orientation_tiff(const uint8_t* t, size_t len) {
   return 1;
 }
 
-// The orientation of an APP1 payload: its TIFF header 6 bytes in (after
-// "Exif\0\0").
-int exif_orientation(const uint8_t* payload, size_t len) {
-  return len < 6 ? 1 : exif_orientation_tiff(payload + 6, len - 6);
-}
-
 // OpenCV's ApplyExifOrientation: flips for 2-4, a transpose then the flips
 // of 1-4 for 5-8, nothing for 1 or an unknown value.
-void apply_orientation(cris::Image& img, int orientation) {
+void apply_orientation(Image& img, int orientation) {
   if (orientation < 2 || orientation > 8) return;
   const bool transpose = orientation >= 5;
   const int o = transpose ? orientation - 4 : orientation;
@@ -1011,6 +1076,19 @@ void apply_orientation(cris::Image& img, int orientation) {
   img.pixels.swap(out);
   img.height = oh;
   img.width = ow;
+}
+
+}  // namespace cris
+
+namespace {
+
+using cris::apply_orientation;
+using cris::exif_orientation_tiff;
+
+// The orientation of an APP1 payload: its TIFF header 6 bytes in (after
+// "Exif\0\0").
+int exif_orientation(const uint8_t* payload, size_t len) {
+  return len < 6 ? 1 : exif_orientation_tiff(payload + 6, len - 6);
 }
 
 cris::Image decode_jpeg_image(const uint8_t* data, size_t size, bool gray) {
@@ -1958,6 +2036,35 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* data, size_t size,
   return std::move(out.v);
 }
 
+// What the first bytes of an unknown format say, for the refusal.
+std::string magic_name(const uint8_t* data, size_t size) {
+  struct Known {
+    const char* magic;
+    size_t len;
+    const char* name;
+  };
+  static const Known kKnown[] = {
+      {"II*\0", 4, "TIFF"}, {"MM\0*", 4, "TIFF"}, {"GIF87a", 6, "GIF"},
+      {"GIF89a", 6, "GIF"}, {"\x59\xA6\x6A\x95", 4, "Sun raster"},
+      {"#?RADIANCE", 10, "Radiance HDR"}, {"#?RGBE", 6, "Radiance HDR"},
+      {"PF\n", 3, "PFM"}, {"Pf\n", 3, "PFM"},
+      {"\0\0\0\x0CjP  \r\n\x87\n", 12, "JPEG 2000"},
+      {"\xFF\x4F\xFF\x51", 4, "JPEG 2000 codestream"},
+      {"RIFF", 4, "RIFF (not WebP)"}};
+  if (size >= 12 && std::memcmp(data + 4, "ftyp", 4) == 0 &&
+      (std::memcmp(data + 8, "avif", 4) == 0 || std::memcmp(data + 8, "avis", 4) == 0)) {
+    return "AVIF";
+  }
+  for (const Known& k : kKnown) {
+    if (size >= k.len && std::memcmp(data, k.magic, k.len) == 0) return k.name;
+  }
+  char hex[3 * 8 + 1] = {};
+  for (size_t i = 0; i < size && i < 8; ++i) {
+    std::snprintf(hex + 3 * i, 4, i ? " %02X" : "%02X", data[i]);
+  }
+  return size ? std::string("bytes ") + hex : std::string("nothing (empty data)");
+}
+
 Image decode(const uint8_t* data, size_t size, bool gray) {
   if (size >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
     return decode_jpeg_image(data, size, gray);
@@ -1966,16 +2073,27 @@ Image decode(const uint8_t* data, size_t size, bool gray) {
       std::memcmp(data, kPngMagic, sizeof kPngMagic) == 0) {
     return decode_png(data, size, gray);
   }
-  fail("not a JPEG or PNG image");
+  if (size >= 12 && std::memcmp(data, "RIFF", 4) == 0 &&
+      std::memcmp(data + 8, "WEBP", 4) == 0) {
+    return decode_webp(data, size, gray);
+  }
+  if (size >= 2 && data[0] == 'B' && data[1] == 'M') return decode_bmp(data, size, gray);
+  // OpenCV's PxM and PAM signatures: 'P', '1'-'7', a blank
+  if (size >= 3 && data[0] == 'P' && data[1] >= '1' && data[1] <= '7' &&
+      (data[2] == ' ' || (data[2] >= '\t' && data[2] <= '\r'))) {
+    return decode_pnm(data, size, gray);
+  }
+  throw Fault("not a JPEG or PNG image, nor WebP, BMP or PNM / PAM: the data "
+              "starts with " + magic_name(data, size));
 }
 
 }  // namespace cris
 
 extern "C" {
 
-// Decode JPEG or PNG bytes as cv2.imdecode does (gray 0: IMREAD_COLOR, BGR;
-// gray 1: IMREAD_GRAYSCALE) into *out (height x width x channels, freed
-// with cris_free). Returns 0, or 1 with a message in err.
+// Decode image bytes (any format decode() takes) as cv2.imdecode does (gray 0:
+// IMREAD_COLOR, BGR; gray 1: IMREAD_GRAYSCALE) into *out (height x width x
+// channels, freed with cris_free). Returns 0, or 1 with a message in err.
 int cris_decode(const uint8_t* data, long long n, int gray, uint8_t** out,
                 int* height, int* width, int* channels, char* err,
                 int errlen) {

@@ -24,11 +24,24 @@ struct Image {
   std::vector<uint8_t> pixels;
 };
 
-// cv2.imdecode of JPEG or PNG bytes: with gray false as IMREAD_COLOR (BGR,
-// a gray image replicated to 3 channels), with gray true as
-// IMREAD_GRAYSCALE (1 channel). A JPEG's EXIF orientation is applied.
+// cv2.imdecode of JPEG, PNG, WebP, BMP or PNM / PAM bytes: with gray false
+// as IMREAD_COLOR (BGR, a gray image replicated to 3 channels), with gray
+// true as IMREAD_GRAYSCALE (1 channel). An EXIF orientation (JPEG, PNG,
+// WebP) is applied.
 // Throws Fault (or std::bad_alloc).
 Image decode(const uint8_t* data, size_t size, bool gray);
+
+// The decoders of the other formats, called by decode once the magic bytes
+// name them: webp_decode.cc (RIFF WebP, lossy and lossless) and
+// bmp_pnm_decode.cc (BMP, PNM P1-P6, PAM P7). Same contract as decode.
+Image decode_webp(const uint8_t* data, size_t size, bool gray);
+Image decode_bmp(const uint8_t* data, size_t size, bool gray);
+Image decode_pnm(const uint8_t* data, size_t size, bool gray);
+
+// The orientation tag of a TIFF-structured EXIF block (1 when absent), and
+// OpenCV's ApplyExifOrientation of it.
+int exif_orientation_tiff(const uint8_t* tiff, size_t len);
+void apply_orientation(Image& img, int orientation);
 
 // A zlib stream (RFC 1950 around RFC 1951 deflate data), inflated; the
 // Adler-32 checksum is checked, bytes after it are ignored. reserve is the

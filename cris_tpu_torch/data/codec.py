@@ -2,36 +2,57 @@
 
 ``decode_image`` and ``decode_mask`` are the port's ``cv2.imdecode`` with
 ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``: the format is sniffed from the
-bytes, an EXIF orientation (a JPEG's APP1, a PNG's eXIf) is applied as
-OpenCV applies it, and the output is BGR (gray replicated to 3 channels)
-or gray uint8. ``csrc/image_codec.cc`` decodes along the libraries behind
-OpenCV (libjpeg-turbo, libpng), so the pixels equal ``cv2.imdecode``'s
-bit for bit.
+magic bytes, an EXIF orientation (a JPEG's APP1, a PNG's eXIf, a WebP's
+EXIF chunk) is applied as OpenCV applies it, and the output is BGR (gray
+replicated to 3 channels) or gray uint8. The C++ decoders follow the
+libraries and readers behind OpenCV 5.0 (libjpeg-turbo, libpng, libwebp,
+OpenCV's own BMP / PxM / PAM readers), so the pixels equal
+``cv2.imdecode``'s bit for bit.
 
-- JPEG: Huffman-coded baseline, extended-sequential and progressive frames
-  (SOF0, SOF1, SOF2), 8-bit, 1 or 3 components, 4:4:4, 4:2:2 and 4:2:0
-  sampling, restart intervals. Refused with a ``ValueError`` naming the
-  marker or the fault: arithmetic-coded, lossless, hierarchical and 12-bit
-  frames, CMYK / YCCK and RGB-coded files, a progressive file whose scans
+- JPEG (``csrc/image_codec.cc``): Huffman-coded baseline,
+  extended-sequential and progressive frames (SOF0, SOF1, SOF2), 8-bit,
+  1, 3 or 4 components, 4:4:4, 4:2:2 and 4:2:0 sampling, restart
+  intervals; YCbCr, RGB-coded (Adobe transform 0, or components 'R', 'G',
+  'B' with no JFIF marker) and CMYK / YCCK (Adobe transform 0 / 2) as
+  libjpeg converts them, then OpenCV's CMYK to BGR and to gray. Refused
+  with a ``ValueError`` naming the marker or the fault: arithmetic-coded,
+  lossless, hierarchical and 12-bit frames, a progressive file whose scans
   leave low-frequency coefficients approximate (libjpeg would smooth
   them), corrupt or truncated data.
-- PNG: colour types 0, 2, 3, 4 and 6 at every bit depth PNG allows (1, 2,
-  4, 8, 16), with or without Adam7 interlace, with or without tRNS: the
-  palette expanded, low depths scaled to 8 bits, 16 bits cut to their high
-  byte, alpha dropped without compositing, colour turned to gray under
-  ``IMREAD_GRAYSCALE`` by libpng's fixed-point weights (and its gamma
-  tables when gAMA or sRGB gives a file gamma). The chunk walk drops an
-  ancillary chunk with a bad CRC and refuses a critical one, or a critical
-  chunk other than IHDR, PLTE, IDAT and IEND. Refused: 16-bit colour read
-  as gray under a file gamma.
-- Any other format (WebP, BMP, TIFF, JPEG 2000, AVIF, ...) is refused.
+- PNG (``csrc/image_codec.cc``): colour types 0, 2, 3, 4 and 6 at every
+  bit depth PNG allows (1, 2, 4, 8, 16), with or without Adam7 interlace,
+  with or without tRNS: the palette expanded, low depths scaled to 8
+  bits, 16 bits cut to their high byte, alpha dropped without
+  compositing, colour turned to gray under ``IMREAD_GRAYSCALE`` by
+  libpng's fixed-point weights (and its gamma tables when gAMA or sRGB
+  gives a file gamma). The chunk walk drops an ancillary chunk with a bad
+  CRC and refuses a critical one, or a critical chunk other than IHDR,
+  PLTE, IDAT and IEND. Refused: 16-bit colour read as gray under a file
+  gamma.
+- WebP (``csrc/webp_decode.cc``): simple and extended (VP8X) RIFF files,
+  lossy (VP8 key frames, libwebp's fancy upsampling and fixed-point
+  YUV to BGR) and lossless (VP8L), with or without alpha (ALPH checked,
+  then dropped); gray is OpenCV 5's ``cvtColor(BGR2GRAY)``. Refused:
+  animated files, files under OpenCV's 32-byte minimum.
+- BMP (``csrc/bmp_pnm_decode.cc``): OS/2 and Windows V3 / V4 / V5
+  headers; 1, 4, 8 bits with a palette, RLE4 and RLE8 (OpenCV's reading
+  of their escapes), 16 (555 / 565), 24 and 32 bits; bottom-up and
+  top-down. Gray as OpenCV's reader computes it.
+- PNM / PAM (``csrc/bmp_pnm_decode.cc``): P1-P6 ASCII and binary, any
+  maxval (ASCII samples scaled by 255 / maxval, binary ones taken as they
+  are, 16-bit ones cut to the high byte); P7 of depth 1 or 3 (GRAYSCALE,
+  BLACKANDWHITE, RGB or no TUPLTYPE), OpenCV's bit mode at maxval 1.
+  Refused: the *_ALPHA tuple types (OpenCV's reader leaves pixels
+  unwritten).
+- Any other format (TIFF, GIF, Sun raster, PFM, HDR, JPEG 2000, AVIF, ...)
+  is refused with a message naming what the first bytes say it is.
 
 ``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
 with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
 
-The C++ library (``csrc/image_codec.cc``, the batched data plane,
-``csrc/batch_preprocess.cc``, see ``data/native.py``, and the polygon
-fill, ``csrc/rasterize.cc``, see ``data/refer.py``) is built with the
+The C++ library (the decoders above and the JPEG encoder, the batched
+data plane, ``csrc/batch_preprocess.cc``, see ``data/native.py``, and the
+polygon fill, ``csrc/rasterize.cc``, see ``data/refer.py``) is built with the
 host's C++ compiler at first use (a few seconds, no torch headers) under
 ``build/cris_tpu_torch/`` at the repository root, named by a digest of its
 sources and flags, and loaded with ``ctypes``. It is written under a
@@ -58,7 +79,8 @@ import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "image_codec.cc", CSRC / "batch_preprocess.cc",
+SOURCES = (CSRC / "image_codec.cc", CSRC / "webp_decode.cc",
+           CSRC / "bmp_pnm_decode.cc", CSRC / "batch_preprocess.cc",
            CSRC / "rasterize.cc")
 HEADERS = (CSRC / "image_codec.h",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
@@ -166,13 +188,13 @@ def _decode(buf, gray: bool) -> np.ndarray:
 
 
 def decode_image(buf) -> np.ndarray:
-    """JPEG or PNG bytes -> (H, W, 3) BGR uint8, as ``cv2.imdecode`` with
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM) -> (H, W, 3) BGR uint8, as ``cv2.imdecode`` with
     ``IMREAD_COLOR`` gives it."""
     return _decode(buf, gray=False)
 
 
 def decode_mask(buf) -> np.ndarray:
-    """JPEG or PNG bytes -> (H, W) uint8, as ``cv2.imdecode`` with
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM) -> (H, W) uint8, as ``cv2.imdecode`` with
     ``IMREAD_GRAYSCALE`` gives it."""
     return _decode(buf, gray=True)
 

@@ -9,9 +9,9 @@ image + referring expressions -> masks, and overlays.
 Loads ``best_model.pth`` under ``--checkpoint`` (default
 ``{output_folder}/{exp_name}``) into the unfolded eval model, as the JAX
 tool does; without it, it warns and uses the random init of the config's
-``manual_seed``. The image is read by ``data.codec.decode_image`` (JPEG or
-PNG, ``cv2.imread``'s bits); one that cannot be read exits non-zero with
-the decoder's message. All ``--sent`` run as one device batch at the
+``manual_seed``. The image is read by ``data.codec.decode_image`` (JPEG,
+PNG, WebP, BMP, PNM / PAM, ``cv2.imread``'s bits); one that cannot be read
+exits non-zero with the decoder's message. All ``--sent`` run as one device batch at the
 config's precision. Each mask (0 / 255) is written as a PNG to ``--out``,
 or with several sentences to ``{base}_{i}{ext}``; with ``--overlay`` the
 mask's pixels are blended halfway to red, as the JAX tool blends them, and

@@ -20,7 +20,7 @@ resident across requests (counterpart of cris_tpu/serving.py).
                          "foreground_px", "mask_png_b64" | "rle"}]}
 
   Uploads are decoded by ``data.codec.decode_image`` (``cv2.imdecode``'s
-  bits for JPEG and PNG). A request without an image or a sentence, an
+  bits for JPEG, PNG, WebP, BMP and PNM / PAM). A request without an image or a sentence, an
   unreadable ``image_path``, or bytes the decoder refuses get 400 (the
   decoder's message in ``error``); any other failure 500; another route
   404. Requests are handled on threads of their own; their device

@@ -396,12 +396,17 @@ def _refused():
                                        "ABCD: critical chunk"),
     }
     img = _photo(16, 16, seed=1)
-    for ext, words in ((".webp", "not a JPEG or PNG"),
-                       (".bmp", "not a JPEG or PNG"),
-                       (".tiff", "not a JPEG or PNG")):
-        ok, buf = cv2.imencode(ext, img)
-        if ok:
-            cases[ext[1:]] = (buf.tobytes(), words)
+    # WebP and BMP decode now; what stays refused of them keeps these names
+    frames = [Image.fromarray(img), Image.fromarray(img[::-1])]
+    webp = io.BytesIO()
+    frames[0].save(webp, "WEBP", save_all=True, append_images=frames[1:],
+                   lossless=True)
+    cases["webp"] = (webp.getvalue(), "animated WebP")
+    bmp = bytearray(cv2.imencode(".bmp", img)[1].tobytes())
+    bmp[30] = 4  # BI_JPEG compression
+    cases["bmp"] = (bytes(bmp), "compression 4 is not supported")
+    cases["tiff"] = (cv2.imencode(".tiff", img)[1].tobytes(),
+                     "not a JPEG or PNG.*TIFF")
     return cases
 
 
@@ -448,5 +453,5 @@ def test_committed_fixtures_match_their_digests(name):
         for img in (got, _cv2(buf, flag)):
             assert list(img.shape) == want["shape"]
             assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
-    assert ref.shape[:2] == ((480, 640) if name.endswith(".jpg")
-                             else (120, 160))
+    width, height = map(int, name.rsplit("_", 1)[1].split(".")[0].split("x"))
+    assert ref.shape[:2] == (height, width)  # the size the name gives

@@ -4,7 +4,9 @@ JAX package's.
 - ``encode_rle`` equals ``cris_tpu.serving.encode_rle``.
 - ``tests/test_serving.py::test_http_endpoints``'s requests against the
   port's server, and the formats the port's decoder added for it: a
-  progressive JPEG and RGBA / palette / Adam7 PNGs answered with 200,
+  progressive JPEG, RGBA / palette / Adam7 PNGs, lossy and lossless WebP,
+  BMP, PPM and a CMYK JPEG answered with 200 (and decoded as the JAX
+  package's record decode decodes them),
   undecodable bytes with 400 (as the JAX server answers them), an unknown
   route with 404.
 - The port's server and the JAX server on the same tiny f32 weights (one
@@ -48,6 +50,7 @@ from cris_tpu_torch import predict as port_predict
 from cris_tpu_torch import serve as port_serve
 from cris_tpu_torch.checkpoint import from_jax
 from cris_tpu_torch.data import decode_image
+from cris_tpu_torch.data import decode_mask as port_decode_mask
 from cris_tpu_torch.serving import PredictService, encode_rle, make_server
 from cris_tpu_torch.utils import load_cfg_from_cfg_file
 
@@ -170,11 +173,23 @@ def _images():
     progressive = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1]
     palette = io.BytesIO()
     Image.fromarray(bgr[:, :, ::-1]).quantize(64).save(palette, "PNG")
+    lossless = io.BytesIO()
+    Image.fromarray(bgra[:, :, [2, 1, 0, 3]]).save(lossless, "WEBP",
+                                                  lossless=True)
+    cmyk = io.BytesIO()
+    Image.fromarray(np.dstack([bgr, bgr[:, :, 1] // 3]), "CMYK").save(
+        cmyk, "JPEG", quality=90)
     return {"baseline jpeg": make_record(1, seed=3)["img"],
             "progressive jpeg": progressive.tobytes(),
             "rgba png": cv2.imencode(".png", bgra)[1].tobytes(),
             "palette png": palette.getvalue(),
-            "adam7 png": _png(bgr[:, :, ::-1], 2, 8, interlace=True)}
+            "adam7 png": _png(bgr[:, :, ::-1], 2, 8, interlace=True),
+            "lossy webp": cv2.imencode(".webp", bgr,
+                                       [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
+            "lossless webp": lossless.getvalue(),
+            "bmp": cv2.imencode(".bmp", bgr)[1].tobytes(),
+            "ppm": cv2.imencode(".ppm", bgr)[1].tobytes(),
+            "cmyk jpeg": cmyk.getvalue()}
 
 
 def test_http_endpoints(port):
@@ -227,6 +242,18 @@ def test_the_front_answers_each_format(port, kind):
     for r, w in zip(out["results"], want):
         got = decode_uncompressed_rle(r["rle"]["counts"], *r["rle"]["size"])
         np.testing.assert_array_equal(got.astype(bool), w["mask"])
+
+
+@pytest.mark.parametrize("kind", sorted(_images()))
+def test_decode_equals_the_jax_records_decode(kind):
+    """decode_image / decode_mask against cris_tpu.data.transforms' decode
+    of the same record bytes (cv2.imdecode under both flags)."""
+    from cris_tpu.data.transforms import decode_image as jax_decode_image
+    from cris_tpu.data.transforms import decode_mask as jax_decode_mask
+
+    buf = _images()[kind]
+    np.testing.assert_array_equal(decode_image(buf), jax_decode_image(buf))
+    np.testing.assert_array_equal(port_decode_mask(buf), jax_decode_mask(buf))
 
 
 def test_image_path_requests(port, jax_url, tmp_path):
@@ -301,7 +328,8 @@ def test_concurrent_requests_share_one_device_thread(port, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["baseline jpeg", "progressive jpeg",
-                                  "rgba png"])
+                                  "rgba png", "lossy webp", "lossless webp",
+                                  "bmp", "ppm", "cmyk jpeg"])
 @pytest.mark.parametrize("fmt", ["rle", "png_b64"])
 def test_port_server_matches_the_jax_server(port, jax_url, kind, fmt):
     """One request to both servers on the same weights: the same reply

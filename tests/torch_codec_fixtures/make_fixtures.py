@@ -4,16 +4,24 @@ the card's machine (which has no OpenCV), and the digests OpenCV gives.
     python3 tests/torch_codec_fixtures/make_fixtures.py
 
 Needs cv2, PIL and pytest (the Adam7 writer of
-``tests/test_torch_codec_formats.py``). Writes beside this script:
+``tests/test_torch_codec_formats.py`` and the BMP writers of
+``tests/test_torch_codec_webp_bmp_pnm.py``). Writes beside this script:
 
 - ``progressive_420_640x480.jpg``: a 640 x 480 progressive 4:2:0 JPEG
   (libjpeg's default script, quality 90) of the bench's first test image
   (``data/host_bench.draw_test_images(1, seed=0)``), and
   ``baseline_420_640x480.jpg``, the same image as baseline JPEG;
+- ``lossy_640x480.webp``: the same image as lossy WebP (cv2, quality 90),
+  the baseline JPEG's timing twin;
 - ``rgba_160x120.png`` (8-bit RGBA), ``palette_160x120.png`` (4-bit
   palette with a tRNS), ``gray16_160x120.png`` (16-bit gray) and
   ``adam7_rgb_160x120.png`` (8-bit RGB, Adam7), from the same image at
-  half size;
+  a quarter size;
+- ``lossless_rgba_160x120.webp`` (VP8L with alpha, PIL),
+  ``rle8_160x120.bmp`` (64-colour palette, RLE8, written by the BMP writer
+  of ``tests/test_torch_codec_webp_bmp_pnm.py``), ``rgb_160x120.ppm``
+  (binary P6, cv2) and ``cmyk_160x120.jpg`` (Adobe CMYK, PIL), from the
+  same small image;
 - ``digests.json``: for each file, the shape and the sha256 of the pixel
   bytes of ``cv2.imdecode`` under IMREAD_COLOR ("color") and
   IMREAD_GRAYSCALE ("gray"), with the OpenCV version.
@@ -39,6 +47,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 from cris_tpu_torch.data.host_bench import draw_test_images  # noqa: E402
 from test_torch_codec_formats import _png  # noqa: E402  (writes Adam7)
+from test_torch_codec_webp_bmp_pnm import _bmp, _rle8  # noqa: E402
 
 
 def digest(img: np.ndarray) -> dict:
@@ -56,6 +65,8 @@ def files() -> dict:
             cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE,
             progressive, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+    out["lossy_640x480.webp"] = cv2.imencode(
+        ".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes()
     small = cv2.resize(bgr, (160, 120), interpolation=cv2.INTER_AREA)
     yy, xx = np.mgrid[0:120, 0:160]
     alpha = ((xx + yy) % 256).astype(np.uint8)
@@ -72,6 +83,22 @@ def files() -> dict:
     out["gray16_160x120.png"] = cv2.imencode(".png", gray16)[1].tobytes()
     out["adam7_rgb_160x120.png"] = _png(small[:, :, ::-1], 2, 8,
                                         interlace=True)
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([small[:, :, ::-1], alpha])).save(
+        buf, "WEBP", lossless=True)
+    out["lossless_rgba_160x120.webp"] = buf.getvalue()
+    quant = rgb.quantize(64)
+    colours = np.array(quant.getpalette()[:3 * 64]).reshape(64, 3)
+    indices = np.array(quant)[::-1]  # bottom-up rows
+    out["rle8_160x120.bmp"] = _bmp(160, 120, 8, _rle8(indices),
+                                   [tuple(int(v) for v in c[::-1]) for c in colours],
+                                   compression=1)
+    out["rgb_160x120.ppm"] = cv2.imencode(".ppm", small)[1].tobytes()
+    k = (255 - cv2.cvtColor(small, cv2.COLOR_BGR2GRAY)) // 2
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([255 - small[:, :, ::-1], k]), "CMYK").save(
+        buf, "JPEG", quality=90)
+    out["cmyk_160x120.jpg"] = buf.getvalue()
     return out
 
 
