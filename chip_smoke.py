@@ -204,11 +204,13 @@ Phases (any failure raises, and the script exits non-zero):
 17. the HTTP front and the predict entry (cris_tpu_torch.serving,
    python3 -m cris_tpu_torch.predict): (a) the committed fixtures of
    tests/torch_codec_fixtures (a 640 x 480 progressive 4:2:0 JPEG, its
-   baseline and lossy WebP twins, RGBA, 4-bit palette, 16-bit gray and
-   Adam7 PNGs, a lossless WebP with alpha, an RLE8 BMP, a PPM and a CMYK
-   JPEG) decode to the sha256 digests OpenCV gave (digests.json) under
-   both flags, and their host decode times (the WebP and the progressive
-   JPEG beside the baseline twin); (b)
+   baseline, lossy WebP and LZW TIFF twins, RGBA, 4-bit palette, 16-bit
+   gray and Adam7 PNGs, a lossless WebP with alpha, an RLE8 BMP, a PPM, a
+   CMYK JPEG, a tiled planar TIFF, a Deflate palette TIFF, an RGBA TIFF
+   with unassociated alpha, an interlaced GIF with a transparent index
+   and a Sun raster with a colormap) decode to the sha256 digests OpenCV
+   gave (digests.json) under both flags, and their host decode times (the
+   WebP, the progressive JPEG and the TIFF beside the baseline twin); (b)
    make_server over an R50 PredictService (416 px, bf16, BN folded,
    seed-0 weights read from best_model.pth) on a thread: /healthz, the
    progressive JPEG with 3 sentences (rle), the RGBA PNG with 1 (png_b64),
@@ -216,7 +218,8 @@ Phases (any failure raises, and the script exits non-zero):
    requests of 1 and 20 of 4 sentences (median and p90 on the host clock);
    K1 7 times a device batch, all on the tensor cores; then, in a count
    window of their own, the lossy WebP, the BMP, the PPM and the CMYK JPEG
-   (K1 7 a device batch again); every mask equal to
+   (K1 7 a device batch again), and in another the LZW TIFF, the GIF and
+   the Sun raster (the same); every mask equal to
    PredictService.predict on the decoded image; predict alone on this
    thread and from a fresh thread a call, and a b1 device batch on one
    thread against a fresh thread a call; (c) python3 -m
@@ -3601,15 +3604,16 @@ def _on_fresh_thread(fn, *args):
 
 def phase_front(k1):
     """17: (a) the committed decoder fixtures to OpenCV's digests, and
-    their host decode times (the lossy WebP and progressive JPEG against
-    the baseline twin); (b)
+    their host decode times (the lossy WebP, the progressive JPEG and the
+    LZW TIFF against the baseline twin); (b)
     the HTTP front (serving.make_server) over an R50 PredictService at 416
     px, bf16, BN folded, seed-0 weights from best_model.pth: /healthz, a
     progressive JPEG with 3 sentences (rle), an RGBA PNG with 1 (png_b64),
     an image_path request, {} and undecodable bytes (400 each), then 20
     requests of 1 and 20 of 4 sentences timed on the host clock; K1 7 times
     a device batch, all on the tensor cores; a lossy WebP, an RLE8 BMP, a
-    PPM and a CMYK JPEG in a count window of their own; every mask equal
+    PPM and a CMYK JPEG in a count window of their own, then an LZW TIFF, a
+    GIF and a Sun raster in another; every mask equal
     to PredictService.predict on the decoded pixels; (c) python3 -m
     cris_tpu_torch.predict on the card with the same weights on the lossy
     WebP fixture: its masks and overlays."""
@@ -3641,7 +3645,8 @@ def phase_front(k1):
     # the 640 x 480 image as progressive and baseline JPEG and lossy WebP,
     # then every 160 x 120 fixture, 20 decodes each in turns
     timed = {"progressive": prog, "baseline": base,
-             "lossy webp": data["lossy_640x480.webp"]}
+             "lossy webp": data["lossy_640x480.webp"],
+             "lzw tiff": data["lzw_pred2_640x480.tif"]}
     timed.update({n: b for n, b in data.items() if "160x120" in n})
     decode_ms = {k: [] for k in timed}
     for _ in range(20):
@@ -3657,8 +3662,12 @@ def phase_front(k1):
           f"JPEG twin {decode['baseline']['median_ms']:.3f} ms (p90 "
           f"{decode['baseline']['p90_ms']:.3f}), progressive JPEG "
           f"{decode['progressive']['median_ms']:.3f} ms (p90 "
-          f"{decode['progressive']['p90_ms']:.3f}); {os.cpu_count()} host "
-          f"cores; card {card}", flush=True)
+          f"{decode['progressive']['p90_ms']:.3f}), RGB LZW TIFF with "
+          f"Predictor 2 {decode['lzw tiff']['median_ms']:.3f} ms (p90 "
+          f"{decode['lzw tiff']['p90_ms']:.3f}; "
+          f"{decode['lzw tiff']['median_ms'] / decode['baseline']['median_ms']:.2f}"
+          f"x the baseline JPEG); {os.cpu_count()} host cores; card {card}",
+          flush=True)
     small = ", ".join(f"{n} {decode[n]['median_ms']:.3f} ms"
                       for n in sorted(timed) if "160x120" in n)
     print(f"17(a) host decode of the 160x120 fixtures, median of 20: "
@@ -3710,7 +3719,7 @@ def phase_front(k1):
                 status, replies[name] = _http(url, req)
                 assert status == 200, (name, replies[name])
             for bad in ({}, {"image_b64": base64.b64encode(
-                    b"GIF89a, not a JPEG or PNG").decode(), "sentence": "x"}):
+                    b"not an image of any kind").decode(), "sentence": "x"}):
                 status, reply = _http(url, bad)
                 assert status == 400, (bad, status, reply)
             print(f"17(b) the front: /healthz, 3 requests answered 200, {{}} "
@@ -3748,9 +3757,35 @@ def phase_front(k1):
               f"{len(batches)} device batches ({launches / len(batches):.0f} "
               f"a batch), by route {by_route}", flush=True)
 
-        # the formats the decoder took up after the JPEG / PNG slice, in a
-        # count window of their own (the front's K1 total above stays the
-        # one the kernels line has carried)
+        def count_window(reqs, want_batches):
+            """Post reqs to a fresh front in a K1 count window of their own
+            (the front's K1 total above stays the one the kernels line has
+            carried); each reply has the decoded image's size, and each
+            device batch launches K1 7 times on the tensor cores."""
+            del batches[:]
+            service.evaluator.predict_probs = counted
+            server = make_server(service, "127.0.0.1", 0)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                reset_counts(k1)
+                for name, req in reqs:
+                    status, replies[name] = _http(url, req)
+                    assert status == 200, (name, replies[name])
+                    assert (replies[name]["height"], replies[name]["width"]) == \
+                        codec.decode_image(base64.b64decode(req["image_b64"])).shape[:2]
+                n, routes = k1.launches, dict(k1.launches_by_route)
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join()
+            assert batches == want_batches, batches
+            assert n == 7 * len(batches), n
+            assert routes == {"tensor_cores": n, "scalar": 0}, routes
+            return n, routes
+
+        # the formats the decoder took up after the JPEG / PNG slice
         formats = [
             ("lossy webp", {"image_b64": b64["lossy_640x480.webp"],
                             "sentences": ["the man on the left", "a red car"],
@@ -3762,35 +3797,32 @@ def phase_front(k1):
             ("cmyk jpeg", {"image_b64": b64["cmyk_160x120.jpg"],
                            "sentences": ["a", "the b"], "format": "rle"}),
         ]
-        del batches[:]
-        service.evaluator.predict_probs = counted
-        server = make_server(service, "127.0.0.1", 0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        url = f"http://127.0.0.1:{server.server_address[1]}"
-        try:
-            reset_counts(k1)
-            for name, req in formats:
-                status, replies[name] = _http(url, req)
-                assert status == 200, (name, replies[name])
-                assert (replies[name]["height"], replies[name]["width"]) == \
-                    codec.decode_image(base64.b64decode(req["image_b64"])).shape[:2]
-            format_launches = k1.launches
-            format_by_route = dict(k1.launches_by_route)
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join()
-        assert batches == [2, 1, 1, 2], batches
-        assert format_launches == 7 * len(batches), format_launches
-        assert format_by_route == {"tensor_cores": 7 * len(batches),
-                                   "scalar": 0}, format_by_route
+        format_launches, format_by_route = count_window(formats, [2, 1, 1, 2])
         print(f"17(b) the front answers a lossy WebP (640x480), an RLE8 BMP, "
               f"a PPM and a CMYK JPEG (160x120) with 200 and their sizes; K1 "
               f"{format_launches} launches in {len(batches)} device batches "
               f"({format_launches / len(batches):.0f} a batch), by route "
               f"{format_by_route}", flush=True)
         requests += formats
+
+        # TIFF, GIF and Sun raster, in a count window of their own
+        rasters = [
+            ("lzw tiff", {"image_b64": b64["lzw_pred2_640x480.tif"],
+                          "sentences": ["the man on the left", "a red car"],
+                          "format": "rle"}),
+            ("gif", {"image_b64": b64["interlaced_transparent_160x120.gif"],
+                     "sentence": "the bright patch", "format": "png_b64"}),
+            ("sun raster", {"image_b64": b64["colormap_160x120.ras"],
+                            "sentence": "the sky", "format": "rle"}),
+        ]
+        raster_launches, raster_by_route = count_window(rasters, [2, 1, 1])
+        print(f"17(b) the front answers an LZW TIFF (640x480), an interlaced "
+              f"GIF with a transparent index and a Sun raster with a "
+              f"colormap (160x120) with 200 and their sizes; K1 "
+              f"{raster_launches} launches in {len(batches)} device batches "
+              f"({raster_launches / len(batches):.0f} a batch), by route "
+              f"{raster_by_route}", flush=True)
+        requests += rasters
 
         # every mask equals PredictService.predict on the decoded pixels
         service.evaluator.predict_probs = inner
@@ -3889,6 +3921,7 @@ def phase_front(k1):
     return {"K1": launches, "K1_by_route": by_route,
             "device_batches": want // 7, "latency": latency,
             "formats_K1": format_launches,
+            "tiff_gif_ras_K1": raster_launches,
             "b1_batch_by_thread": batch,
             "decode": decode, "service_build_s": build_s,
             "predict_entry_s": predict_s, "card": card}

@@ -40,14 +40,8 @@ using cris::Fault;
 using cris::Image;
 using cris::fail;
 
-// OpenCV's CV_IO_MAX_IMAGE_PIXELS and CV_IO_MAX_IMAGE_WIDTH / HEIGHT.
-constexpr long long kMaxPixels = 1 << 30;
-constexpr int kMaxSide = 1 << 20;
-
-// icvCvt_BGR2Gray_8u_C3C1R: SCALE 14, cR 4899, cG 9617, cB 1868.
-inline uint8_t gray14(int b, int g, int r) {
-  return (uint8_t)((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
-}
+using cris::check_size;
+using cris::gray14;
 
 struct Stream {
   const uint8_t* p;
@@ -78,13 +72,6 @@ struct Stream {
   }
   void skip(size_t k) { bytes(k); }
 };
-
-void check_size(const char* what, long long w, long long h) {
-  if (w <= 0 || h <= 0 || w > kMaxSide || h > kMaxSide || w * h > kMaxPixels) {
-    throw Fault(std::string(what) + ": image size " + std::to_string(w) + " x " +
-                std::to_string(h) + " is not supported");
-  }
-}
 
 Image make(int h, int w, bool gray) {
   Image img;

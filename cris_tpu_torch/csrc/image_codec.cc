@@ -49,9 +49,13 @@
 // Adler-32), written here because the zlib header is not known to exist on
 // every host.
 //
-// decode() sniffs the format from its magic bytes and hands WebP, BMP and
-// PNM / PAM to webp_decode.cc and bmp_pnm_decode.cc; anything else is
-// refused with a message naming what the first bytes say it is.
+// decode() sniffs the format from its magic bytes and hands WebP, BMP,
+// PNM / PAM, TIFF, GIF and Sun raster to webp_decode.cc,
+// bmp_pnm_decode.cc, tiff_decode.cc and gif_ras_decode.cc; BigTIFF and
+// anything else are refused with a message naming what the first bytes
+// say it is. decode_jpeg_samples serves tiff_decode.cc's JPEG-compressed
+// strips and tiles (a JPEGTables stream, then each strip's own) with
+// libjpeg's YCbCr to RGB or the components as coded, as libtiff asks.
 //
 // The encoder writes baseline JPEG (SOF0) as libjpeg's defaults do: a JFIF
 // APP0, the Annex K tables scaled by IJG quality, 4:2:0 for color, the
@@ -81,6 +85,17 @@ void fail(const char* fmt, int a, int b) {
   throw Fault(buf);
 }
 
+// OpenCV's CV_IO_MAX_IMAGE_WIDTH / HEIGHT and CV_IO_MAX_IMAGE_PIXELS.
+constexpr long long kMaxSide = 1 << 20;
+constexpr long long kMaxPixels = 1ll << 30;
+
+void check_size(const char* what, long long w, long long h) {
+  if (w <= 0 || h <= 0 || w > kMaxSide || h > kMaxSide || w * h > kMaxPixels) {
+    throw Fault(std::string(what) + ": image size " + std::to_string(w) + " x " +
+                std::to_string(h) + " is not supported");
+  }
+}
+
 }  // namespace cris
 
 namespace {
@@ -102,8 +117,7 @@ const int kZigzag[64] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
 constexpr int kLookBits = 9;
-// OpenCV's CV_IO_MAX_IMAGE_PIXELS: larger images are refused.
-constexpr long long kMaxPixels = 1 << 30;
+using cris::kMaxPixels;
 
 struct Huffman {
   bool defined = false;
@@ -1102,6 +1116,72 @@ cris::Image decode_jpeg_image(const uint8_t* data, size_t size, bool gray) {
   return img;
 }
 
+}  // namespace
+
+namespace cris {
+
+JpegSamples decode_jpeg_samples(const uint8_t* tables, size_t tables_len,
+                                const uint8_t* data, size_t size,
+                                bool ycbcr_to_rgb) {
+  if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail("JPEG: no SOI marker");
+  // the tables stream without its EOI, then the stream without its SOI:
+  // one stream whose tables precede the frame, as libjpeg keeps them
+  std::vector<uint8_t> joined;
+  if (tables_len >= 4) {
+    if (tables[0] != 0xFF || tables[1] != 0xD8) fail("JPEGTables: no SOI marker");
+    size_t keep = tables_len;
+    if (tables[keep - 2] == 0xFF && tables[keep - 1] == 0xD9) keep -= 2;
+    joined.assign(tables, tables + keep);
+    joined.insert(joined.end(), data + 2, data + size);
+    data = joined.data();
+    size = joined.size();
+  }
+  Jpeg j(data, size);
+  j.parse();
+  JpegSamples out;
+  out.width = j.width;
+  out.height = j.height;
+  out.components = j.ncomp;
+  out.h0 = j.comp[0].h;
+  out.v0 = j.comp[0].v;
+  const bool convert = ycbcr_to_rgb && j.ncomp == 3;
+  if (!convert) {
+    for (int i = 0; i < j.ncomp; ++i) {
+      if (j.comp[i].h != 1 || j.comp[i].v != 1) {
+        fail("JPEG: subsampled components (%dx%d) without a YCbCr to RGB conversion",
+             j.comp[i].h, j.comp[i].v);
+      }
+    }
+  }
+  const size_t n = (size_t)j.width * j.height;
+  const int nc = j.ncomp;
+  out.samples.resize(n * nc);
+  std::vector<uint8_t> planes[4];
+  for (int i = 0; i < nc; ++i) {
+    inverse_dct(j.comp[i]);
+    planes[i] = upsample(j, j.comp[i]);
+  }
+  uint8_t* o = out.samples.data();
+  if (!convert) {
+    for (size_t k = 0; k < n; ++k) {
+      for (int i = 0; i < nc; ++i) *o++ = planes[i][k];
+    }
+    return out;
+  }
+  static const YccTables t;
+  for (size_t k = 0; k < n; ++k, o += 3) {
+    const int yy = planes[0][k], b = planes[1][k], r = planes[2][k];
+    o[0] = clamp255(yy + t.cr_r[r]);
+    o[1] = clamp255(yy + (int)((t.cb_g[b] + t.cr_g[r]) >> 16));
+    o[2] = clamp255(yy + t.cb_b[b]);
+  }
+  return out;
+}
+
+}  // namespace cris
+
+namespace {
+
 // -------------------------------------------------------------- inflate
 
 // LSB-first bits of a deflate stream. Past the end, zero bits are fed;
@@ -2044,8 +2124,7 @@ std::string magic_name(const uint8_t* data, size_t size) {
     const char* name;
   };
   static const Known kKnown[] = {
-      {"II*\0", 4, "TIFF"}, {"MM\0*", 4, "TIFF"}, {"GIF87a", 6, "GIF"},
-      {"GIF89a", 6, "GIF"}, {"\x59\xA6\x6A\x95", 4, "Sun raster"},
+      {"II+\0", 4, "BigTIFF"}, {"MM\0+", 4, "BigTIFF"},
       {"#?RADIANCE", 10, "Radiance HDR"}, {"#?RGBE", 6, "Radiance HDR"},
       {"PF\n", 3, "PFM"}, {"Pf\n", 3, "PFM"},
       {"\0\0\0\x0CjP  \r\n\x87\n", 12, "JPEG 2000"},
@@ -2078,13 +2157,23 @@ Image decode(const uint8_t* data, size_t size, bool gray) {
     return decode_webp(data, size, gray);
   }
   if (size >= 2 && data[0] == 'B' && data[1] == 'M') return decode_bmp(data, size, gray);
+  if (size >= 4 && (std::memcmp(data, "II*\0", 4) == 0 || std::memcmp(data, "MM\0*", 4) == 0)) {
+    return decode_tiff(data, size, gray);
+  }
+  if (size >= 6 && (std::memcmp(data, "GIF87a", 6) == 0 || std::memcmp(data, "GIF89a", 6) == 0)) {
+    return decode_gif(data, size, gray);
+  }
+  if (size >= 4 && std::memcmp(data, "\x59\xA6\x6A\x95", 4) == 0) return decode_ras(data, size, gray);
   // OpenCV's PxM and PAM signatures: 'P', '1'-'7', a blank
   if (size >= 3 && data[0] == 'P' && data[1] >= '1' && data[1] <= '7' &&
       (data[2] == ' ' || (data[2] >= '\t' && data[2] <= '\r'))) {
     return decode_pnm(data, size, gray);
   }
-  throw Fault("not a JPEG or PNG image, nor WebP, BMP or PNM / PAM: the data "
-              "starts with " + magic_name(data, size));
+  if (magic_name(data, size) == "BigTIFF") {
+    throw Fault("TIFF: BigTIFF (64-bit offsets) is not supported (OpenCV reads it)");
+  }
+  throw Fault("not a JPEG or PNG image, nor WebP, BMP, PNM / PAM, TIFF, GIF or Sun "
+              "raster: the data starts with " + magic_name(data, size));
 }
 
 }  // namespace cris

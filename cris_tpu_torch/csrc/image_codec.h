@@ -24,19 +24,52 @@ struct Image {
   std::vector<uint8_t> pixels;
 };
 
-// cv2.imdecode of JPEG, PNG, WebP, BMP or PNM / PAM bytes: with gray false
-// as IMREAD_COLOR (BGR, a gray image replicated to 3 channels), with gray
-// true as IMREAD_GRAYSCALE (1 channel). An EXIF orientation (JPEG, PNG,
-// WebP) is applied.
+// cv2.imdecode of JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF or Sun raster
+// bytes: with gray false as IMREAD_COLOR (BGR, a gray image replicated to
+// 3 channels), with gray true as IMREAD_GRAYSCALE (1 channel). An
+// orientation (JPEG, PNG and WebP EXIF, the TIFF tag) is applied.
 // Throws Fault (or std::bad_alloc).
 Image decode(const uint8_t* data, size_t size, bool gray);
 
 // The decoders of the other formats, called by decode once the magic bytes
-// name them: webp_decode.cc (RIFF WebP, lossy and lossless) and
+// name them: webp_decode.cc (RIFF WebP, lossy and lossless),
 // bmp_pnm_decode.cc (BMP, PNM P1-P6, PAM P7). Same contract as decode.
 Image decode_webp(const uint8_t* data, size_t size, bool gray);
 Image decode_bmp(const uint8_t* data, size_t size, bool gray);
 Image decode_pnm(const uint8_t* data, size_t size, bool gray);
+// tiff_decode.cc (TIFF, as OpenCV reads it through libtiff's RGBA
+// interface) and gif_ras_decode.cc (GIF, Sun raster).
+Image decode_tiff(const uint8_t* data, size_t size, bool gray);
+Image decode_gif(const uint8_t* data, size_t size, bool gray);
+Image decode_ras(const uint8_t* data, size_t size, bool gray);
+
+// A JPEG stream's samples as libtiff's JPEG codec gets them from libjpeg
+// (compression 7 in a TIFF): the tables of a JPEGTables stream (tables_len
+// 0 for none), then the strip's or tile's own stream. With ycbcr_to_rgb
+// three components are YCbCr, upsampled and turned to RGB as libjpeg does
+// (JPEGCOLORMODE_RGB); else the components are given as coded, which needs
+// every sampling factor 1. Samples are interleaved, width x height x
+// components; h0 and v0 are the first component's sampling factors.
+struct JpegSamples {
+  int width = 0, height = 0, components = 0, h0 = 1, v0 = 1;
+  std::vector<uint8_t> samples;
+};
+JpegSamples decode_jpeg_samples(const uint8_t* tables, size_t tables_len,
+                                const uint8_t* data, size_t size,
+                                bool ycbcr_to_rgb);
+
+// OpenCV's CV_IO_MAX_IMAGE_WIDTH / HEIGHT and CV_IO_MAX_IMAGE_PIXELS: a
+// Fault naming `what` unless 0 < w, h <= 2^20 and w * h <= 2^30.
+void check_size(const char* what, long long w, long long h);
+
+// BGR to gray as OpenCV's readers do it (icvCvt_BGR2Gray, 14-bit weights)
+// and as cvtColor(COLOR_BGR2GRAY) does (15-bit weights).
+inline uint8_t gray14(int b, int g, int r) {
+  return (uint8_t)((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
+}
+inline uint8_t gray15(int b, int g, int r) {
+  return (uint8_t)((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15);
+}
 
 // The orientation tag of a TIFF-structured EXIF block (1 when absent), and
 // OpenCV's ApplyExifOrientation of it.

@@ -2,12 +2,13 @@
 
 ``decode_image`` and ``decode_mask`` are the port's ``cv2.imdecode`` with
 ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``: the format is sniffed from the
-magic bytes, an EXIF orientation (a JPEG's APP1, a PNG's eXIf, a WebP's
-EXIF chunk) is applied as OpenCV applies it, and the output is BGR (gray
-replicated to 3 channels) or gray uint8. The C++ decoders follow the
-libraries and readers behind OpenCV 5.0 (libjpeg-turbo, libpng, libwebp,
-OpenCV's own BMP / PxM / PAM readers), so the pixels equal
-``cv2.imdecode``'s bit for bit.
+magic bytes, an orientation (a JPEG's APP1, a PNG's eXIf, a WebP's EXIF
+chunk, a TIFF's Orientation tag) is applied as OpenCV applies it, and
+the output is BGR (gray replicated to 3 channels) or gray uint8. The C++
+decoders follow the libraries and readers behind OpenCV 5.0
+(libjpeg-turbo, libpng, libwebp, libtiff 4.7.1, OpenCV's own BMP / PxM /
+PAM / GIF / Sun raster readers), so the pixels equal ``cv2.imdecode``'s
+bit for bit.
 
 - JPEG (``csrc/image_codec.cc``): Huffman-coded baseline,
   extended-sequential and progressive frames (SOF0, SOF1, SOF2), 8-bit,
@@ -44,8 +45,34 @@ OpenCV's own BMP / PxM / PAM readers), so the pixels equal
   BLACKANDWHITE, RGB or no TUPLTYPE), OpenCV's bit mode at maxval 1.
   Refused: the *_ALPHA tuple types (OpenCV's reader leaves pixels
   unwritten).
-- Any other format (TIFF, GIF, Sun raster, PFM, HDR, JPEG 2000, AVIF, ...)
-  is refused with a message naming what the first bytes say it is.
+- TIFF (``csrc/tiff_decode.cc``): the first IFD, II or MM, strips or
+  tiles, planar configuration 1 or 2; gray (1, 8, 16 bits), RGB (8, 16)
+  with extra samples, palette (1, 4, 8), CMYK, YCbCr (libtiff's own
+  conversion, or libjpeg's under JPEG); none, LZW, Deflate, PackBits and
+  JPEG compression, Predictor 2, FillOrder 2; the Orientation tag. All
+  read as OpenCV reads them through libtiff's RGBA interface: 16-bit
+  gray by its high byte but 16-bit colour rounded by (v + 128) / 257,
+  unassociated alpha premultiplied, a colormap with no entry of 256 or
+  more taken as 8-bit, the putters' skew on a clipped tile (gray at 16
+  bits or with alpha, and 1- and 4-bit tiles), Predictor 2 on
+  subsampled YCbCr over libtiff's row size, each tile mirrored in place
+  for orientations 2, 3, 6, 7; gray by the 14-bit weights. Refused,
+  naming the kind: CCITT, old-style JPEG, LogLuv, JBIG, LZMA, ZSTD,
+  WebP-in-TIFF, BigTIFF, 32-bit or float samples, 2-bit and 4-bit gray,
+  2- and 16-bit palettes, CIELab, and what cv2 decodes only into
+  a part-filled or zero image (truncated or corrupt LZW).
+- GIF (``csrc/gif_ras_decode.cc``): the first image on a canvas of the
+  logical screen filled with the background index's colour (which the
+  transparent pixels keep), local / global / OpenCV's default colour
+  table, interlace, LZW as OpenCV's reader reads it (codes past the end
+  code, past the image); gray by ``cvtColor``'s 15-bit weights. Refused:
+  files cut anywhere, streams OpenCV refuses.
+- Sun raster (``csrc/gif_ras_decode.cc``): RT_OLD and RT_STANDARD at 1,
+  8, 24 and 32 bits, with or without a colormap (without one,
+  IMREAD_GRAYSCALE of 1 and 8 bits is all zero in OpenCV 5.0). Refused:
+  RLE and RT_FORMAT_RGB, which OpenCV 5.0's header check refuses.
+- Any other format (PFM, HDR, JPEG 2000, AVIF, ...) is refused with a
+  message naming what the first bytes say it is.
 
 ``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
 with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
@@ -80,7 +107,8 @@ import numpy as np
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "image_codec.cc", CSRC / "webp_decode.cc",
-           CSRC / "bmp_pnm_decode.cc", CSRC / "batch_preprocess.cc",
+           CSRC / "bmp_pnm_decode.cc", CSRC / "tiff_decode.cc",
+           CSRC / "gif_ras_decode.cc", CSRC / "batch_preprocess.cc",
            CSRC / "rasterize.cc")
 HEADERS = (CSRC / "image_codec.h",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
@@ -188,14 +216,16 @@ def _decode(buf, gray: bool) -> np.ndarray:
 
 
 def decode_image(buf) -> np.ndarray:
-    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM) -> (H, W, 3) BGR uint8, as ``cv2.imdecode`` with
-    ``IMREAD_COLOR`` gives it."""
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster)
+    -> (H, W, 3) BGR uint8, as ``cv2.imdecode`` with ``IMREAD_COLOR``
+    gives it."""
     return _decode(buf, gray=False)
 
 
 def decode_mask(buf) -> np.ndarray:
-    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM) -> (H, W) uint8, as ``cv2.imdecode`` with
-    ``IMREAD_GRAYSCALE`` gives it."""
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster)
+    -> (H, W) uint8, as ``cv2.imdecode`` with ``IMREAD_GRAYSCALE`` gives
+    it."""
     return _decode(buf, gray=True)
 
 

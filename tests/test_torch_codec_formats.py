@@ -405,8 +405,9 @@ def _refused():
     bmp = bytearray(cv2.imencode(".bmp", img)[1].tobytes())
     bmp[30] = 4  # BI_JPEG compression
     cases["bmp"] = (bytes(bmp), "compression 4 is not supported")
-    cases["tiff"] = (cv2.imencode(".tiff", img)[1].tobytes(),
-                     "not a JPEG or PNG.*TIFF")
+    # TIFF decodes now; what stays refused of it keeps this name
+    cases["tiff"] = (cv2.imencode(".tiff", img.astype(np.float32))[1].tobytes(),
+                     "TIFF: 32-bit samples")
     return cases
 
 

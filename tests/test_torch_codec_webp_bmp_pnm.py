@@ -558,9 +558,10 @@ def _animated_webp():
 
 REFUSED = {
     "animated webp": (_animated_webp, "animated WebP"),
-    "tiff": (lambda: _encode(".tiff", _photo(16, 16, seed=1)),
-             "not a JPEG or PNG.*TIFF"),
-    "gif": (lambda: _pil(_photo(16, 16, seed=1), "GIF"), "not a JPEG or PNG.*GIF"),
+    # TIFF and GIF decode now; what stays refused of them keeps these names
+    "tiff": (lambda: _encode(".tiff", _photo(16, 16, seed=1).astype(np.float32)),
+             "TIFF: 32-bit samples"),
+    "gif": (lambda: _pil(_photo(16, 16, seed=1), "GIF")[:-1], "GIF: unexpected end of data"),
     "pam RGB_ALPHA": (lambda: _pam(np.zeros((4, 4, 4), np.uint8), 255, "RGB_ALPHA"),
                       "TUPLTYPE RGB_ALPHA is not supported"),
     "pam GRAYSCALE_ALPHA": (lambda: _pam(np.zeros((4, 4, 2), np.uint8), 255,

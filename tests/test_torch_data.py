@@ -164,7 +164,7 @@ def _unsupported():
         "truncated": (base[: scan + 10], "premature end"),
         "no eoi": (base[:-2], "EOI"),
         "bad huffman table": (base.replace(b"\xff\xc4", b"\xff\xfe", 1), "Huffman table"),
-        "not an image": (b"GIF89a" + base, "not a JPEG or PNG"),
+        "not an image": (b"NOTIMG" + base, "not a JPEG or PNG"),
     }
 
 

@@ -272,7 +272,7 @@ def test_image_path_requests(port, jax_url, tmp_path):
 @pytest.mark.parametrize("payload", ["undecodable", "empty", "no sentence"])
 def test_bad_requests_answer_400_as_jax_does(port, jax_url, payload):
     _, url = port
-    req = {"undecodable": {"image_b64": _b64(b"GIF89a not an image"),
+    req = {"undecodable": {"image_b64": _b64(b"not an image at all"),
                            "sentence": "x"},
            "empty": {},
            "no sentence": {"image_b64": _b64(_images()["baseline jpeg"])},

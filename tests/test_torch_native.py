@@ -200,7 +200,7 @@ def test_failures_raise_naming_the_sample(case, tmp_path):
     and the decoder's message, the same message as the per-sample path."""
     good = _jpeg(_photo(20, 30, seed=1), 90)
     mask = encode_png(_mask_png(20, 30, 1))
-    bad = {"bad bytes": (b"GIF89a....", "not a JPEG or PNG"),
+    bad = {"bad bytes": (b"NOTIMAGE..", "not a JPEG or PNG"),
            "progressive": (_progressive(), "SOF2: progressive"),
            "corrupt png": (_corrupt_png(), "PNG IDAT: CRC mismatch")}[case]
     # the image of sample 2, or for a mask format the mask of sample 1

@@ -4,8 +4,10 @@ the card's machine (which has no OpenCV), and the digests OpenCV gives.
     python3 tests/torch_codec_fixtures/make_fixtures.py
 
 Needs cv2, PIL and pytest (the Adam7 writer of
-``tests/test_torch_codec_formats.py`` and the BMP writers of
-``tests/test_torch_codec_webp_bmp_pnm.py``). Writes beside this script:
+``tests/test_torch_codec_formats.py``, the BMP writers of
+``tests/test_torch_codec_webp_bmp_pnm.py`` and the TIFF and Sun raster
+writers of ``tests/test_torch_codec_tiff_gif_ras.py``). Writes beside this
+script:
 
 - ``progressive_420_640x480.jpg``: a 640 x 480 progressive 4:2:0 JPEG
   (libjpeg's default script, quality 90) of the bench's first test image
@@ -22,6 +24,17 @@ Needs cv2, PIL and pytest (the Adam7 writer of
   of ``tests/test_torch_codec_webp_bmp_pnm.py``), ``rgb_160x120.ppm``
   (binary P6, cv2) and ``cmyk_160x120.jpg`` (Adobe CMYK, PIL), from the
   same small image;
+- ``lzw_pred2_640x480.tif``: the 640 x 480 image as RGB TIFF, LZW with
+  Predictor 2 (cv2), the baseline JPEG's timing twin;
+  ``tiled_planar_160x120.tif`` (RGB in 16 x 16 LZW tiles, planar
+  configuration 2, written by the TIFF writer of
+  ``tests/test_torch_codec_tiff_gif_ras.py``), ``palette_deflate_160x120.tif``
+  (8-bit palette, Deflate, PIL), ``rgba_unassoc_160x120.tif`` (RGBA with
+  unassociated alpha below 255, LZW, PIL),
+  ``interlaced_transparent_160x120.gif`` (interlaced, a transparent
+  index, PIL) and ``colormap_160x120.ras`` (8-bit Sun raster with an
+  RMT_EQUAL_RGB colormap; OpenCV 5.0 refuses RLE-coded Sun rasters), from
+  the same small image;
 - ``digests.json``: for each file, the shape and the sha256 of the pixel
   bytes of ``cv2.imdecode`` under IMREAD_COLOR ("color") and
   IMREAD_GRAYSCALE ("gray"), with the OpenCV version.
@@ -48,6 +61,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 from cris_tpu_torch.data.host_bench import draw_test_images  # noqa: E402
 from test_torch_codec_formats import _png  # noqa: E402  (writes Adam7)
 from test_torch_codec_webp_bmp_pnm import _bmp, _rle8  # noqa: E402
+from test_torch_codec_tiff_gif_ras import _ras, _tiff_image  # noqa: E402
 
 
 def digest(img: np.ndarray) -> dict:
@@ -99,6 +113,25 @@ def files() -> dict:
     Image.fromarray(np.dstack([255 - small[:, :, ::-1], k]), "CMYK").save(
         buf, "JPEG", quality=90)
     out["cmyk_160x120.jpg"] = buf.getvalue()
+    out["lzw_pred2_640x480.tif"] = cv2.imencode(".tiff", bgr, [
+        cv2.IMWRITE_TIFF_COMPRESSION, 5, cv2.IMWRITE_TIFF_PREDICTOR, 2])[1].tobytes()
+    out["tiled_planar_160x120.tif"] = _tiff_image(small[:, :, ::-1], 2, 8, 5,
+                                                  tile=(16, 16), planar=2)
+    buf = io.BytesIO()
+    rgb.quantize(200).save(buf, "TIFF", compression="tiff_deflate")
+    out["palette_deflate_160x120.tif"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(np.dstack([small[:, :, ::-1], alpha])).save(
+        buf, "TIFF", compression="tiff_lzw")
+    out["rgba_unassoc_160x120.tif"] = buf.getvalue()
+    buf = io.BytesIO()
+    rgb.quantize(128).save(buf, "GIF", interlace=True, transparency=3)
+    out["interlaced_transparent_160x120.gif"] = buf.getvalue()
+    colours = np.array(quant.getpalette()[:3 * 64]).reshape(64, 3).astype(np.uint8)
+    rows = np.zeros((120, 160), np.uint8)  # 160 is even: no row padding
+    rows[:] = np.array(quant)
+    out["colormap_160x120.ras"] = _ras(160, 120, 8, rows.tobytes(),
+                                       cmap=colours.T.tobytes())
     return out
 
 
