@@ -207,10 +207,13 @@ Phases (any failure raises, and the script exits non-zero):
    baseline, lossy WebP and LZW TIFF twins, RGBA, 4-bit palette, 16-bit
    gray and Adam7 PNGs, a lossless WebP with alpha, an RLE8 BMP, a PPM, a
    CMYK JPEG, a tiled planar TIFF, a Deflate palette TIFF, an RGBA TIFF
-   with unassociated alpha, an interlaced GIF with a transparent index
-   and a Sun raster with a colormap) decode to the sha256 digests OpenCV
-   gave (digests.json) under both flags, and their host decode times (the
-   WebP, the progressive JPEG and the TIFF beside the baseline twin); (b)
+   with unassociated alpha, an interlaced GIF with a transparent index,
+   a Sun raster with a colormap, a 640 x 480 9/7 JPEG 2000, a tiled 5/3
+   J2K codestream, a gray JP2 of three layers, an animated WebP whose
+   first frame lies at an offset, an RLE Radiance HDR and a colour PFM)
+   decode to the sha256 digests OpenCV gave (digests.json) under both
+   flags, and their host decode times (the WebP, the progressive JPEG, the
+   TIFF and the JPEG 2000 beside the baseline twin); (b)
    make_server over an R50 PredictService (416 px, bf16, BN folded,
    seed-0 weights read from best_model.pth) on a thread: /healthz, the
    progressive JPEG with 3 sentences (rle), the RGBA PNG with 1 (png_b64),
@@ -218,8 +221,9 @@ Phases (any failure raises, and the script exits non-zero):
    requests of 1 and 20 of 4 sentences (median and p90 on the host clock);
    K1 7 times a device batch, all on the tensor cores; then, in a count
    window of their own, the lossy WebP, the BMP, the PPM and the CMYK JPEG
-   (K1 7 a device batch again), and in another the LZW TIFF, the GIF and
-   the Sun raster (the same); every mask equal to
+   (K1 7 a device batch again), in another the LZW TIFF, the GIF and
+   the Sun raster, and in a third the JPEG 2000, the animated WebP and
+   the HDR (the same); every mask equal to
    PredictService.predict on the decoded image; predict alone on this
    thread and from a fresh thread a call, and a b1 device batch on one
    thread against a fresh thread a call; (c) python3 -m
@@ -3604,8 +3608,8 @@ def _on_fresh_thread(fn, *args):
 
 def phase_front(k1):
     """17: (a) the committed decoder fixtures to OpenCV's digests, and
-    their host decode times (the lossy WebP, the progressive JPEG and the
-    LZW TIFF against the baseline twin); (b)
+    their host decode times (the lossy WebP, the progressive JPEG, the
+    LZW TIFF and the 9/7 JPEG 2000 against the baseline twin); (b)
     the HTTP front (serving.make_server) over an R50 PredictService at 416
     px, bf16, BN folded, seed-0 weights from best_model.pth: /healthz, a
     progressive JPEG with 3 sentences (rle), an RGBA PNG with 1 (png_b64),
@@ -3613,7 +3617,8 @@ def phase_front(k1):
     requests of 1 and 20 of 4 sentences timed on the host clock; K1 7 times
     a device batch, all on the tensor cores; a lossy WebP, an RLE8 BMP, a
     PPM and a CMYK JPEG in a count window of their own, then an LZW TIFF, a
-    GIF and a Sun raster in another; every mask equal
+    GIF and a Sun raster in another, then a JPEG 2000, an animated WebP
+    and a Radiance HDR in a third; every mask equal
     to PredictService.predict on the decoded pixels; (c) python3 -m
     cris_tpu_torch.predict on the card with the same weights on the lossy
     WebP fixture: its masks and overlays."""
@@ -3646,8 +3651,10 @@ def phase_front(k1):
     # then every 160 x 120 fixture, 20 decodes each in turns
     timed = {"progressive": prog, "baseline": base,
              "lossy webp": data["lossy_640x480.webp"],
-             "lzw tiff": data["lzw_pred2_640x480.tif"]}
-    timed.update({n: b for n, b in data.items() if "160x120" in n})
+             "lzw tiff": data["lzw_pred2_640x480.tif"],
+             "jp2 9/7": data["lossy97_640x480.jp2"]}
+    timed.update({n: b for n, b in data.items()
+                  if "160x120" in n or "80x60" in n})
     decode_ms = {k: [] for k in timed}
     for _ in range(20):
         for kind, buf in timed.items():
@@ -3668,10 +3675,17 @@ def phase_front(k1):
           f"{decode['lzw tiff']['median_ms'] / decode['baseline']['median_ms']:.2f}"
           f"x the baseline JPEG); {os.cpu_count()} host cores; card {card}",
           flush=True)
+    jp2, jpeg = decode["jp2 9/7"], decode["baseline"]
+    print(f"17(a) host decode of the 640x480 JPEG 2000 fixture (9/7, ICT, "
+          f"one layer at 20:1), 20 each in turns: median "
+          f"{jp2['median_ms']:.3f} ms (p90 {jp2['p90_ms']:.3f}), "
+          f"{jp2['median_ms'] / jpeg['median_ms']:.2f}x its baseline JPEG "
+          f"twin's {jpeg['median_ms']:.3f} ms (p90 {jpeg['p90_ms']:.3f}); "
+          f"card {card}", flush=True)
     small = ", ".join(f"{n} {decode[n]['median_ms']:.3f} ms"
-                      for n in sorted(timed) if "160x120" in n)
-    print(f"17(a) host decode of the 160x120 fixtures, median of 20: "
-          f"{small}; card {card}", flush=True)
+                      for n in sorted(timed) if "160x120" in n or "80x60" in n)
+    print(f"17(a) host decode of the 160x120 and 80x60 fixtures, median of "
+          f"20: {small}; card {card}", flush=True)
 
     cfg = cris_r50_refcoco()
     assert (cfg.input_size, cfg.precision) == (416, "bf16")
@@ -3824,6 +3838,27 @@ def phase_front(k1):
               f"{raster_by_route}", flush=True)
         requests += rasters
 
+        # JPEG 2000, an animated WebP's first frame and Radiance HDR, in a
+        # count window of their own
+        stills = [
+            ("jp2", {"image_b64": b64["lossy97_640x480.jp2"],
+                     "sentences": ["the man on the left", "a red car"],
+                     "format": "rle"}),
+            ("animated webp", {"image_b64": b64["anim_offset_160x120.webp"],
+                               "sentence": "the bright patch",
+                               "format": "png_b64"}),
+            ("hdr", {"image_b64": b64["rle_160x120.hdr"],
+                     "sentence": "the sky", "format": "rle"}),
+        ]
+        still_launches, still_by_route = count_window(stills, [2, 1, 1])
+        print(f"17(b) the front answers a 9/7 JPEG 2000 (640x480), an "
+              f"animated WebP's first frame at an offset and an RLE Radiance "
+              f"HDR (160x120) with 200 and their sizes; K1 {still_launches} "
+              f"launches in {len(batches)} device batches "
+              f"({still_launches / len(batches):.0f} a batch), by route "
+              f"{still_by_route}", flush=True)
+        requests += stills
+
         # every mask equals PredictService.predict on the decoded pixels
         service.evaluator.predict_probs = inner
         with open(path, "rb") as f:
@@ -3922,6 +3957,7 @@ def phase_front(k1):
             "device_batches": want // 7, "latency": latency,
             "formats_K1": format_launches,
             "tiff_gif_ras_K1": raster_launches,
+            "jp2_webpanim_hdr_K1": still_launches,
             "b1_batch_by_thread": batch,
             "decode": decode, "service_build_s": build_s,
             "predict_entry_s": predict_s, "card": card}
@@ -5449,6 +5485,17 @@ def main() -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _timed(out, phase: int):
+    """Print a phase's wall time, the kernels' build aside, and keep it in
+    ``out["phase_seconds"]``."""
+    t0 = time.perf_counter()
+    yield
+    seconds = time.perf_counter() - t0
+    out.setdefault("phase_seconds", {})[phase] = round(seconds, 1)
+    print(f"phase {phase}: {seconds:.1f} s", flush=True)
+
+
 def run_phases(wanted, out, cfg, work):
     """Phases 2-21 of ``wanted`` in order, each one's results into ``out``
     (phase 19 makes its checkpoint and packs in ``work``, for phases 20(c)
@@ -5466,82 +5513,104 @@ def run_phases(wanted, out, cfg, work):
     k5, k7 = kernels.fused_bottleneck, kernels.fused_stem_pool
     # each phase reads from `kernels` only what it drives
     if 2 in wanted:
-        out["k1_rows"], out["k1_worst"], out["k1_main"] = phase_kernel(
-            k1, kernels.attention_plain)
+        with _timed(out, 2):
+            out["k1_rows"], out["k1_worst"], out["k1_main"] = phase_kernel(
+                k1, kernels.attention_plain)
     if 3 in wanted:
-        phase_model(cfg, build_segmenter, tokenize)
+        with _timed(out, 3):
+            phase_model(cfg, build_segmenter, tokenize)
     if 4 in wanted:
-        out["serving"], _, out["serving_routes"] = phase_serving(
-            cfg, PredictService, {"K1": (k1, 7)})
+        with _timed(out, 4):
+            out["serving"], _, out["serving_routes"] = phase_serving(
+                cfg, PredictService, {"K1": (k1, 7)})
     if 5 in wanted:
-        out["k1_grad_rows"], out["k1_grad_worst"] = phase_k1_backward(
-            k1, kernels.attention_plain)
+        with _timed(out, 5):
+            out["k1_grad_rows"], out["k1_grad_worst"] = phase_k1_backward(
+                k1, kernels.attention_plain)
     if 6 in wanted:
-        (out["k2_rows"], out["k2_fwd_worst"], out["k2_bwd_worst"],
-         _) = phase_k2(k2, kernels.attention_dropout_forward,
-                       kernels.attention_dropout_backward,
-                       kernels.attention_dropout_plain,
-                       kernels.attention_dropout_backward_plain, k1,
-                       kernels.keep_mask, kernels.keep_bits_packed)
+        with _timed(out, 6):
+            (out["k2_rows"], out["k2_fwd_worst"], out["k2_bwd_worst"],
+             _) = phase_k2(k2, kernels.attention_dropout_forward,
+                           kernels.attention_dropout_backward,
+                           kernels.attention_dropout_plain,
+                           kernels.attention_dropout_backward_plain, k1,
+                           kernels.keep_mask, kernels.keep_bits_packed)
     if 7 in wanted:
-        phase_train_card_vs_cpu(cfg, build_segmenter)
+        with _timed(out, 7):
+            phase_train_card_vs_cpu(cfg, build_segmenter)
     if 8 in wanted:
-        counters = [k2, kernels.attention_dropout_backward, k1]
-        out["train"] = phase_train_bf16(cfg, build_segmenter, engine,
-                                        counters)
+        with _timed(out, 8):
+            counters = [k2, kernels.attention_dropout_backward, k1]
+            out["train"] = phase_train_bf16(cfg, build_segmenter, engine,
+                                            counters)
     if 9 in wanted:
-        out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain,
-                                  kernels.bottleneck_route,
-                                  kernels.bottleneck_plan)
-        out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain,
-                                  kernels.stem_route, kernels.stem_plan)
+        with _timed(out, 9):
+            out["k5_rows"] = phase_k5(k5, kernels.bottleneck_plain,
+                                      kernels.bottleneck_route,
+                                      kernels.bottleneck_plan)
+            out["k7_rows"] = phase_k7(k7, kernels.stem_pool_plain,
+                                      kernels.stem_route, kernels.stem_plan)
     if 10 in wanted:
-        sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm, k5,
-                                   k7, tokenize)
-        out["folded_serving"], _, out["folded_routes"] = phase_serving(
-            cfg, PredictService,
-            {"K1": (k1, 7), "K7": (k7, 1),
-             "K5": (k5, k5_tails_taken(cfg, preset_from_name,
-                                       kernels.bottleneck_takes, K5_TAILS))},
-            state_dict=sd, fused_bottleneck=True, fused_stem=True)
-        out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
+        with _timed(out, 10):
+            sd, _ = phase_folded_model(cfg, build_segmenter, fold_batchnorm,
+                                       k5, k7, tokenize)
+            out["folded_serving"], _, out["folded_routes"] = phase_serving(
+                cfg, PredictService,
+                {"K1": (k1, 7), "K7": (k7, 1),
+                 "K5": (k5, k5_tails_taken(cfg, preset_from_name,
+                                           kernels.bottleneck_takes, K5_TAILS))},
+                state_dict=sd, fused_bottleneck=True, fused_stem=True)
+            out["ab"] = phase_ab(cfg, build_segmenter, fold_batchnorm, sd)
     if 11 in wanted:
-        out["api"] = phase_kernel_api(
-            {n: getattr(kernels, n) for n in kernels.__all__}, cfg,
-            build_segmenter)
+        with _timed(out, 11):
+            out["api"] = phase_kernel_api(
+                {n: getattr(kernels, n) for n in kernels.__all__}, cfg,
+                build_segmenter)
     if 12 in wanted:
-        out["bench"] = phase_bench(
-            bench, build_segmenter, fold_batchnorm, tokenize,
-            preset_from_name, kernels.bottleneck_takes, k1, k2,
-            kernels.attention_dropout_backward, k5, k7)
+        with _timed(out, 12):
+            out["bench"] = phase_bench(
+                bench, build_segmenter, fold_batchnorm, tokenize,
+                preset_from_name, kernels.bottleneck_takes, k1, k2,
+                kernels.attention_dropout_backward, k5, k7)
     if 13 in wanted:
-        out["test_path"] = phase_test_path(k1)
+        with _timed(out, 13):
+            out["test_path"] = phase_test_path(k1)
     if 14 in wanted:
-        out["train_entry"] = phase_train_entry(
-            k1, k2, kernels.attention_dropout_backward)
+        with _timed(out, 14):
+            out["train_entry"] = phase_train_entry(
+                k1, k2, kernels.attention_dropout_backward)
     if 15 in wanted:
-        out["host_plane"] = phase_host_plane(
-            k1, k2, kernels.attention_dropout_backward)
+        with _timed(out, 15):
+            out["host_plane"] = phase_host_plane(
+                k1, k2, kernels.attention_dropout_backward)
     if 16 in wanted:
-        out["dp"] = phase_data_parallel(
-            k2, kernels.attention_dropout_forward,
-            kernels.attention_dropout_plain, kernels.keep_bits_packed)
+        with _timed(out, 16):
+            out["dp"] = phase_data_parallel(
+                k2, kernels.attention_dropout_forward,
+                kernels.attention_dropout_plain, kernels.keep_bits_packed)
     if 17 in wanted:
-        out["front"] = phase_front(k1)
+        with _timed(out, 17):
+            out["front"] = phase_front(k1)
     if 18 in wanted:
-        out["int8"] = phase_int8(k1, kernels.int8_conv, kernels.int8_quantize)
+        with _timed(out, 18):
+            out["int8"] = phase_int8(k1, kernels.int8_conv,
+                                     kernels.int8_quantize)
     if 19 in wanted:
-        out["prep"] = phase_prep(k1, k2, kernels.attention_dropout_backward,
-                                 work)
+        with _timed(out, 19):
+            out["prep"] = phase_prep(k1, k2,
+                                     kernels.attention_dropout_backward, work)
     if 20 in wanted:
-        out["tp"] = phase_tensor_parallel(
-            k2, kernels.attention_dropout_forward,
-            kernels.attention_dropout_plain, kernels.keep_bits_packed,
-            out["dp"]["entry"]["run"] if "dp" in out else None,
-            out.get("prep"))
+        with _timed(out, 20):
+            out["tp"] = phase_tensor_parallel(
+                k2, kernels.attention_dropout_forward,
+                kernels.attention_dropout_plain, kernels.keep_bits_packed,
+                out["dp"]["entry"]["run"] if "dp" in out else None,
+                out.get("prep"))
     if 21 in wanted:
-        out["p21"] = phase_21(k1, kernels.attention_plain, kernels.int8_conv,
-                              kernels.int8_quantize, out["prep"])
+        with _timed(out, 21):
+            out["p21"] = phase_21(k1, kernels.attention_plain,
+                                  kernels.int8_conv, kernels.int8_quantize,
+                                  out["prep"])
 
 
 def summary(out) -> dict:
@@ -5840,7 +5909,8 @@ def summary(out) -> dict:
                                                       "fused")}
             entry["share_of_bound"] = row["share_of_bound"]
         kernels.append(entry)
-    print(json.dumps({"k1_shapes": out["k1_rows"],
+    print(json.dumps({"phase_seconds": out["phase_seconds"],
+                      "k1_shapes": out["k1_rows"],
                       "k1_grad": out["k1_grad_rows"],
                       "k2_shapes": out["k2_rows"],
                       "k5_shapes": out["k5_rows"], "k7": out["k7_rows"],

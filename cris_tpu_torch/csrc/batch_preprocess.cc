@@ -206,6 +206,11 @@ struct Job {
 
 void process(const Job& job, int S, const float lut[3][256]) {
   const cris::Image img = cris::decode(job.img, job.img_len, false);
+  if (img.channels != 3) {  // a 1-channel PFM, which cv2.imdecode keeps so
+    throw cris::Fault("the image decodes to " + std::to_string(img.channels) +
+                      " channel(s) under IMREAD_COLOR, as cv2.imdecode gives it; "
+                      "the plane needs 3");
+  }
   double mat[6], inv[6];
   transform_mats(img.height, img.width, S, mat, inv);
   if (job.inv_out) std::memcpy(job.inv_out, inv, sizeof inv);
@@ -216,6 +221,11 @@ void process(const Job& job, int S, const float lut[3][256]) {
   warp_image(img, mat, S, lut, job.img_out);
   if (job.mask) {
     const cris::Image mask = cris::decode(job.mask, job.mask_len, true);
+    if (mask.channels != 1) {  // a 3-channel PFM, which cv2.imdecode keeps so
+      throw cris::Fault("the mask decodes to " + std::to_string(mask.channels) +
+                        " channels under IMREAD_GRAYSCALE, as cv2.imdecode gives "
+                        "it; the plane needs 1");
+    }
     warp_mask(mask, mat, S, job.mask_out);
   }
 }

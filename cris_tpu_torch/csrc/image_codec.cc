@@ -2125,10 +2125,6 @@ std::string magic_name(const uint8_t* data, size_t size) {
   };
   static const Known kKnown[] = {
       {"II+\0", 4, "BigTIFF"}, {"MM\0+", 4, "BigTIFF"},
-      {"#?RADIANCE", 10, "Radiance HDR"}, {"#?RGBE", 6, "Radiance HDR"},
-      {"PF\n", 3, "PFM"}, {"Pf\n", 3, "PFM"},
-      {"\0\0\0\x0CjP  \r\n\x87\n", 12, "JPEG 2000"},
-      {"\xFF\x4F\xFF\x51", 4, "JPEG 2000 codestream"},
       {"RIFF", 4, "RIFF (not WebP)"}};
   if (size >= 12 && std::memcmp(data + 4, "ftyp", 4) == 0 &&
       (std::memcmp(data + 8, "avif", 4) == 0 || std::memcmp(data + 8, "avis", 4) == 0)) {
@@ -2164,6 +2160,19 @@ Image decode(const uint8_t* data, size_t size, bool gray) {
     return decode_gif(data, size, gray);
   }
   if (size >= 4 && std::memcmp(data, "\x59\xA6\x6A\x95", 4) == 0) return decode_ras(data, size, gray);
+  if ((size >= 12 && std::memcmp(data, "\0\0\0\x0CjP  \r\n\x87\n", 12) == 0) ||
+      (size >= 4 && std::memcmp(data, "\xFF\x4F\xFF\x51", 4) == 0)) {
+    return decode_jp2(data, size, gray);
+  }
+  if ((size >= 6 && std::memcmp(data, "#?RGBE", 6) == 0) ||
+      (size >= 10 && std::memcmp(data, "#?RADIANCE", 10) == 0)) {
+    return decode_hdr(data, size, gray);
+  }
+  // OpenCV's PFM signature: 'P', 'F' or 'f', a blank
+  if (size >= 3 && data[0] == 'P' && (data[1] == 'F' || data[1] == 'f') &&
+      (data[2] == ' ' || (data[2] >= '\t' && data[2] <= '\r'))) {
+    return decode_pfm(data, size, gray);
+  }
   // OpenCV's PxM and PAM signatures: 'P', '1'-'7', a blank
   if (size >= 3 && data[0] == 'P' && data[1] >= '1' && data[1] <= '7' &&
       (data[2] == ' ' || (data[2] >= '\t' && data[2] <= '\r'))) {
@@ -2172,8 +2181,8 @@ Image decode(const uint8_t* data, size_t size, bool gray) {
   if (magic_name(data, size) == "BigTIFF") {
     throw Fault("TIFF: BigTIFF (64-bit offsets) is not supported (OpenCV reads it)");
   }
-  throw Fault("not a JPEG or PNG image, nor WebP, BMP, PNM / PAM, TIFF, GIF or Sun "
-              "raster: the data starts with " + magic_name(data, size));
+  throw Fault("not a JPEG or PNG image, nor WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster, "
+              "JPEG 2000, Radiance HDR or PFM: the data starts with " + magic_name(data, size));
 }
 
 }  // namespace cris

@@ -24,15 +24,17 @@ struct Image {
   std::vector<uint8_t> pixels;
 };
 
-// cv2.imdecode of JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF or Sun raster
-// bytes: with gray false as IMREAD_COLOR (BGR, a gray image replicated to
-// 3 channels), with gray true as IMREAD_GRAYSCALE (1 channel). An
-// orientation (JPEG, PNG and WebP EXIF, the TIFF tag) is applied.
-// Throws Fault (or std::bad_alloc).
+// cv2.imdecode of JPEG, PNG, WebP (still or animated), BMP, PNM / PAM,
+// TIFF, GIF, Sun raster, JPEG 2000, Radiance HDR or PFM bytes: with gray
+// false as IMREAD_COLOR (BGR, a gray image replicated to 3 channels), with
+// gray true as IMREAD_GRAYSCALE (1 channel); a PFM keeps its own channels
+// under either flag, as cv2 does. An orientation (JPEG, PNG and WebP EXIF,
+// the TIFF tag) is applied. Throws Fault (or std::bad_alloc).
 Image decode(const uint8_t* data, size_t size, bool gray);
 
 // The decoders of the other formats, called by decode once the magic bytes
-// name them: webp_decode.cc (RIFF WebP, lossy and lossless),
+// name them: webp_decode.cc (RIFF WebP, lossy and lossless, the first
+// frame of an animated file),
 // bmp_pnm_decode.cc (BMP, PNM P1-P6, PAM P7). Same contract as decode.
 Image decode_webp(const uint8_t* data, size_t size, bool gray);
 Image decode_bmp(const uint8_t* data, size_t size, bool gray);
@@ -42,6 +44,14 @@ Image decode_pnm(const uint8_t* data, size_t size, bool gray);
 Image decode_tiff(const uint8_t* data, size_t size, bool gray);
 Image decode_gif(const uint8_t* data, size_t size, bool gray);
 Image decode_ras(const uint8_t* data, size_t size, bool gray);
+// hdr_pfm_decode.cc (Radiance HDR and PFM, as OpenCV's own readers). A PFM
+// keeps its file's channels under either flag, as cv2.imdecode does: 3
+// for "PF" under IMREAD_GRAYSCALE too, 1 for "Pf" under IMREAD_COLOR.
+Image decode_hdr(const uint8_t* data, size_t size, bool gray);
+Image decode_pfm(const uint8_t* data, size_t size, bool gray);
+// jpeg2000_decode.cc (a JP2 file or a raw J2K codestream, as OpenJPEG 2.5.3
+// decodes it and OpenCV 5.0 converts it).
+Image decode_jp2(const uint8_t* data, size_t size, bool gray);
 
 // A JPEG stream's samples as libtiff's JPEG codec gets them from libjpeg
 // (compression 7 in a TIFF): the tables of a JPEGTables stream (tables_len

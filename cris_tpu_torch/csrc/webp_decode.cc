@@ -5,9 +5,14 @@
 //     an extended one (VP8X, then ICCP / ALPH / EXIF / XMP / unknown
 //     chunks before the bitstream, each padded to an even size); chunk
 //     sizes against the RIFF size, the VP8X canvas against the bitstream's
-//     size; an animated file (the VP8X animation flag, ANIM / ANMF) is
-//     refused. OpenCV applies the orientation of the first EXIF chunk (a
+//     size. OpenCV applies the orientation of the first EXIF chunk (a
 //     TIFF header, no "Exif\0\0") when the VP8X EXIF flag is set.
+//   - an animated file (the VP8X animation flag): WebPDemux's checks of
+//     every chunk and frame, then the first frame (ANMF: its offset, an
+//     optional ALPH, its VP8 or VP8L bitstream) decoded as a still image
+//     and put on a canvas of transparent black, as OpenCV 5 takes it from
+//     WebPAnimDecoder; the first frame is a key frame, so its blending and
+//     disposal bits and ANIM's background colour change nothing.
 //   - VP8L (lossless): the prefix-coded ARGB stream with its colour cache,
 //     meta prefix codes, LZ77 copies through the 120-entry distance map,
 //     and the four transforms undone in reverse order (predictor with its
@@ -190,13 +195,13 @@ struct VP8L {
     if (br.read(1)) {  // simple code: one or two symbols
       const int num = (int)br.read(1) + 1;
       const int first_bits = br.read(1) ? 8 : 1;
+      // ReadHuffmanCode writes a symbol past the alphabet where the table
+      // build does not look: it is ignored, not refused
       int s = (int)br.read(first_bits);
-      if (s >= alphabet) fail("VP8L: bad prefix code");
-      lengths[s] = 1;
+      if (s < alphabet) lengths[s] = 1;
       if (num == 2) {
         s = (int)br.read(8);
-        if (s >= alphabet) fail("VP8L: bad prefix code");
-        lengths[s] = 1;
+        if (s < alphabet) lengths[s] = 1;
       }
     } else {
       int cl_lengths[19] = {};
@@ -917,47 +922,89 @@ struct MBData {
 
 inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-// dsp/dec.c TransformOne: adds the inverse DCT of in (raster 4x4) to dst.
+// The inverse DCT as libwebp runs it on x86-64: Transform_SSE2 (dsp/
+// dec_sse2.c) for the full transform, every sum wrapped to 16 bits and the
+// constants' products taken by _mm_mulhi_epi16, which equals dsp/dec.c's
+// TransformOne until a corrupt stream overflows 16 bits; TransformAC3 and
+// TransformDC in dsp/dec.c's int arithmetic. Each adds to dst.
 constexpr int BPS = 32;
 inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
 inline int mul2(int a) { return (a * 35468) >> 16; }
+inline int16_t w16(int v) { return (int16_t)v; }
+inline int16_t mulhi(int16_t a, int k) { return (int16_t)(((int32_t)a * k) >> 16); }
 void transform_one(const int16_t* in, uint8_t* dst) {
-  int C[16], *tmp = C;
-  for (int i = 0; i < 4; ++i, ++in, tmp += 4) {
-    const int a = in[0] + in[8], b = in[0] - in[8];
-    const int c = mul2(in[4]) - mul1(in[12]);
-    const int d = mul1(in[4]) + mul2(in[12]);
-    tmp[0] = a + d;
-    tmp[1] = b + c;
-    tmp[2] = b - c;
-    tmp[3] = a - d;
+  constexpr int k1 = 20091, k2 = -30068;
+  int16_t T[4][4];  // T[k][j]: the vertical pass's column j, row k
+  for (int j = 0; j < 4; ++j) {
+    const int16_t i0 = in[j], i1 = in[4 + j], i2 = in[8 + j], i3 = in[12 + j];
+    const int16_t a = w16(i0 + i2), b = w16(i0 - i2);
+    const int16_t c = w16(w16(i1 - i3) + w16(mulhi(i1, k2) - mulhi(i3, k1)));
+    const int16_t d = w16(w16(i1 + i3) + w16(mulhi(i1, k1) + mulhi(i3, k2)));
+    T[j][0] = w16(a + d);
+    T[j][1] = w16(b + c);
+    T[j][2] = w16(b - c);
+    T[j][3] = w16(a - d);
   }
-  tmp = C;
-  for (int i = 0; i < 4; ++i, ++tmp, dst += BPS) {
-    const int dc = tmp[0] + 4;
-    const int a = dc + tmp[8], b = dc - tmp[8];
-    const int c = mul2(tmp[4]) - mul1(tmp[12]);
-    const int d = mul1(tmp[4]) + mul2(tmp[12]);
-    dst[0] = clip8(dst[0] + ((a + d) >> 3));
-    dst[1] = clip8(dst[1] + ((b + c) >> 3));
-    dst[2] = clip8(dst[2] + ((b - c) >> 3));
-    dst[3] = clip8(dst[3] + ((a - d) >> 3));
+  for (int j = 0; j < 4; ++j, dst += BPS) {
+    const int16_t dc = w16(T[0][j] + 4);
+    const int16_t a = w16(dc + T[2][j]), b = w16(dc - T[2][j]);
+    const int16_t t1 = T[1][j], t3 = T[3][j];
+    const int16_t c = w16(w16(t1 - t3) + w16(mulhi(t1, k2) - mulhi(t3, k1)));
+    const int16_t d = w16(w16(t1 + t3) + w16(mulhi(t1, k1) + mulhi(t3, k2)));
+    dst[0] = clip8(dst[0] + (w16(a + d) >> 3));
+    dst[1] = clip8(dst[1] + (w16(b + c) >> 3));
+    dst[2] = clip8(dst[2] + (w16(b - c) >> 3));
+    dst[3] = clip8(dst[3] + (w16(a - d) >> 3));
   }
 }
 
-// DoTransform: a block's residual by its code (ParseResiduals' 2 bits:
-// 0 all zero, 1 the DC alone, 2 or 3 more); the DC-only sum equals the
-// full transform's.
-void add_residual(uint32_t code, const int16_t* in, uint8_t* dst) {
-  if (code == 0) return;
-  if (code == 1) {
-    const int dc = (in[0] + 4) >> 3;
-    for (int y = 0; y < 4; ++y, dst += BPS) {
-      for (int x = 0; x < 4; ++x) dst[x] = clip8(dst[x] + dc);
-    }
-    return;
+void transform_dc(const int16_t* in, uint8_t* dst) {
+  const int dc = (in[0] + 4) >> 3;
+  for (int y = 0; y < 4; ++y, dst += BPS) {
+    for (int x = 0; x < 4; ++x) dst[x] = clip8(dst[x] + dc);
   }
-  transform_one(in, dst);
+}
+
+// TransformAC3: in[0], in[1] and in[4] alone.
+void transform_ac3(const int16_t* in, uint8_t* dst) {
+  const int a = in[0] + 4;
+  const int c4 = mul2(in[4]), d4 = mul1(in[4]);
+  const int c1 = mul2(in[1]), d1 = mul1(in[1]);
+  const int rows[4] = {a + d4, a + c4, a - c4, a - d4};
+  for (int y = 0; y < 4; ++y, dst += BPS) {
+    dst[0] = clip8(dst[0] + ((rows[y] + d1) >> 3));
+    dst[1] = clip8(dst[1] + ((rows[y] + c1) >> 3));
+    dst[2] = clip8(dst[2] + ((rows[y] - c1) >> 3));
+    dst[3] = clip8(dst[3] + ((rows[y] - d1) >> 3));
+  }
+}
+
+// DoTransform: a luma block's residual by its code (ParseResiduals' 2
+// bits: 0 all zero, 1 the DC alone, 2 up to the third zigzag position, 3
+// more).
+void add_residual(uint32_t code, const int16_t* in, uint8_t* dst) {
+  if (code == 3) {
+    transform_one(in, dst);
+  } else if (code == 2) {
+    transform_ac3(in, dst);
+  } else if (code == 1) {
+    transform_dc(in, dst);
+  }
+}
+
+// DoUVTransform: the four blocks of a chroma plane (their codes in the 8
+// bits, the first block's highest) all through the full transform when any
+// has an AC coefficient, else each non-zero DC alone.
+void add_residual_uv(uint32_t bits, const int16_t* in, uint8_t* dst) {
+  if (!(bits & 0xff)) return;
+  for (int n = 0; n < 4; ++n) {
+    uint8_t* at = dst + (n >> 1) * 4 * BPS + (n & 1) * 4;
+    if (bits & 0xaa) {
+      transform_one(in + n * 16, at);
+    } else if (in[n * 16]) {
+      transform_dc(in + n * 16, at);
+    }
+  }
 }
 
 // TransformWHT: the 16 luma DCs of an i16 macroblock into out[16 * k].
@@ -1659,11 +1706,8 @@ void VP8::reconstruct(const MBData& b, int mb_x, int mb_y) {
   }
   predict_block(b.uvmode, u_dst, 8, mb_y > 0, mb_x > 0);
   predict_block(b.uvmode, v_dst, 8, mb_y > 0, mb_x > 0);
-  for (int n = 0; n < 4; ++n) {
-    const int at = (n & 1) * 4 + (n >> 1) * 4 * BPS;
-    add_residual((b.non_zero_uv >> (6 - 2 * n)) & 3, coeffs + 256 + n * 16, u_dst + at);
-    add_residual((b.non_zero_uv >> (14 - 2 * n)) & 3, coeffs + 320 + n * 16, v_dst + at);
-  }
+  add_residual_uv(b.non_zero_uv, coeffs + 256, u_dst);
+  add_residual_uv(b.non_zero_uv >> 8, coeffs + 320, v_dst);
   for (int j = 0; j < 16; ++j) std::memcpy(&Y[y0 + (size_t)j * ystride], y_dst + j * BPS, 16);
   for (int j = 0; j < 8; ++j) {
     std::memcpy(&U[c0 + (size_t)j * uvstride], u_dst + j * BPS, 8);
@@ -1769,6 +1813,173 @@ void bgr_to_gray(cris::Image& img) {
   img.channels = 1;
 }
 
+// The BGR pixels of one bitstream: a VP8L chunk's payload, or a VP8 one
+// with its ALPH payload (alpha null when there is none); avail is every byte
+// from the bitstream on that libwebp hands the decoder.
+cris::Image decode_bitstream(bool lossless, const uint8_t* bits, size_t bits_size,
+                             size_t avail, const uint8_t* alpha, size_t alpha_size) {
+  cris::Image img;
+  img.channels = 3;
+  if (lossless) {
+    if (bits_size < 5 || bits[0] != 0x2f || (bits[4] >> 5) != 0) fail("VP8L: bad header");
+    int w, h;
+    std::vector<uint32_t> argb = decode_vp8l(bits, avail, &w, &h);
+    img.height = h;
+    img.width = w;
+    img.pixels.resize((size_t)w * h * 3);
+    uint8_t* o = img.pixels.data();
+    for (uint32_t v : argb) {
+      *o++ = (uint8_t)v;
+      *o++ = (uint8_t)(v >> 8);
+      *o++ = (uint8_t)(v >> 16);
+    }
+    return img;
+  }
+  if (bits_size < 10) fail("VP8: truncated frame header");
+  if ((le24(bits) >> 5) >= bits_size) fail("VP8: partition 0 beyond the chunk");
+  VP8 d;
+  d.parse(bits, avail);
+  if ((long long)d.width * d.height > kMaxPixels) {
+    fail("VP8: %d x %d pixels is too large", d.width, d.height);
+  }
+  if (alpha) check_alpha(alpha, alpha_size, d.width, d.height);
+  img.height = d.height;
+  img.width = d.width;
+  img.pixels.resize((size_t)d.width * d.height * 3);
+  d.to_bgr(img.pixels.data());
+  return img;
+}
+
+// VP8GetInfo / VP8LGetInfo (what WebPGetFeatures checks of a frame's
+// bitstream chunk): the frame's size, or a Fault.
+void bitstream_size(const uint8_t* c, size_t avail, int* w, int* h) {
+  const uint8_t* b = c + 8;
+  const size_t n = avail - 8;
+  if (std::memcmp(c, "VP8L", 4) == 0) {
+    if (n < 5 || b[0] != 0x2f || (b[4] >> 5) != 0) fail("animated WebP: ANMF with a bad VP8L header");
+    const uint32_t v = le32(b + 1);
+    *w = (int)(v & 0x3fff) + 1;
+    *h = (int)((v >> 14) & 0x3fff) + 1;
+    return;
+  }
+  if (n < 10) fail("animated WebP: ANMF with a truncated VP8 frame header");
+  const uint32_t bits = le24(b);
+  *w = (int)(le16(b + 6) & 0x3fff);
+  *h = (int)(le16(b + 8) & 0x3fff);
+  if (b[3] != 0x9d || b[4] != 0x01 || b[5] != 0x2a || (bits & 1) || ((bits >> 1) & 7) > 3 ||
+      !((bits >> 4) & 1) || (bits >> 5) >= le32(c + 4) || *w == 0 || *h == 0) {
+    fail("animated WebP: ANMF with a bad VP8 frame header");
+  }
+}
+
+struct Frame {
+  int x = 0, y = 0, width = 0, height = 0;
+  const uint8_t* alpha = nullptr;  // the ALPH chunk
+  const uint8_t* image = nullptr;  // the VP8 / VP8L chunk
+};
+
+// The first frame of an animated file as WebPAnimDecoder gives it to
+// OpenCV 5: WebPDemux's checks of every chunk and frame (ParseVP8XChunks,
+// ParseAnimationFrame, StoreFrame, IsValidExtendedFormat), then the first
+// frame decoded as a still bitstream and put at its offset on a canvas of
+// transparent black. The first frame is a key frame, so it is neither
+// blended nor disposed, and ANIM's background colour is not used.
+cris::Image decode_animation(const uint8_t* data, const uint8_t* end, uint32_t flags,
+                             int canvas_w, int canvas_h, const uint8_t** exif) {
+  cris::check_size("WebP", canvas_w, canvas_h);
+  if (flags & ~0x3Eu & 0xFF) fail("animated WebP: unknown VP8X feature flags 0x%02X", (int)(flags & 0xFF));
+  auto padded = [](size_t n) { return n + (n & 1); };
+  const uint8_t* p = data + 12 + 18;
+  bool anim = false;
+  Frame first;  // the first frame; the others are only checked
+  while (p != end) {
+    if (end - p < 8) fail("WebP: truncated chunk header");
+    const size_t n = le32(p + 4);
+    if (n > 0xFFFFFFF6u || padded(n) > (size_t)(end - p) - 8) {
+      fail("WebP: chunk size beyond the RIFF data");
+    }
+    if (!std::memcmp(p, "VP8X", 4) || !std::memcmp(p, "ALPH", 4) ||
+        !std::memcmp(p, "VP8 ", 4) || !std::memcmp(p, "VP8L", 4)) {
+      throw Fault(std::string("animated WebP: a '") +
+                  std::string((const char*)p, 4) + "' chunk outside its frames");
+    }
+    if (!std::memcmp(p, "ANIM", 4)) {
+      if (padded(n) < 6) fail("animated WebP: ANIM chunk size %d is under 6", (int)n);
+      anim = true;
+      p += 8 + padded(n);
+    } else if (!std::memcmp(p, "ANMF", 4)) {
+      if (!anim) fail("animated WebP: ANMF before ANIM");
+      if (padded(n) < 16) fail("animated WebP: ANMF chunk size %d is under 16", (int)n);
+      const uint8_t* q = p + 8;
+      Frame f;
+      f.x = 2 * (int)le24(q);
+      f.y = 2 * (int)le24(q + 3);
+      if ((uint64_t)(le24(q + 6) + 1) * (le24(q + 9) + 1) >= (1ull << 32)) {
+        fail("animated WebP: ANMF frame size is too large");
+      }
+      const size_t payload = padded(n) - 16;
+      const uint8_t* s = q + 16;
+      if ((size_t)(end - s) < 8 || (size_t)(end - s) < payload) fail("animated WebP: ANMF truncated frame");
+      // StoreFrame: an optional ALPH, then one VP8 / VP8L chunk; parsing
+      // stops (and goes on at the top level) at any other chunk
+      bool got_image = false;
+      while (s != end) {
+        if (end - s < 8) fail("WebP: truncated chunk header");
+        const size_t m = le32(s + 4);
+        if (m > 0xFFFFFFF6u || padded(m) > (size_t)(end - s) - 8) {
+          fail("WebP: chunk size beyond the RIFF data");
+        }
+        if (!std::memcmp(s, "ALPH", 4) && !f.alpha) {
+          f.alpha = s;
+        } else if ((!std::memcmp(s, "VP8 ", 4) || !std::memcmp(s, "VP8L", 4)) && !got_image) {
+          if (!std::memcmp(s, "VP8L", 4) && f.alpha) fail("animated WebP: ANMF ALPH before a VP8L bitstream");
+          bitstream_size(s, 8 + padded(m), &f.width, &f.height);
+          f.image = s;
+          got_image = true;
+        } else {
+          break;
+        }
+        s += 8 + padded(m);
+      }
+      if ((size_t)(s - q - 16) > payload) fail("animated WebP: ANMF frame chunks run past the ANMF chunk");
+      if (f.alpha || f.image) {
+        if (!f.image) fail("animated WebP: ANMF a frame with ALPH and no bitstream");
+        if (f.alpha && f.alpha > f.image) fail("animated WebP: ANMF ALPH after the bitstream");
+        if (f.x + f.width > canvas_w || f.y + f.height > canvas_h) {
+          fail("animated WebP: ANMF a %d x %d frame does not lie inside the canvas", f.width, f.height);
+        }
+        if (!first.image) first = f;
+      }
+      p = s;
+    } else {
+      // the demuxer's first EXIF chunk, met in this walk (where a frame's
+      // chunks, not its ANMF size, set the next chunk)
+      if (!*exif && !std::memcmp(p, "EXIF", 4)) *exif = p;
+      p += 8 + padded(n);
+    }
+  }
+  if (!first.image) fail("animated WebP: no frame");
+  const Frame& f = first;
+  const bool lossless = !std::memcmp(f.image, "VP8L", 4);
+  const size_t bits_size = le32(f.image + 4);
+  const uint8_t* frame_end = f.image + 8 + padded(bits_size);
+  cris::Image frame = decode_bitstream(lossless, f.image + 8, bits_size,
+                                       (size_t)(frame_end - f.image - 8),
+                                       f.alpha ? f.alpha + 8 : nullptr,
+                                       f.alpha ? le32(f.alpha + 4) : 0);
+  if (frame.width != f.width || frame.height != f.height) fail("animated WebP: ANMF frame size changed");
+  cris::Image img;
+  img.height = canvas_h;
+  img.width = canvas_w;
+  img.channels = 3;
+  img.pixels.assign((size_t)canvas_w * canvas_h * 3, 0);
+  for (int y = 0; y < f.height; ++y) {
+    std::memcpy(&img.pixels[((size_t)(f.y + y) * canvas_w + f.x) * 3],
+                &frame.pixels[(size_t)y * f.width * 3], (size_t)f.width * 3);
+  }
+  return img;
+}
+
 }  // namespace
 
 namespace cris {
@@ -1794,6 +2005,7 @@ Image decode_webp(const uint8_t* data, size_t size, bool gray) {
   int canvas_w = 0, canvas_h = 0;
   const uint8_t* alpha = nullptr;
   size_t alpha_size = 0;
+  Image img;
   if (end - p >= 8 && std::memcmp(p, "VP8X", 4) == 0) {
     if (chunk_size(p) != 10) fail("WebP VP8X: chunk size %d is not 10", (int)le32(p + 4));
     if (end - p < 18) fail("WebP VP8X: truncated chunk");
@@ -1803,82 +2015,55 @@ Image decode_webp(const uint8_t* data, size_t size, bool gray) {
     if ((long long)canvas_w * canvas_h > kMaxPixels) {
       fail("WebP VP8X: %d x %d pixels is too large", canvas_w, canvas_h);
     }
-    if (flags & 0x02) fail("WebP: animated WebP (ANIM/ANMF frames) is not supported");
     vp8x = true;
-    p += 18;
-    // ParseOptionalChunks: everything up to the bitstream, each chunk
-    // padded to an even size; the last ALPH is the alpha
-    for (;;) {
-      const size_t n = chunk_size(p);
-      if (std::memcmp(p, "VP8 ", 4) == 0 || std::memcmp(p, "VP8L", 4) == 0) break;
-      if (std::memcmp(p, "ANMF", 4) == 0 || std::memcmp(p, "ANIM", 4) == 0) {
-        fail("WebP: animated WebP (ANIM/ANMF frames) is not supported");
-      }
-      const size_t disk = (8 + n + 1) & ~(size_t)1;
-      if (disk > (size_t)(end - p)) fail("WebP: chunk size beyond the RIFF data");
-      if (std::memcmp(p, "ALPH", 4) == 0) {
-        alpha = p + 8;
-        alpha_size = n;
-      }
-      p += disk;
-    }
   }
-  if (end - p < 8) fail("WebP: no VP8 or VP8L chunk");
-  const bool lossless = std::memcmp(p, "VP8L", 4) == 0;
-  if (!lossless && std::memcmp(p, "VP8 ", 4) != 0) {
-    char tag[5] = {};
-    for (int i = 0; i < 4; ++i) tag[i] = (p[i] >= 32 && p[i] < 127) ? (char)p[i] : '?';
-    throw Fault(std::string("WebP: unexpected chunk '") + tag +
-                "' where the VP8 or VP8L bitstream should be");
-  }
-  const size_t bits_size = le32(p + 4);
-  if (vp8x && ((8 + bits_size + 1) & ~(size_t)1) > (size_t)(end - p)) {
-    fail("WebP: chunk size beyond the RIFF data");
-  }
-  if (riff >= 12 && bits_size > riff - 12) fail("WebP: bitstream size beyond the RIFF size");
-  if (bits_size > (size_t)(end - p) - 8) fail("WebP: truncated bitstream");
-  const uint8_t* bits = p + 8;
-  // libwebp hands the decoder every byte from the bitstream on
-  const size_t avail = (size_t)(data + size - bits);
-
-  Image img;
-  if (lossless) {
-    if (bits_size < 5 || bits[0] != 0x2f || (bits[4] >> 5) != 0) fail("VP8L: bad header");
-    int w, h;
-    std::vector<uint32_t> argb = decode_vp8l(bits, avail, &w, &h);
-    if (vp8x && (w != canvas_w || h != canvas_h)) {
-      fail("WebP: VP8X canvas %d x %d differs from the bitstream's", canvas_w, canvas_h);
-    }
-    img.height = h;
-    img.width = w;
-    img.channels = 3;
-    img.pixels.resize((size_t)w * h * 3);
-    uint8_t* o = img.pixels.data();
-    for (uint32_t v : argb) {
-      *o++ = (uint8_t)v;
-      *o++ = (uint8_t)(v >> 8);
-      *o++ = (uint8_t)(v >> 16);
-    }
+  const uint8_t* anim_exif = nullptr;
+  if (vp8x && (flags & 0x02)) {
+    img = decode_animation(data, end, flags, canvas_w, canvas_h, &anim_exif);
   } else {
-    if (bits_size < 10) fail("VP8: truncated frame header");
-    if ((le24(bits) >> 5) >= bits_size) fail("VP8: partition 0 beyond the chunk");
-    VP8 d;
-    d.parse(bits, avail);
-    if (vp8x && (d.width != canvas_w || d.height != canvas_h)) {
+    if (vp8x) {
+      p += 18;
+      // ParseOptionalChunks: everything up to the bitstream (ANIM and ANMF
+      // of a file without the animation flag too), each chunk padded to an
+      // even size; the last ALPH is the alpha
+      for (;;) {
+        const size_t n = chunk_size(p);
+        if (std::memcmp(p, "VP8 ", 4) == 0 || std::memcmp(p, "VP8L", 4) == 0) break;
+        const size_t disk = (8 + n + 1) & ~(size_t)1;
+        if (disk > (size_t)(end - p)) fail("WebP: chunk size beyond the RIFF data");
+        if (std::memcmp(p, "ALPH", 4) == 0) {
+          alpha = p + 8;
+          alpha_size = n;
+        }
+        p += disk;
+      }
+    }
+    if (end - p < 8) fail("WebP: no VP8 or VP8L chunk");
+    const bool lossless = std::memcmp(p, "VP8L", 4) == 0;
+    if (!lossless && std::memcmp(p, "VP8 ", 4) != 0) {
+      char tag[5] = {};
+      for (int i = 0; i < 4; ++i) tag[i] = (p[i] >= 32 && p[i] < 127) ? (char)p[i] : '?';
+      throw Fault(std::string("WebP: unexpected chunk '") + tag +
+                  "' where the VP8 or VP8L bitstream should be");
+    }
+    const size_t bits_size = le32(p + 4);
+    if (vp8x && ((8 + bits_size + 1) & ~(size_t)1) > (size_t)(end - p)) {
+      fail("WebP: chunk size beyond the RIFF data");
+    }
+    if (riff >= 12 && bits_size > riff - 12) fail("WebP: bitstream size beyond the RIFF size");
+    if (bits_size > (size_t)(end - p) - 8) fail("WebP: truncated bitstream");
+    const uint8_t* bits = p + 8;
+    // libwebp hands the decoder every byte from the bitstream on
+    img = decode_bitstream(lossless, bits, bits_size, (size_t)(data + size - bits),
+                           lossless ? nullptr : alpha, alpha_size);
+    if (vp8x && (img.width != canvas_w || img.height != canvas_h)) {
       fail("WebP: VP8X canvas %d x %d differs from the bitstream's", canvas_w, canvas_h);
     }
-    if ((long long)d.width * d.height > kMaxPixels) {
-      fail("VP8: %d x %d pixels is too large", d.width, d.height);
-    }
-    if (alpha) check_alpha(alpha, alpha_size, d.width, d.height);
-    img.height = d.height;
-    img.width = d.width;
-    img.channels = 3;
-    img.pixels.resize((size_t)d.width * d.height * 3);
-    d.to_bgr(img.pixels.data());
   }
   if (gray) bgr_to_gray(img);
-  if (vp8x && (flags & 0x08)) {  // EXIF flag: the first EXIF chunk's orientation
+  if (anim_exif && (flags & 0x08)) {
+    apply_orientation(img, exif_orientation_tiff(anim_exif + 8, le32(anim_exif + 4)));
+  } else if (vp8x && !(flags & 0x02) && (flags & 0x08)) {  // the first EXIF chunk's orientation
     const uint8_t* c = data + 12;
     while (end - c >= 8) {
       const size_t n = le32(c + 4);

@@ -4,11 +4,12 @@
 ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE``: the format is sniffed from the
 magic bytes, an orientation (a JPEG's APP1, a PNG's eXIf, a WebP's EXIF
 chunk, a TIFF's Orientation tag) is applied as OpenCV applies it, and
-the output is BGR (gray replicated to 3 channels) or gray uint8. The C++
+the output is BGR (gray replicated to 3 channels) or gray uint8 (a PFM
+keeps its own channels under either flag, as cv2 gives it). The C++
 decoders follow the libraries and readers behind OpenCV 5.0
-(libjpeg-turbo, libpng, libwebp, libtiff 4.7.1, OpenCV's own BMP / PxM /
-PAM / GIF / Sun raster readers), so the pixels equal ``cv2.imdecode``'s
-bit for bit.
+(libjpeg-turbo, libpng, libwebp, libtiff 4.7.1, OpenJPEG 2.5.3, OpenCV's
+own BMP / PxM / PAM / GIF / Sun raster / HDR / PFM readers), so the
+pixels equal ``cv2.imdecode``'s bit for bit.
 
 - JPEG (``csrc/image_codec.cc``): Huffman-coded baseline,
   extended-sequential and progressive frames (SOF0, SOF1, SOF2), 8-bit,
@@ -33,8 +34,16 @@ bit for bit.
 - WebP (``csrc/webp_decode.cc``): simple and extended (VP8X) RIFF files,
   lossy (VP8 key frames, libwebp's fancy upsampling and fixed-point
   YUV to BGR) and lossless (VP8L), with or without alpha (ALPH checked,
-  then dropped); gray is OpenCV 5's ``cvtColor(BGR2GRAY)``. Refused:
-  animated files, files under OpenCV's 32-byte minimum.
+  then dropped); gray is OpenCV 5's ``cvtColor(BGR2GRAY)``. An animated
+  file (the VP8X animation flag) gives its first frame as OpenCV 5 takes
+  it from WebPAnimDecoder: WebPDemux's checks of every chunk and frame,
+  then the frame (ANMF: its offset, an optional ALPH, its VP8 or VP8L)
+  decoded as a still and put on a canvas of transparent black (a key
+  frame: not blended, ANIM's background colour unused, a transparent
+  pixel's colour kept). The lossy inverse DCT is libwebp's SSE2 one,
+  which wraps at 16 bits where a damaged stream overflows. Refused:
+  files under OpenCV's 32-byte minimum, what WebPDemux refuses (frames
+  outside the canvas, ANMF before ANIM, a bad frame header anywhere).
 - BMP (``csrc/bmp_pnm_decode.cc``): OS/2 and Windows V3 / V4 / V5
   headers; 1, 4, 8 bits with a palette, RLE4 and RLE8 (OpenCV's reading
   of their escapes), 16 (555 / 565), 24 and 32 bits; bottom-up and
@@ -71,8 +80,32 @@ bit for bit.
   8, 24 and 32 bits, with or without a colormap (without one,
   IMREAD_GRAYSCALE of 1 and 8 bits is all zero in OpenCV 5.0). Refused:
   RLE and RT_FORMAT_RGB, which OpenCV 5.0's header check refuses.
-- Any other format (PFM, HDR, JPEG 2000, AVIF, ...) is refused with a
-  message naming what the first bytes say it is.
+- JPEG 2000 (``csrc/jpeg2000_decode.cc``): JP2 files and raw J2K
+  codestreams as OpenJPEG 2.5.3 decodes them: the JP2 boxes (ihdr, colr,
+  pclr with cmap, cdef, boxes out of place), SIZ with 1-4 components of
+  8-16 bits and tiles, COD / COC (all five progression orders, 0-32
+  decomposition levels, code-block sizes, precincts, SOP / EPH), QCD /
+  QCC (none, scalar derived, scalar expounded), tile-parts, every
+  code-block style; tier 2, the MQ coder and tier 1's passes; the 5/3
+  wavelet with the RCT in integers and the 9/7 with the ICT in float,
+  with OpenJPEG's constants and order of operations; then OpenCV's
+  conversion: the largest precision shifted to 8 bits, sRGB or
+  unspecified colour as RGB(A) to BGR, greyscale replicated, sYCC by
+  ``cvtColor(YUV2BGR)``; gray by ``cvtColor``'s 15-bit weights (sRGB) or
+  the first component. Refused, by name: HTJ2K, RGN, POC, PPM / PPT,
+  Part 2 wavelets, component transforms and MCT / MCC / MCO / CBD
+  markers, and what cv2 refuses (signed or
+  subsampled components, under 8 bits, an image offset, CMYK, e-sYCC, a
+  cut file, a missing EPH).
+- Radiance HDR (``csrc/hdr_pfm_decode.cc``): OpenCV's RGBE reader (its
+  header lines, "-Y h +X w" only, flat, new-style RLE and flat after a
+  non-RLE scanline, an old-style run read as a pixel), rgbe2float, then
+  x 255 in float rounded and saturated to BGR; gray by ``cvtColor``.
+- PFM (``csrc/hdr_pfm_decode.cc``): "PF" / "Pf" with atoi / atof header
+  numbers, rows bottom-up, the scale's sign as the byte order, samples
+  times (float)(1 / |scale|), rounded and saturated (no x 255).
+- Any other format (AVIF, ...) is refused with a message naming what the
+  first bytes say it is.
 
 ``encode_jpeg`` writes baseline JPEG as ``cv2.imencode(".jpg")`` does
 with its defaults; ``encode_png`` (filter 0 + ``zlib``) is pure Python.
@@ -108,7 +141,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "image_codec.cc", CSRC / "webp_decode.cc",
            CSRC / "bmp_pnm_decode.cc", CSRC / "tiff_decode.cc",
-           CSRC / "gif_ras_decode.cc", CSRC / "batch_preprocess.cc",
+           CSRC / "gif_ras_decode.cc", CSRC / "hdr_pfm_decode.cc",
+           CSRC / "jpeg2000_decode.cc", CSRC / "batch_preprocess.cc",
            CSRC / "rasterize.cc")
 HEADERS = (CSRC / "image_codec.h",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cris_tpu_torch"
@@ -216,16 +250,18 @@ def _decode(buf, gray: bool) -> np.ndarray:
 
 
 def decode_image(buf) -> np.ndarray:
-    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster)
-    -> (H, W, 3) BGR uint8, as ``cv2.imdecode`` with ``IMREAD_COLOR``
-    gives it."""
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster,
+    JPEG 2000, Radiance HDR, PFM) -> (H, W, 3) BGR uint8, as
+    ``cv2.imdecode`` with ``IMREAD_COLOR`` gives it (a gray "Pf" PFM stays
+    (H, W), as there)."""
     return _decode(buf, gray=False)
 
 
 def decode_mask(buf) -> np.ndarray:
-    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster)
-    -> (H, W) uint8, as ``cv2.imdecode`` with ``IMREAD_GRAYSCALE`` gives
-    it."""
+    """Image bytes (JPEG, PNG, WebP, BMP, PNM / PAM, TIFF, GIF, Sun raster,
+    JPEG 2000, Radiance HDR, PFM) -> (H, W) uint8, as ``cv2.imdecode``
+    with ``IMREAD_GRAYSCALE`` gives it (a colour "PF" PFM stays (H, W, 3),
+    as there)."""
     return _decode(buf, gray=True)
 
 

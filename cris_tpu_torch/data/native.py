@@ -61,8 +61,9 @@ def batch_preprocess(
     want_inverse: bool = True,
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray], np.ndarray]:
     """Decode, warp and normalise a batch of images (any format of
-    ``codec.decode_image``: JPEG, PNG, WebP, BMP, PNM / PAM) (and, when
-    given, decode and warp their masks) on ``nthreads`` C++ threads
+    ``codec.decode_image`` that decodes to 3 channels; a mask must decode
+    to 1) (and, when given, decode and warp their masks) on ``nthreads``
+    C++ threads
     (default ``min(os.cpu_count() // ranks on this host, n)``: under
     torchrun each rank's plane takes its share of the host's cores).
 

@@ -20,9 +20,10 @@ resident across requests (counterpart of cris_tpu/serving.py).
                          "foreground_px", "mask_png_b64" | "rle"}]}
 
   Uploads are decoded by ``data.codec.decode_image`` (``cv2.imdecode``'s
-  bits for JPEG, PNG, WebP, BMP and PNM / PAM). A request without an image or a sentence, an
-  unreadable ``image_path``, or bytes the decoder refuses get 400 (the
-  decoder's message in ``error``); any other failure 500; another route
+  bits for every format it takes). A request without an image or a sentence, an
+  unreadable ``image_path``, bytes the decoder refuses, or an image that
+  does not decode to 3 channels (a gray PFM) get 400 (the message in
+  ``error``); any other failure 500; another route
   404. Requests are handled on threads of their own; their device
   batches run one at a time on the service's one device thread.
 """
@@ -168,6 +169,7 @@ class PredictService:
                 threshold: float = EVAL_THRESHOLD) -> List[Dict[str, Any]]:
         """BGR uint8 image + N referring expressions -> N binary masks at
         the original resolution, with their foreground pixel counts."""
+        _need_bgr(image_bgr)
         if not sentences:
             return []
         rgb = image_bgr[:, :, ::-1]
@@ -192,6 +194,15 @@ class PredictService:
                                 "mask": mask,
                                 "foreground_px": int(mask.sum())})
         return results
+
+
+def _need_bgr(image: np.ndarray) -> None:
+    """Refuse an image that is not H x W x 3: ``decode_image`` keeps a gray
+    PFM's one channel, as ``cv2.imdecode`` does."""
+    if image.ndim != 3 or image.shape[2] != 3:
+        channels = 1 if image.ndim == 2 else image.shape[2]
+        raise ValueError(f"the image decodes to {channels} channel(s); "
+                         "predict needs a 3-channel colour image")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -227,7 +238,8 @@ class _Handler(BaseHTTPRequestHandler):
             if buf is not None:
                 try:
                     image = decode_image(buf)
-                except ValueError as e:  # the decoder refused the bytes
+                    _need_bgr(image)
+                except ValueError as e:  # refused, or not a colour image
                     self._reply(400, {"error": str(e)})
                     return
             sents = req.get("sentences") or (

@@ -549,11 +549,18 @@ def test_cmyk_jpeg_640x480_with_exif_orientation_equals_cv2():
 # ------------------------------------------------------------- refusals
 
 def _animated_webp():
+    """An animated WebP whose ANIM chunk is cut out: animated files decode
+    now, but WebPDemux (and so cv2) refuses frames that no ANIM precedes."""
     frames = [Image.fromarray(_photo(16, 16, seed=s)) for s in range(2)]
     out = io.BytesIO()
     frames[0].save(out, "WEBP", save_all=True, append_images=frames[1:],
                    duration=50, lossless=True)
-    return out.getvalue()
+    buf = out.getvalue()
+    at = buf.index(b"ANIM")
+    buf = bytearray(buf[:at] + buf[at + 14:])
+    struct.pack_into("<I", buf, 4, len(buf) - 8)
+    assert cv2.imdecode(np.frombuffer(bytes(buf), np.uint8), cv2.IMREAD_COLOR) is None
+    return bytes(buf)
 
 
 REFUSED = {

@@ -7,8 +7,8 @@ JAX package's.
   progressive JPEG, RGBA / palette / Adam7 PNGs, lossy and lossless WebP,
   BMP, PPM and a CMYK JPEG answered with 200 (and decoded as the JAX
   package's record decode decodes them),
-  undecodable bytes with 400 (as the JAX server answers them), an unknown
-  route with 404.
+  undecodable bytes with 400 (as the JAX server answers them), a gray PFM
+  (one channel) with 400, an unknown route with 404.
 - The port's server and the JAX server on the same tiny f32 weights (one
   ``best_model.pth``) answer the same request with the same keys,
   ``height``, ``width`` and RLE ``size``, and masks that agree on at least
@@ -281,6 +281,23 @@ def test_bad_requests_answer_400_as_jax_does(port, jax_url, payload):
     assert status == 400 == _post(jax_url, req)[0]
     if payload == "undecodable":  # the decoder's message
         assert "not a JPEG or PNG" in out["error"]
+
+
+def test_a_gray_pfm_answers_400(port):
+    """A gray PFM decodes to one channel (as cv2.imdecode gives it under
+    IMREAD_COLOR): the front answers 400 naming that, and
+    PredictService.predict raises ValueError, where indexing its channels
+    would fail."""
+    service, url = port
+    h, w = 12, 10
+    pfm = (b"Pf\n%d %d\n-1.0\n" % (w, h)
+           + np.linspace(0, 255, h * w, dtype="<f4").tobytes())
+    assert decode_image(pfm).shape == (h, w)
+    status, out = _post(url, {"image_b64": _b64(pfm), "sentence": "x"})
+    assert status == 400
+    assert "1 channel(s)" in out["error"] and "3-channel" in out["error"]
+    with pytest.raises(ValueError, match="1 channel"):
+        service.predict(decode_image(pfm), ["x"])
 
 
 @pytest.mark.parametrize("method", ["GET", "POST"])

@@ -35,6 +35,18 @@ script:
   index, PIL) and ``colormap_160x120.ras`` (8-bit Sun raster with an
   RMT_EQUAL_RGB colormap; OpenCV 5.0 refuses RLE-coded Sun rasters), from
   the same small image;
+- ``lossy97_640x480.jp2``: the 640 x 480 image as JPEG 2000 (9/7
+  wavelet, the irreversible colour transform, one layer at 20:1, PIL),
+  the baseline JPEG's timing twin; ``lossless53_tiled_160x120.j2k`` (a
+  raw codestream: 5/3, the reversible colour transform, 64 x 64 tiles,
+  RPCL, 32 x 32 precincts, PIL) and ``gray_layers_160x120.jp2`` (gray,
+  three quality layers, LRCP, PIL), from the same small image;
+- ``anim_offset_160x120.webp``: an animated WebP whose first frame (a
+  lossless 128 x 96 still with alpha, written with exact=True so that its
+  transparent pixels keep their colour) lies at (16, 12) on the 160 x 120
+  canvas, then a second, lossy frame; ``rle_160x120.hdr`` (Radiance HDR,
+  RLE, cv2) and ``color_80x60.pfm`` (a colour PFM, cv2, samples in
+  [0, 300]), from the same small image;
 - ``digests.json``: for each file, the shape and the sha256 of the pixel
   bytes of ``cv2.imdecode`` under IMREAD_COLOR ("color") and
   IMREAD_GRAYSCALE ("gray"), with the OpenCV version.
@@ -62,6 +74,8 @@ from cris_tpu_torch.data.host_bench import draw_test_images  # noqa: E402
 from test_torch_codec_formats import _png  # noqa: E402  (writes Adam7)
 from test_torch_codec_webp_bmp_pnm import _bmp, _rle8  # noqa: E402
 from test_torch_codec_tiff_gif_ras import _ras, _tiff_image  # noqa: E402
+from test_torch_codec_jp2_webpanim_hdr_pfm import (  # noqa: E402
+    _anmf, _animated, _webp_frame)
 
 
 def digest(img: np.ndarray) -> dict:
@@ -132,6 +146,31 @@ def files() -> dict:
     rows[:] = np.array(quant)
     out["colormap_160x120.ras"] = _ras(160, 120, 8, rows.tobytes(),
                                        cmap=colours.T.tobytes())
+    buf = io.BytesIO()
+    Image.fromarray(bgr[:, :, ::-1].copy()).save(
+        buf, "JPEG2000", irreversible=True, quality_mode="rates",
+        quality_layers=[20])
+    out["lossy97_640x480.jp2"] = buf.getvalue()
+    buf = io.BytesIO()
+    rgb.save(buf, "JPEG2000", no_jp2=True, tile_size=(64, 64),
+             progression="RPCL", precinct_size=(32, 32))
+    out["lossless53_tiled_160x120.j2k"] = buf.getvalue()
+    buf = io.BytesIO()
+    rgb.convert("L").save(buf, "JPEG2000", quality_mode="rates",
+                          quality_layers=[40, 20, 10], progression="LRCP")
+    out["gray_layers_160x120.jp2"] = buf.getvalue()
+    frame = np.dstack([small[12:108, 16:144, ::-1], alpha[12:108, 16:144]])
+    frame[:, :, 3] = np.where(frame[:, :, 3] < 64, 0, frame[:, :, 3])
+    second = small[:96, :128, ::-1].copy()
+    out["anim_offset_160x120.webp"] = _animated(
+        [_anmf(_webp_frame(frame, lossless=True, exact=True), 16, 12, 128, 96),
+         _anmf(_webp_frame(second, quality=80), 0, 0, 128, 96)], (160, 120))
+    linear = (small.astype(np.float32) / 255) ** 2.2 * 1.5
+    out["rle_160x120.hdr"] = cv2.imencode(".hdr", linear, [
+        cv2.IMWRITE_HDR_COMPRESSION, cv2.IMWRITE_HDR_COMPRESSION_RLE])[1].tobytes()
+    tiny = cv2.resize(small, (80, 60), interpolation=cv2.INTER_AREA)
+    out["color_80x60.pfm"] = cv2.imencode(
+        ".pfm", tiny.astype(np.float32) * np.float32(300 / 255))[1].tobytes()
     return out
 
 
