@@ -142,7 +142,17 @@ Phases (any failure raises, and the script exits non-zero):
    synthetic://64?seed=0 at 416 px, batch_size_val 64, bf16, BN folded:
    IoU, Pr@50..90 and oIoU finite in [0, 1], every pair scored, K1 7
    times a device batch, every launch on the tensor cores, and pairs per
-   second on the host clock with the card's busy share.
+   second on the host clock with the card's busy share. (b) Whether PyYAML
+   is importable here, and all nine config files under config/ through
+   cli.get_parser (cris_tpu_torch/utils/yaml_subset.py, no PyYAML) equal
+   to tests/torch_config_fixtures/expected.json (yaml.safe_load's reading,
+   made with PyYAML where the tests run). (c) The G-Ref entry: main on
+   config/refcocog_u/cris_r50.yaml (R50, 416 px, word_len 22, bf16, BN
+   folded, seeded weights) over synthetic://16?seed=0 at batch_size_val
+   16, its masks materialised: K1 7 times a device batch (decoder
+   self-attention over 676 tokens, cross-attention over 22 padded word
+   keys, attnpool), every launch on the tensor cores, pairs per second
+   and the card's busy share.
 14. the train.py path (python3 -m cris_tpu_torch.train) at CRIS-R50, 416
    px, bf16, dropout 0.1, b64: (a) a seeded RN50 CLIP traced into a
    TorchScript archive with a released archive's scalar entries, passed
@@ -167,7 +177,7 @@ Phases (any failure raises, and the script exits non-zero):
    cris_tpu_torch/csrc; (b) 1280 records of the bench's 640 x 480 JPEG
    images and PNG masks (data/host_bench.make_test_jpegs, 20 seeds on a
    pool of processes) written with write_refpack; RefDataset.get_batch
-   (one plane call) against the per-sample __getitem__ on the first 64,
+   (one plane call) against the per-sample __getitem__ on the first 16,
    train and val: every array np.array_equal; (c)
    host_input_pipeline_640x480 (measure_host_pipeline's defaults: 64
    images, the plane on all threads and on one, 24 per sample) with the
@@ -213,7 +223,11 @@ Phases (any failure raises, and the script exits non-zero):
    first frame lies at an offset, an RLE Radiance HDR and a colour PFM)
    decode to the sha256 digests OpenCV gave (digests.json) under both
    flags, and their host decode times (the WebP, the progressive JPEG, the
-   TIFF and the JPEG 2000 beside the baseline twin); (b)
+   TIFF and the JPEG 2000 beside the baseline twin); the damaged JPEG and
+   PNG cases of damaged.json (a fixture, its XORed bytes) to cv2's
+   digests under both flags (a refusal where cv2 gives None) and to the
+   batch plane's digest: the card's host compiler gives this decoder's
+   bits for libjpeg-turbo's recovery and libpng's warnings; (b)
    make_server over an R50 PredictService (416 px, bf16, BN folded,
    seed-0 weights read from best_model.pth) on a thread: /healthz, the
    progressive JPEG with 3 sentences (rle), the RGBA PNG with 1 (png_b64),
@@ -225,8 +239,8 @@ Phases (any failure raises, and the script exits non-zero):
    the Sun raster, and in a third the JPEG 2000, the animated WebP and
    the HDR (the same); every mask equal to
    PredictService.predict on the decoded image; predict alone on this
-   thread and from a fresh thread a call, and a b1 device batch on one
-   thread against a fresh thread a call; (c) python3 -m
+   thread and from a fresh thread a call (10 calls each), and a b1 device
+   batch on one thread against a fresh thread a call (5 each); (c) python3 -m
    cris_tpu_torch.predict at R50 on the card with the same weights, on the
    lossy WebP fixture: two masks (0 / 255, the image's size) and two
    overlays, each the JPEG of its mask's blend.
@@ -381,6 +395,7 @@ import contextlib
 import copy
 import hashlib
 import importlib
+import importlib.util
 import json
 import os
 import shutil
@@ -589,7 +604,24 @@ def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
     (rows, max_abs_err, ``main_site``'s bf16 row)."""
     rows, worst = [], 0.0
     gen = torch.Generator(device="cuda").manual_seed(0)
+    first = set()
+
+    def first_call(what, fn):
+        """fn(), its wall time printed the first time ``what`` is seen:
+        where a cold start spends the phase's time."""
+        if what in first:
+            return fn()
+        first.add(what)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        print(f"K1 phase: first {what}: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        return result
+
     for site, b, s, t, h, d, masked, dtypes in sites:
+        row_t0 = time.perf_counter()
         e = h * d
         q = torch.randn(b, s, e, device="cuda", generator=gen)
         k = torch.randn(b, t, e, device="cuda", generator=gen)
@@ -605,9 +637,11 @@ def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
         for dtype in dtypes:
             qd, kd, vd = (packed.to(dtype).chunk(3, -1) if masked == "packed"
                           else (q.to(dtype), k.to(dtype), v.to(dtype)))
-            got, route = route_taken(fused, lambda: fused(qd, kd, vd, h, valid))
+            got, route = first_call(
+                f"kernel {dtype} {expected_route(dtype, d)}",
+                lambda: route_taken(fused, lambda: fused(qd, kd, vd, h, valid)))
             assert route == expected_route(dtype, d), (site, dtype, route)
-            ref = plain(qd, kd, vd, h, valid)
+            ref = first_call(f"plain {dtype}", lambda: plain(qd, kd, vd, h, valid))
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
             if dtype == torch.float32:
@@ -622,17 +656,21 @@ def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
             k2 = cuda_ms(lambda: fused(qd, kd, vd, h, valid))
             p2 = cuda_ms(lambda: plain(qd, kd, vd, h, valid))
             lib = _sdpa(qd, kd, vd, h, valid)
+            first_call(f"sdpa {dtype} {'masked' if valid is not None else 'full'}",
+                       lib)
             torch.testing.assert_close(lib().transpose(1, 2).reshape(ref.shape)
                                        .float(), ref.float(), rtol=2e-2,
                                        atol=2e-2)
             l1, l2 = cuda_ms(lib), cuda_ms(lib)
             # the same turns on the device alone: the tensor-core body runs
             # shorter than the wrapper's host time
+            dev_t0 = time.perf_counter()
             dp1 = device_ms(lambda: plain(qd, kd, vd, h, valid), 10)
             dk1 = device_ms(lambda: fused(qd, kd, vd, h, valid), 10)
             dk2 = device_ms(lambda: fused(qd, kd, vd, h, valid), 10)
             dp2 = device_ms(lambda: plain(qd, kd, vd, h, valid), 10)
             dl1, dl2 = device_ms(lib, 10), device_ms(lib, 10)
+            dev_s = time.perf_counter() - dev_t0
             es = qd.element_size()
             b_ms, b_by = bound(es * b * (2 * s + 2 * t) * e,
                                4.0 * b * h * s * t * d, dtype)
@@ -664,7 +702,9 @@ def phase_kernel(fused, plain, sites=K1_SITES, main_site="decoder self-attn"):
                   f"kernel {row['device_ms']:.4f} ms plain "
                   f"{row['plain_device_ms']:.4f} ms sdpa "
                   f"{row['library_device_ms']:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"({b_by}); wall {time.perf_counter() - row_t0:.2f} s, "
+                  f"{dev_s:.2f} s of it in the device-alone turns", flush=True)
+            row_t0 = time.perf_counter()
     main = next(r for r in rows if r["site"] == main_site
                 and r["dtype"] == "bfloat16")
     return rows, worst, main
@@ -2214,10 +2254,92 @@ def phase_test_path(k1):
     want = 7 * batches  # 3 decoder layers x 2 sites + attnpool
     assert launches == want, (launches, want)
     assert by_route == {"tensor_cores": want, "scalar": 0}, by_route
+    configs = phase_configs()
+    gref = phase_gref_entry(k1, entry)
     return {"iou": iou, "prec": prec, "run": run, "main_seconds": seconds,
             "busy_share": busy, "first_batch_rel_l2": rel,
             "codec_build_seconds": build_s, "K1": launches,
-            "K1_by_route": by_route}
+            "K1_by_route": by_route, "configs": configs, "gref": gref}
+
+
+CONFIG_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "torch_config_fixtures", "expected.json")
+
+
+def phase_configs():
+    """13(b): PyYAML importable here or not, and every config file read
+    through cli.get_parser equal to yaml.safe_load's flattening of it."""
+    from cris_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    has_yaml = ("importable, unused by the port"
+                if importlib.util.find_spec("yaml") else "not importable")
+    with open(CONFIG_FIXTURE) as f:
+        expected = json.load(f)["configs"]
+    for path, want in sorted(expected.items()):
+        cfg = cli.get_parser(argv=["--config", path])
+        got = {k: v for k, v in cfg.items() if k != "device"}
+        assert got == want, (path, {k for k in want if got.get(k) != want[k]})
+        assert all(type(got[k]) is type(want[k]) for k in want), path
+    seconds = time.perf_counter() - t0
+    print(f"13(b) PyYAML on this machine: {has_yaml}; the {len(expected)} "
+          f"config files through cli.get_parser equal yaml.safe_load's "
+          f"reading ({sorted(expected)}) in {seconds:.2f} s", flush=True)
+    return {"yaml": has_yaml, "files": len(expected), "seconds": seconds}
+
+
+GREF_CONFIG = os.path.join("config", "refcocog_u", "cris_r50.yaml")
+
+
+def phase_gref_entry(k1, entry):
+    """13(c): python3 -m cris_tpu_torch.test's main on the G-Ref R50
+    config (word_len 22) over synthetic://16?seed=0, b16, with seeded
+    weights: K1 7 times a device batch on the tensor cores; pairs/s and
+    the card's busy share."""
+    from cris_tpu_torch import cli
+    from cris_tpu_torch.data import SyntheticBackend
+    from cris_tpu_torch.models import build_segmenter
+
+    t_phase = time.perf_counter()
+    cfg = cli.get_parser(argv=["--config", GREF_CONFIG])
+    assert (cfg.dataset, cfg.word_len, cfg.input_size, cfg.precision,
+            cfg.fold_bn_eval) == ("refcocog_u", 22, 416, "bf16", True), cfg
+    uri, b = "synthetic://16?seed=0", 16
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, cfg.exp_name)
+        os.makedirs(out_dir)
+        torch.save({"state_dict": build_segmenter(cfg, device="cpu",
+                                                  seed=0).state_dict()},
+                   os.path.join(out_dir, "best_model.pth"))
+        masks = SyntheticBackend(16, seed=0).materialize_masks(
+            os.path.join(tmp, "masks"))
+        argv = ["--config", GREF_CONFIG, "--opts", "TRAIN.output_folder", tmp,
+                "TEST.test_lmdb", uri, "DATA.mask_root", masks,
+                "TRAIN.batch_size_val", str(b)]
+        reset_counts(k1)
+        t0 = time.perf_counter()
+        iou, prec = entry.main(argv)
+        seconds = time.perf_counter() - t0
+        launches, by_route = k1.launches, dict(k1.launches_by_route)
+        _close_log()
+        run = _run_line(os.path.join(out_dir, "test.log"))
+    busy = run["device_seconds"] / run["seconds"]
+    print(f"13(c) python3 -m cris_tpu_torch.test on {GREF_CONFIG} (R50 416 "
+          f"px, word_len 22, b{b}, bf16, folded, seeded weights) over {uri}: "
+          f"IoU {100 * iou:.2f}; {run['pairs']} pairs in {run['batches']} "
+          f"batches, {run['pairs_per_s']:.2f} pairs/s on the host clock "
+          f"({run['seconds']:.2f} s in inference, {seconds:.2f} s in main), "
+          f"the card busy {run['device_seconds']:.3f} s ({busy:.4f}); K1 "
+          f"{launches} launches, {launches / run['batches']:.1f} a batch, by "
+          f"route {by_route}; card {card_line()}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0
+               for v in [iou, *prec.values()]), (iou, prec)
+    want = 7 * run["batches"]
+    assert launches == want, (launches, want)
+    assert by_route == {"tensor_cores": want, "scalar": 0}, by_route
+    return {"iou": iou, "run": run, "main_seconds": seconds,
+            "busy_share": busy, "K1": launches, "K1_by_route": by_route}
 
 
 def phase_train_entry(k1, k2, k2_bwd):
@@ -2454,6 +2576,7 @@ def plane_calls():
 
 # phase 15's train.py A/B: a refpack of 1280 bench images (20 steps of 64)
 HOST_AB_RECORDS, HOST_AB_STEPS, HOST_AB_CHUNK = 1280, 20, 64
+PLANE_CHECK_RECORDS = 16  # 15(b): the records held plane against per sample
 
 
 def _bench_records(n: int) -> list:
@@ -2481,7 +2604,7 @@ def _bench_records(n: int) -> list:
 def phase_host_plane(k1, k2, k2_bwd):
     """15: the native data plane on the card's host: (a) the library built
     from csrc/; (b) RefDataset.get_batch through the plane against the
-    per-sample path on 64 640 x 480 JPEG records, train and val,
+    per-sample path on 16 640 x 480 JPEG records, train and val,
     np.array_equal on every array; (c) host_input_pipeline_640x480 at its
     module's default size; (d) python3 -m cris_tpu_torch.train at R50 b64
     bf16 over a refpack of 1280 such records, 20 steps an arm, the plane,
@@ -2519,7 +2642,7 @@ def phase_host_plane(k1, k2, k2_bwd):
         for mode in ("train", "val"):
             ds = RefDataset(val_pack, masks, cfg.dataset, "val", mode,
                             cfg.input_size, cfg.word_len)
-            idx = list(range(b))
+            idx = list(range(PLANE_CHECK_RECORDS))
             rngs = [np.random.RandomState(i) for i in idx]
             t0 = time.perf_counter()
             with plane_calls() as calls:
@@ -2529,7 +2652,7 @@ def phase_host_plane(k1, k2, k2_bwd):
             want = [ds.__getitem__(i, rng=np.random.RandomState(i))
                     for i in idx]
             sample_s = time.perf_counter() - t0
-            assert calls == [b], calls
+            assert calls == [len(idx)], calls
             arrays = 0
             for x, y in zip(got, want):
                 assert set(x) == set(y)
@@ -2540,7 +2663,7 @@ def phase_host_plane(k1, k2, k2_bwd):
                         arrays += 1
                     else:
                         assert x[key] == value, (mode, key)
-            print(f"(b) {mode}: {b} records ({HOST_AB_RECORDS} made in "
+            print(f"(b) {mode}: {len(idx)} records ({HOST_AB_RECORDS} made in "
                   f"{made_s:.1f} s): the plane's batch equals the per-sample "
                   f"path's, {arrays} arrays np.array_equal; plane "
                   f"{plane_s:.3f} s, per sample {sample_s:.3f} s", flush=True)
@@ -2860,6 +2983,7 @@ def phase_dp_ranks():
                                  ev(img, word)[:per])
                 del ev
             single_val = _dp_validate(torch.device("cuda"))
+            main_s = time.perf_counter() - t0
         finally:
             for p in procs:
                 p.join(DP_TIMEOUT)
@@ -2869,6 +2993,9 @@ def phase_dp_ranks():
                     p.join()
         codes = [p.exitcode for p in procs]
         assert codes == [0] * DP_WORLD, f"16(b) ranks exited {codes}"
+        print(f"16(b) wall: the one process's steps and validate "
+              f"{main_s:.1f} s, the ranks joined at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(DP_WORLD)]
     assert all(r["wrapped"] == "DistributedDataParallel" for r in ranks)
@@ -3606,6 +3733,66 @@ def _on_fresh_thread(fn, *args):
     return out[0]
 
 
+PREDICT_ALONE_CALLS = 10  # 17(b): predict alone, each way (b1 batches: half)
+
+
+def check_damaged(codec, data):
+    """17(a): each case of damaged.json (a fixture with bytes XORed; a
+    PNG's IDAT CRCs repaired) through decode_image and decode_mask to
+    cv2's digests, or refused where cv2 gives None, and through the batch
+    plane to its digest."""
+    import struct
+    import zlib
+
+    from cris_tpu_torch.data import batch_preprocess
+
+    with open(os.path.join(FIXTURES, "damaged.json")) as f:
+        table = json.load(f)
+    t0 = time.perf_counter()
+    refused = 0
+    for case in table["cases"]:
+        buf = bytearray(data[case["fixture"]])
+        for offset, xor in case["edits"]:
+            buf[offset] ^= xor
+        pos = 8
+        while case["fixture"].endswith(".png") and pos < len(buf):
+            length = struct.unpack(">I", buf[pos:pos + 4])[0]
+            if buf[pos + 4:pos + 8] == b"IDAT":
+                buf[pos + 8 + length:pos + 12 + length] = struct.pack(
+                    ">I", zlib.crc32(bytes(buf[pos + 4:pos + 8 + length])))
+            pos += 12 + length
+        buf = bytes(buf)
+        for key, decode in (("color", codec.decode_image),
+                            ("gray", codec.decode_mask)):
+            want = case[key]
+            if want is None:
+                try:
+                    decode(buf)
+                except ValueError:
+                    refused += 1
+                    continue
+                raise AssertionError(f"{case}: read where cv2 gives None")
+            img = decode(buf)
+            assert list(img.shape) == want["shape"], (case, img.shape)
+            assert hashlib.sha256(img.tobytes()).hexdigest() == \
+                want["sha256"], (case, key)
+        if case["plane"] is not None:
+            size = table["plane_size"]
+            images, masks, _, _ = batch_preprocess([buf], [buf], size,
+                                                   nthreads=1)
+            digest = hashlib.sha256(images[0].tobytes() +
+                                    masks[0].tobytes()).hexdigest()
+            assert digest == case["plane"], (case, "plane")
+    seconds = time.perf_counter() - t0
+    print(f"17(a) {len(table['cases'])} damaged JPEG and PNG cases "
+          f"({sorted({c['fixture'] for c in table['cases']})}) decode to "
+          f"OpenCV {table['opencv']}'s digests under both flags ({refused} "
+          f"refusals where cv2 gives None) and through the batch plane, in "
+          f"{seconds:.2f} s", flush=True)
+    return {"cases": len(table["cases"]), "refused": refused,
+            "seconds": seconds}
+
+
 def phase_front(k1):
     """17: (a) the committed decoder fixtures to OpenCV's digests, and
     their host decode times (the lossy WebP, the progressive JPEG, the
@@ -3645,6 +3832,7 @@ def phase_front(k1):
             assert digest == want[key]["sha256"], (name, key, digest)
     print(f"17(a) {len(data)} fixtures decode to OpenCV {table['opencv']}'s "
           f"digests under both flags: {sorted(data)}", flush=True)
+    damaged = check_damaged(codec, data)
     prog, base = (data[f"{k}_420_640x480.jpg"]
                   for k in ("progressive", "baseline"))
     # the 640 x 480 image as progressive and baseline JPEG and lossy WebP,
@@ -3895,11 +4083,11 @@ def phase_front(k1):
                     ("predict", lambda: service.predict(image, sents)),
                     ("predict_fresh_thread", lambda: _on_fresh_thread(
                         service.predict, image, sents))):
-                times = _times_ms(call, 20)
+                times = _times_ms(call, PREDICT_ALONE_CALLS)
                 latency[n][f"{key}_median_ms"] = _pct(times, 50)
                 latency[n][f"{key}_p90_ms"] = _pct(times, 90)
-            print(f"17(b) PredictService.predict alone, {n} sentence(s), 20 "
-                  f"calls: median {latency[n]['predict_median_ms']:.2f} ms "
+            print(f"17(b) PredictService.predict alone, {n} sentence(s), "
+                  f"{PREDICT_ALONE_CALLS} calls: median {latency[n]['predict_median_ms']:.2f} ms "
                   f"(p90 {latency[n]['predict_p90_ms']:.2f}) on this thread, "
                   f"{latency[n]['predict_fresh_thread_median_ms']:.2f} ms "
                   f"(p90 {latency[n]['predict_fresh_thread_p90_ms']:.2f}) "
@@ -3910,12 +4098,13 @@ def phase_front(k1):
         # this thread against one on a fresh thread a call
         word = np.ones((1, cfg.word_len), np.int64)
         zeros = np.zeros((1, 3, 416, 416), np.float32)
-        batch = {key: _times_ms(call, 10) for key, call in (
+        batch = {key: _times_ms(call, PREDICT_ALONE_CALLS // 2) for key, call in (
             ("this_thread", lambda: inner(zeros, word)),
             ("fresh_thread", lambda: _on_fresh_thread(inner, zeros, word)))}
         batch = {k: {"median_ms": _pct(v, 50), "p90_ms": _pct(v, 90)}
                  for k, v in batch.items()}
-        print(f"17(b) Evaluator.predict_probs at b1, 10 calls: median "
+        print(f"17(b) Evaluator.predict_probs at b1, "
+              f"{PREDICT_ALONE_CALLS // 2} calls: median "
               f"{batch['this_thread']['median_ms']:.2f} ms on one thread, "
               f"{batch['fresh_thread']['median_ms']:.2f} ms on a fresh "
               f"thread a call; card {card}", flush=True)
@@ -3959,7 +4148,7 @@ def phase_front(k1):
             "tiff_gif_ras_K1": raster_launches,
             "jp2_webpanim_hdr_K1": still_launches,
             "b1_batch_by_thread": batch,
-            "decode": decode, "service_build_s": build_s,
+            "decode": decode, "damaged": damaged, "service_build_s": build_s,
             "predict_entry_s": predict_s, "card": card}
 
 
@@ -5619,6 +5808,7 @@ def summary(out) -> dict:
         out["train"]
     bench = out["bench"]["launches"]  # phase 12, all on tensor_cores
     test_path = out["test_path"]  # phase 13
+    gref = test_path["gref"]  # phase 13(c)
     train_py = out["train_entry"]  # phase 14 (b), all on tensor_cores
     ab_py = out["host_plane"]["launches"]  # phase 15 (d), all tensor_cores
     dp_py = out["dp"]["entry"]["launches"]  # phase 16 (c), all tensor_cores
@@ -5709,7 +5899,7 @@ def summary(out) -> dict:
         "source": "cris_tpu_torch/csrc/attention_bse.cu",
         "replaces": "cris_tpu/ops/pallas/attention.py:165",
         "launches": (out["serving"]["K1"] + k1_train_n + folded["K1"]
-                     + bench["K1"] + test_path["K1"]
+                     + bench["K1"] + test_path["K1"] + gref["K1"]
                      + train_py["launches"]["K1"] + ab_py["K1"]
                      + dp_py["K1"] + front["K1"] + tp_py["K1"]
                      + sum(vit["launches"].values())),
@@ -5718,6 +5908,7 @@ def summary(out) -> dict:
                              "folded serving": folded["K1"],
                              "bench": bench["K1"],
                              "test.py": test_path["K1"],
+                             "test.py, G-Ref (word_len 22)": gref["K1"],
                              "train.py": train_py["launches"]["K1"],
                              "train.py A/B": ab_py["K1"],
                              "train.py torchrun": dp_py["K1"],
@@ -5729,7 +5920,8 @@ def summary(out) -> dict:
             + out["folded_routes"]["K1"][r]
             + (bench["K1"] + ab_py["K1"] + dp_py["K1"] + tp_py["K1"]
                if r == "tensor_cores" else 0)
-            + test_path["K1_by_route"][r] + train_py["by_route"]["K1"][r]
+            + test_path["K1_by_route"][r] + gref["K1_by_route"][r]
+            + train_py["by_route"]["K1"][r]
             + front["K1_by_route"][r] + vit["launches"][r]
             for r in k1_train_routes},
         "max_abs_err": max(out["k1_worst"], out["k1_grad_worst"],

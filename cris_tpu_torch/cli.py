@@ -2,9 +2,8 @@
 cris_tpu/cli.py:89-161): ``--config path.yaml [--device cpu] --opts KEY
 VALUE ...``, and the training model with its initial weights.
 
-The YAML file is read with PyYAML where it is installed; without it (the
-card's machine) the RefCOCO presets of ``utils.config.config_for`` serve
-their two files. ``--opts`` takes the rest of the command line, so
+The YAML file is read by ``utils.yaml_subset`` (no PyYAML), the same
+on every machine. ``--opts`` takes the rest of the command line, so
 ``--device`` comes before it. Under ``torchrun`` each rank joins the
 process group, takes its own card and its place in the (data, model)
 rank grid of ``dp_size`` x ``tp_size`` (``init_device``); with
@@ -25,19 +24,11 @@ from .checkpoint import load_clip_torchscript, load_cris_checkpoint
 from .models import CRIS, build_segmenter, shard_model
 from .parallel import grid, init_distributed, init_grid
 from .parallel.tensor import load_full_state_dict
-from .utils.config import (CfgNode, config_for, load_cfg_from_cfg_file,
-                           merge_cfg_from_list)
+from .utils.config import CfgNode, load_cfg_from_cfg_file, merge_cfg_from_list
 from .utils.logging import logger
 
 
-def load_config(path: str) -> CfgNode:
-    """The flat config of a YAML file: parsed when PyYAML is installed,
-    else ``config_for``'s preset."""
-    try:
-        import yaml  # noqa: F401
-    except ImportError:
-        return config_for(path)
-    return load_cfg_from_cfg_file(path)
+load_config = load_cfg_from_cfg_file  # the flat config of a YAML file
 
 
 def get_parser(description: str = "CRIS referring expression segmentation",

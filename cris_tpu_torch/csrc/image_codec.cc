@@ -11,8 +11,9 @@
 //     progressive scan kinds (DC first, DC refinement, AC first with
 //     end-of-band runs, AC refinement) into a whole-image coefficient
 //     buffer, each component's quantization table latched at its first scan;
-//   - jidctint.c jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, the
-//     post-IDCT range-limit table indexed by value & 1023);
+//   - the islow inverse DCT as libjpeg-turbo's x86 SIMD runs it
+//     (jsimd_idct_islow: 16-bit lanes that wrap and saturate, see
+//     idct_islow);
 //   - jdsample.c fancy upsampling: h2v1_fancy_upsample and
 //     h2v2_fancy_upsample (the 8/7 bias alternating along a row, the row
 //     above or below as context, the top and bottom rows replicated as
@@ -29,12 +30,21 @@
 // IDCT of the final coefficients is its output. One whose scans leave
 // low-frequency coefficients approximate (which libjpeg would smooth) is
 // refused.
+// A damaged stream decodes as libjpeg-turbo decodes it where it only warns
+// (see BitReader and the scan decoders): a run past the last coefficient,
+// a bad Huffman code, data that runs into a marker (the rest of the
+// interval from zero bits), RSTn missing or out of order (its resync),
+// bytes before a marker, a sequential scan's odd Ss / Se / Ah / Al, a
+// progression out of order, and anything after the scan of a one-pass
+// file (jdinput.c: one scan of every component). Where OpenCV's source
+// runs out (a fill past the end of the data) cv2.imdecode gives None,
+// and the decoder refuses.
 // Only integer arithmetic is used for JPEG, so its bits do not depend on
 // the compiler.
 // Lossless, arithmetic-coded and hierarchical frames, 12-bit samples, and
-// corrupt or truncated streams are refused with a
-// message that names the marker or the fault. The APP1 orientation tag is
-// applied as OpenCV's ApplyExifOrientation applies it.
+// what libjpeg refuses are refused with a message that names the marker or
+// the fault. The APP1 orientation tag is applied as OpenCV's
+// ApplyExifOrientation applies it.
 //
 // PNG: colour types 0, 2, 3, 4 and 6 at every bit depth they allow, with or
 // without Adam7, read as OpenCV asks libpng to read them (decode_png says
@@ -45,6 +55,8 @@
 // CRC is dropped, a critical one refused; a critical chunk other than
 // IHDR, PLTE, IDAT and IEND is refused. 16-bit colour read as gray under a
 // file gamma is refused (libpng's 16-bit gamma tables are not reproduced).
+// A fault in the IDAT stream after the call that inflated the last row (a
+// bad Adler-32 among them) is libpng's warning, and the image is read.
 // The inflate is RFC 1950/1951 (stored, fixed and dynamic blocks,
 // Adler-32), written here because the zlib header is not known to exist on
 // every host.
@@ -116,121 +128,243 @@ const int kZigzag[64] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
-constexpr int kLookBits = 9;
+// jpeg_natural_order with libjpeg's 16 extra entries: a corrupt run that
+// takes the zigzag index past 63 writes coefficient 63.
+struct Natural {
+  int at[80];
+  Natural() {
+    for (int k = 0; k < 80; ++k) at[k] = k < 64 ? kZigzag[k] : 63;
+  }
+};
+const Natural kNatural;
+
+constexpr int kLookBits = 8;  // HUFF_LOOKAHEAD
 using cris::kMaxPixels;
 
-struct Huffman {
+// A DHT table as get_dht keeps it: checked only when a scan uses it.
+struct HuffSpec {
   bool defined = false;
-  uint8_t vals[256];
-  int32_t maxcode[18];
-  int32_t valptr[17];
-  int32_t mincode[17];
-  uint16_t look[1 << kLookBits];  // (length << 8) | value; 0: longer code
+  uint8_t bits[17] = {};
+  uint8_t vals[256] = {};
 };
 
-void build_huffman(Huffman& h, const uint8_t* bits, const uint8_t* vals,
-                   int nvals) {
-  std::memcpy(h.vals, vals, (size_t)nvals);
-  std::memset(h.look, 0, sizeof h.look);
+// jdhuff.c's d_derived_tbl.
+struct Huffman {
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint16_t look[1 << kLookBits];  // (length << 8) | value; length 9: longer
+  uint8_t vals[256];
+};
+
+// jpeg_make_d_derived_tbl, run at the start of each scan for the tables
+// it uses: a code set that overflows its lengths (or uses the all-ones
+// code), or a DC symbol above 15, is refused.
+void build_huffman(Huffman& h, const HuffSpec& spec, bool dc) {
+  int huffsize[257], huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    for (int i = 0; i < spec.bits[l]; ++i) huffsize[p++] = l;
+  }
+  huffsize[p] = 0;
+  const int nsymbols = p;
   int32_t code = 0;
-  int k = 0;
-  for (int len = 1; len <= 16; ++len) {
-    h.valptr[len] = k;
-    h.mincode[len] = code;
-    code += bits[len - 1];
-    k += bits[len - 1];
-    if (code > (1 << len)) fail("DHT: bad Huffman table");
-    h.maxcode[len] = bits[len - 1] ? code - 1 : -1;
-    if (len <= kLookBits) {
-      for (int c = h.mincode[len]; c <= h.maxcode[len]; ++c) {
-        int v = h.vals[h.valptr[len] + c - h.mincode[len]];
-        int lo = c << (kLookBits - len), n = 1 << (kLookBits - len);
-        for (int i = 0; i < n; ++i) h.look[lo + i] = (uint16_t)(len << 8 | v);
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) {
+      huffcode[p++] = code;
+      ++code;
+    }
+    if (code >= (1 << si)) fail("DHT: bad Huffman table");
+    code <<= 1;
+    ++si;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (spec.bits[l]) {
+      h.valoffset[l] = p - huffcode[p];
+      p += spec.bits[l];
+      h.maxcode[l] = huffcode[p - 1];
+    } else {
+      h.maxcode[l] = -1;
+    }
+  }
+  h.valoffset[17] = 0;
+  h.maxcode[17] = 0xFFFFF;
+  for (uint16_t& e : h.look) e = (kLookBits + 1) << 8;
+  p = 0;
+  for (int l = 1; l <= kLookBits; ++l) {
+    for (int i = 0; i < spec.bits[l]; ++i, ++p) {
+      int lookbits = huffcode[p] << (kLookBits - l);
+      for (int n = 1 << (kLookBits - l); n > 0; --n) {
+        h.look[lookbits++] = (uint16_t)(l << 8 | spec.vals[p]);
       }
     }
-    code <<= 1;
   }
-  h.maxcode[17] = INT32_MAX;
-  h.defined = true;
+  if (dc) {
+    for (int i = 0; i < nsymbols; ++i) {
+      if (spec.vals[i] > 15) fail("DHT: bad Huffman table");
+    }
+  }
+  std::memcpy(h.vals, spec.vals, sizeof h.vals);
 }
 
-// Entropy-coded data: 0xFF00 is a stuffed 0xFF; at a marker (or the end of
-// the data) zero bits are fed, and consuming one of them is a fault.
+// jdmarker.c next_marker from p: skip to an 0xFF, past fill bytes, and
+// over a stuffed 0xFF00; the marker code, or -1 at the end of the data.
+int find_marker(const uint8_t*& p, const uint8_t* end) {
+  for (;;) {
+    while (p < end && *p != 0xFF) ++p;
+    while (p < end && *p == 0xFF) ++p;
+    if (p >= end) return -1;
+    const int c = *p++;
+    if (c != 0) return c;
+  }
+}
+
+// Entropy-coded data as libjpeg-turbo reads it (jdhuff.c
+// jpeg_fill_bit_buffer, HUFF_DECODE, jpeg_huff_decode): a fill loads
+// whole bytes up to 57 bits, an 0xFF followed by 0xFFs and 0x00 is one
+// 0xFF byte, and any other 0xFF pair is a marker, after which the buffer
+// is padded with zero bits. A fill that needs bits past the marker sets
+// `insufficient` (JWRN_HIT_MARKER): the MCU goes on from the zeros, and
+// the MCUs after it are left as they are until a restart. A fill that
+// reaches the end of the data is where OpenCV's source suspends, and
+// cv2.imdecode gives None: a fault. (Sequential scans take libjpeg's fast
+// path when 512 bytes a block are left; it fills in other steps, which
+// moves no fill near the end of the data, where this matters.)
+constexpr const char* kDataEnds =
+    "SOS: corrupt entropy-coded data (premature end: the data ends with no EOI marker)";
+
 struct BitReader {
   const uint8_t* p;
   const uint8_t* end;
-  uint32_t acc = 0;
-  int nbits = 0;
-  int fake = 0;  // zero bits at the tail of acc that are not in the stream
-  bool at_marker = false;
+  uint64_t buf = 0;  // get_buffer: the low `left` bits are unread
+  int left = 0;
+  int marker = 0;  // unread_marker
+  bool insufficient = false;
+  // decode_mcu_fast's reading (GET_BYTE): an 0xFF not followed by 0x00,
+  // another 0xFF included, is a marker
+  bool fast = false;
 
   BitReader(const uint8_t* p_, const uint8_t* e_) : p(p_), end(e_) {}
 
-  void fill() {
-    while (nbits <= 24) {
-      uint32_t byte = 0;
-      if (!at_marker) {
-        if (p >= end) {
-          at_marker = true;
-        } else if (*p == 0xFF) {
-          if (p + 1 < end && p[1] == 0x00) {
-            byte = 0xFF;
-            p += 2;
+  int byte() {
+    if (p >= end) fail(kDataEnds);
+    return *p++;
+  }
+
+  void fill(int nbits) {
+    if (!marker) {
+      while (left < 57) {
+        int c = byte();
+        if (c == 0xFF && fast) {
+          if (p < end && *p == 0) {
+            ++p;
           } else {
-            at_marker = true;
+            marker = p < end ? *p : 0xD9;
+            --p;
+            break;
           }
-        } else {
-          byte = *p++;
+        } else if (c == 0xFF) {
+          do {
+            c = byte();
+          } while (c == 0xFF);
+          if (c != 0) {
+            marker = c;
+            break;
+          }
+          c = 0xFF;
         }
+        buf = buf << 8 | (uint64_t)c;
+        left += 8;
       }
-      if (at_marker) fake += 8;
-      acc |= byte << (24 - nbits);
-      nbits += 8;
+      if (!marker) return;
+    }
+    if (nbits > left) {
+      insufficient = true;
+      buf <<= 57 - left;
+      left = 57;
     }
   }
 
-  void consume(int n) {
-    acc <<= n;
-    nbits -= n;
-    if (nbits < fake) fail("SOS: corrupt entropy-coded data (premature end)");
+  int take(int n) {  // GET_BITS
+    left -= n;
+    return (int)(buf >> left) & ((1 << n) - 1);
   }
 
-  int bits(int n) {
+  int bits(int n) {  // CHECK_BIT_BUFFER, then GET_BITS
     if (n == 0) return 0;
-    fill();
-    int v = (int)(acc >> (32 - n));
-    consume(n);
-    return v;
+    if (left < n) fill(n);
+    return take(n);
   }
 
+  // HUFF_DECODE: a code that no length matches ends at 17 bits and
+  // decodes as 0 (JWRN_HUFF_BAD_CODE).
   int decode(const Huffman& h) {
-    fill();
-    int e = h.look[acc >> (32 - kLookBits)];
-    if (e) {
-      consume(e >> 8);
-      return e & 0xFF;
-    }
-    for (int len = kLookBits + 1; len <= 16; ++len) {
-      int32_t code = (int32_t)(acc >> (32 - len));
-      if (code <= h.maxcode[len]) {
-        consume(len);
-        return h.vals[h.valptr[len] + code - h.mincode[len]];
+    int nb = 1;
+    if (left < kLookBits) fill(0);
+    if (left >= kLookBits) {
+      const int e = h.look[(buf >> (left - kLookBits)) & ((1 << kLookBits) - 1)];
+      nb = e >> 8;
+      if (nb <= kLookBits) {
+        left -= nb;
+        return e & 0xFF;
       }
     }
-    fail("SOS: corrupt entropy-coded data (bad Huffman code)");
+    int32_t code;
+    if (left >= 17) {  // the longest search, 17 bits, needs no fill
+      code = (int32_t)(buf >> (left - nb)) & ((1 << nb) - 1);
+      while (code > h.maxcode[nb]) {
+        ++nb;
+        code = (int32_t)(buf >> (left - nb)) & ((1 << nb) - 1);
+      }
+      left -= nb;
+    } else {
+      code = bits(nb);
+      while (code > h.maxcode[nb]) {
+        code = code << 1 | bits(1);
+        ++nb;
+      }
+    }
+    if (nb > 16) return 0;
+    return h.vals[(code + h.valoffset[nb]) & 0xFF];
   }
 
-  // After a restart interval: drop the padding bits and read RSTn.
-  void restart(int expect) {
-    if (nbits - fake >= 8) fail("RST%d: marker expected", expect);
-    if (!(p + 1 < end && p[0] == 0xFF && p[1] == 0xD0 + expect)) {
-      fail("RST%d: marker expected", expect);
+  // jdhuff.c process_restart: drop the buffered bits, read RSTn
+  // (jdmarker.c read_restart_marker, or jpeg_resync_to_restart when it is
+  // not the one expected), and resume unless a marker is still ahead.
+  void restart(int& next) {
+    left = 0;
+    if (!marker) marker = next_marker();
+    if (marker == 0xD0 + next) {
+      marker = 0;
+    } else {
+      for (;;) {
+        int action = 1;  // take it as RSTn and go on
+        if (marker < 0xC0) {
+          action = 2;  // not a marker: scan to the next
+        } else if (marker < 0xD0 || marker > 0xD7) {
+          action = 3;  // a marker after the scan: leave it for later
+        } else if (marker == 0xD0 + ((next + 1) & 7) ||
+                   marker == 0xD0 + ((next + 2) & 7)) {
+          action = 3;
+        } else if (marker == 0xD0 + ((next - 1) & 7) ||
+                   marker == 0xD0 + ((next - 2) & 7)) {
+          action = 2;
+        }
+        if (action == 1) marker = 0;
+        if (action != 2) break;
+        marker = next_marker();
+      }
     }
-    p += 2;
-    acc = 0;
-    nbits = 0;
-    fake = 0;
-    at_marker = false;
+    next = (next + 1) & 7;
+    if (!marker) insufficient = false;
+  }
+
+  int next_marker() {
+    const int m = find_marker(p, end);
+    if (m < 0) fail(kDataEnds);
+    return m;
   }
 };
 
@@ -258,6 +392,12 @@ struct Jpeg {
   int mcux = 0, mcuy = 0;
   int restart = 0;
   bool frame = false, scanned = false, progressive = false;
+  // jdinput.c initial_setup: a file whose first scan holds every component
+  // of a sequential frame is decoded in one pass, as OpenCV reads it, and
+  // nothing after that scan is read (jpeg_finish_decompress's faults are
+  // not OpenCV's); any other is absorbed to its EOI.
+  bool one_pass = false;
+  int pending = 0;  // a marker the last scan's data ran into (unread_marker)
   int scans = 0;
   // Progressive: the Al of each coefficient's (zigzag index) last scan,
   // -1 before its first, as libjpeg's coef_bits.
@@ -267,7 +407,7 @@ struct Jpeg {
   long long app1_off = -1, app1_len = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
-  Huffman dc[4], ac[4];
+  HuffSpec dc[4], ac[4];
   Component comp[4];
 
   Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {
@@ -286,11 +426,16 @@ struct Jpeg {
   }
 
   int next_marker() {
-    // skip to 0xFF, then past fill bytes
-    while (pos < size && data[pos] != 0xFF) ++pos;
-    while (pos < size && data[pos] == 0xFF) ++pos;
-    if (pos >= size) fail("JPEG: no EOI marker (truncated data)");
-    return data[pos++];
+    if (pending) {
+      const int m = pending;
+      pending = 0;
+      return m;
+    }
+    const uint8_t* p = data + pos;
+    const int m = find_marker(p, data + size);
+    if (m < 0) fail("JPEG: no EOI marker (truncated data)");
+    pos = (size_t)(p - data);
+    return m;
   }
 
   size_t segment(int marker) {
@@ -357,7 +502,7 @@ struct Jpeg {
     size_t stop = segment(0xDB);
     while (pos < stop) {
       int pq_tq = u8(), pq = pq_tq >> 4, tq = pq_tq & 15;
-      if (pq > 1 || tq > 3) fail("DQT: bad table");
+      if (tq > 3) fail("DQT: bad table");  // any Pq but 0 reads 16-bit values (get_dqt)
       for (int k = 0; k < 64; ++k) {
         qt[tq][kZigzag[k]] = (uint16_t)(pq ? u16() : u8());
       }
@@ -371,15 +516,16 @@ struct Jpeg {
     while (pos < stop) {
       int tc_th = u8(), tc = tc_th >> 4, th = tc_th & 15;
       if (tc > 1 || th > 3) fail("DHT: bad table class or index");
-      uint8_t bits[16], vals[256];
+      HuffSpec& h = tc ? ac[th] : dc[th];
       int total = 0;
-      for (int i = 0; i < 16; ++i) {
-        bits[i] = (uint8_t)u8();
-        total += bits[i];
+      for (int i = 1; i <= 16; ++i) {
+        h.bits[i] = (uint8_t)u8();
+        total += h.bits[i];
       }
-      if (total > 256) fail("DHT: bad Huffman table");
-      for (int i = 0; i < total; ++i) vals[i] = (uint8_t)u8();
-      build_huffman(tc ? ac[th] : dc[th], bits, vals, total);
+      if (total > 256 || pos + (size_t)total > stop) fail("DHT: bad Huffman table");
+      std::memset(h.vals, 0, sizeof h.vals);
+      for (int i = 0; i < total; ++i) h.vals[i] = (uint8_t)u8();
+      h.defined = true;
     }
     if (pos != stop) fail("DHT: bad segment length");
   }
@@ -410,7 +556,8 @@ struct Jpeg {
   }
 
   // jdphuff.c start_pass_phuff_decoder's checks of a progressive scan, and
-  // the coefficients' progression (which libjpeg only warns about).
+  // the coefficients' progression, which libjpeg only warns about
+  // (JWRN_BOGUS_PROGRESSION) and records as it comes.
   void check_progression(Component* const* sc, int ns, int ss, int se,
                          int ah, int al) {
     bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
@@ -423,87 +570,120 @@ struct Jpeg {
       throw Fault(msg);
     }
     for (int i = 0; i < ns; ++i) {
-      const int ci = (int)(sc[i] - comp);
-      int* bits = coef_bits[ci];
-      if (ss > 0 && bits[0] < 0) {
-        fail("SOS: an AC scan of component %d before its DC scan", ci);
-      }
-      for (int k = ss; k <= se; ++k) {
-        if (ah != (bits[k] < 0 ? 0 : bits[k])) {
-          fail("SOS: component %d, coefficient %d refined out of order", ci, k);
-        }
-        bits[k] = al;
-      }
+      int* bits = coef_bits[sc[i] - comp];
+      for (int k = ss; k <= se; ++k) bits[k] = al;
     }
   }
 
-  // Calls block(i, coefficients) for every block of the scan in stream
-  // order: a one-component scan covers that component's own
-  // ceil(dw / 8) x ceil(dh / 8) blocks, an interleaved one whole MCUs. At
-  // each restart interval it reads RSTn and calls reset().
-  template <class Block, class Reset>
-  void each_block(Component* const* sc, int ns, BitReader& br, Block&& block,
-                  Reset&& reset) {
-    long long units, across;
-    if (ns == 1) {
-      const Component& c = *sc[0];
-      across = (c.dw + 7) / 8;
-      units = across * ((c.dh + 7) / 8);
-    } else {
-      across = mcux;
-      units = (long long)mcux * mcuy;
-    }
-    auto at = [](Component& c, int bx, int by) {
-      return &c.coef[((size_t)by * c.bw + bx) * 64];
-    };
+  // Calls mcu(u) for every MCU u of the scan in stream order (a
+  // one-component scan's MCU is one of that component's own
+  // ceil(dw / 8) x ceil(dh / 8) blocks). At each restart interval it reads
+  // RSTn and calls reset(). Once the data has run out (br.insufficient),
+  // an MCU is left as it is.
+  template <class Mcu, class Reset>
+  void each_mcu(Component* const* sc, int ns, BitReader& br, Mcu&& mcu,
+                Reset&& reset) {
+    const long long units =
+        ns == 1 ? (long long)((sc[0]->dw + 7) / 8) * ((sc[0]->dh + 7) / 8)
+                : (long long)mcux * mcuy;
     int rst = 0;
     for (long long u = 0; u < units; ++u) {
       if (restart && u > 0 && u % restart == 0) {
         br.restart(rst);
-        rst = (rst + 1) & 7;
         reset();
       }
-      const int ux = (int)(u % across), uy = (int)(u / across);
-      if (ns == 1) {
-        block(0, at(*sc[0], ux, uy));
-        continue;
-      }
-      for (int i = 0; i < ns; ++i) {
-        Component& c = *sc[i];
-        for (int y = 0; y < c.v; ++y) {
-          for (int x = 0; x < c.h; ++x) {
-            block(i, at(c, ux * c.h + x, uy * c.v + y));
-          }
+      if (!br.insufficient) mcu(u);
+    }
+  }
+
+  // Calls block(i, coefficients) for every block of MCU u.
+  template <class Block>
+  void mcu_blocks(Component* const* sc, int ns, long long u, Block&& block) {
+    auto at = [](Component& c, int bx, int by) {
+      return &c.coef[((size_t)by * c.bw + bx) * 64];
+    };
+    const long long across = ns == 1 ? (sc[0]->dw + 7) / 8 : mcux;
+    const int ux = (int)(u % across), uy = (int)(u / across);
+    if (ns == 1) {
+      block(0, at(*sc[0], ux, uy));
+      return;
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      for (int y = 0; y < c.v; ++y) {
+        for (int x = 0; x < c.h; ++x) {
+          block(i, at(c, ux * c.h + x, uy * c.v + y));
         }
       }
     }
   }
 
+  template <class Block, class Reset>
+  void each_block(Component* const* sc, int ns, BitReader& br, Block&& block,
+                  Reset&& reset) {
+    each_mcu(sc, ns, br, [&](long long u) { mcu_blocks(sc, ns, u, block); },
+             reset);
+  }
+
   // A baseline / extended-sequential scan: all 64 coefficients of each
-  // block (jdhuff.c).
-  void sequential_scan(Component* const* sc, int ns, const int* td,
-                       const int* ta, BitReader& br) {
-    int pred[4] = {0, 0, 0, 0};
-    each_block(sc, ns, br, [&](int i, int16_t* blk) {
-      int s = br.decode(dc[td[i]]);
-      if (s > 15) fail("SOS: corrupt entropy-coded data (DC size %d)", s);
-      pred[i] += extend(br.bits(s), s);
-      blk[0] = (int16_t)pred[i];
-      const Huffman& h = ac[ta[i]];
-      for (int k = 1; k < 64;) {
-        int rs = br.decode(h), r = rs >> 4;
+  // block (jdhuff.c decode_mcu_slow). Where libjpeg-turbo takes its fast
+  // path (no restart interval, 512 bytes a block left, no marker met) and
+  // that path reads an 0xFF 0xFF 0x00 as a marker, it gives up the MCU to
+  // the slow path, which decodes it again over the coefficients the fast
+  // one wrote: the blocks keep those the slow path does not write.
+  void sequential_scan(Component* const* sc, int ns, const Huffman* dct,
+                       const Huffman* act, BitReader& br) {
+    unsigned pred[4] = {0, 0, 0, 0};
+    auto block = [&](BitReader& in, unsigned* last, int i, int16_t* blk) {
+      int s = in.decode(dct[i]);
+      last[i] += (unsigned)extend(in.bits(s), s);
+      blk[0] = (int16_t)last[i];
+      for (int k = 1; k < 64; ++k) {
+        const int rs = in.decode(act[i]), r = rs >> 4;
         s = rs & 15;
         if (s) {
           k += r;
-          if (k > 63) fail("SOS: corrupt entropy-coded data (AC index)");
-          blk[kZigzag[k]] = (int16_t)extend(br.bits(s), s);
-          ++k;
+          blk[kNatural.at[k]] = (int16_t)extend(in.bits(s), s);
         } else if (r == 15) {
-          k += 16;
+          k += 15;
         } else {
           break;
         }
       }
+    };
+    size_t blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : sc[i]->h * sc[i]->v;
+    bool doubled_ahead = false;  // an 0xFF 0xFF anywhere after the scan's start
+    for (const uint8_t* q = br.p; q + 1 < br.end && !doubled_ahead; ++q) {
+      q = (const uint8_t*)std::memchr(q, 0xFF, (size_t)(br.end - q));
+      if (!q) break;
+      doubled_ahead = q + 1 < br.end && q[1] == 0xFF;
+    }
+    each_mcu(sc, ns, br, [&](long long u) {
+      if (!doubled_ahead) {
+        mcu_blocks(sc, ns, u, [&](int i, int16_t* blk) { block(br, pred, i, blk); });
+        return;
+      }
+      const BitReader start = br;
+      unsigned before[4];
+      std::memcpy(before, pred, sizeof pred);
+      mcu_blocks(sc, ns, u, [&](int i, int16_t* blk) { block(br, pred, i, blk); });
+      if (restart || start.marker || (size_t)(start.end - start.p) < 512 * blocks) return;
+      const uint8_t* to = br.p + 16 < br.end ? br.p + 16 : br.end;
+      bool doubled = false;
+      for (const uint8_t* q = start.p; q + 1 < to && !doubled; ++q) {
+        doubled = q[0] == 0xFF && q[1] == 0xFF;
+      }
+      if (!doubled) return;
+      BitReader fast = start;
+      fast.fast = true;
+      unsigned last[4];
+      std::memcpy(last, before, sizeof last);
+      mcu_blocks(sc, ns, u, [&](int i, int16_t* blk) { block(fast, last, i, blk); });
+      if (!fast.marker) return;
+      br = start;
+      std::memcpy(pred, before, sizeof pred);
+      mcu_blocks(sc, ns, u, [&](int i, int16_t* blk) { block(br, pred, i, blk); });
     }, [&] { pred[0] = pred[1] = pred[2] = pred[3] = 0; });
   }
 
@@ -511,11 +691,13 @@ struct Jpeg {
   // (the difference shifted up by Al), DC refinement (one bit), AC first
   // over Ss..Se with end-of-band runs, AC refinement (a correction bit for
   // each coefficient already nonzero, new coefficients of +-2^Al). The
-  // predictors and the end-of-band run restart at each RSTn.
-  void progressive_scan(Component* const* sc, int ns, const int* td,
-                        const int* ta, int ss, int se, int ah, int al,
+  // predictors and the end-of-band run restart at each RSTn. A run past Se
+  // writes the coefficient it lands on, and a new refinement coefficient
+  // of a size other than 1 is taken as 1 (libjpeg warns).
+  void progressive_scan(Component* const* sc, int ns, const Huffman* dct,
+                        const Huffman& act, int ss, int se, int ah, int al,
                         BitReader& br) {
-    int pred[4] = {0, 0, 0, 0};
+    unsigned pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     const int p1 = 1 << al, m1 = -p1;
     auto reset = [&] { pred[0] = pred[1] = pred[2] = pred[3] = eobrun = 0; };
@@ -526,28 +708,30 @@ struct Jpeg {
     };
     if (ss == 0 && ah == 0) {
       each_block(sc, ns, br, [&](int i, int16_t* blk) {
-        int s = br.decode(dc[td[i]]);
-        if (s > 15) fail("SOS: corrupt entropy-coded data (DC size %d)", s);
-        pred[i] += extend(br.bits(s), s);
-        blk[0] = (int16_t)(pred[i] * (1 << al));
+        const int s = br.decode(dct[i]);
+        const int d = extend(br.bits(s), s);
+        const int last = (int)pred[i];
+        if ((last >= 0 && d > INT_MAX - last) || (last < 0 && d < INT_MIN - last)) {
+          fail("SOS: corrupt entropy-coded data (DC overflow)");
+        }
+        pred[i] += (unsigned)d;
+        blk[0] = (int16_t)(pred[i] << al);
       }, reset);
     } else if (ss == 0) {
       each_block(sc, ns, br, [&](int, int16_t* blk) {
         if (br.bits(1)) blk[0] = (int16_t)(blk[0] | p1);
       }, reset);
     } else if (ah == 0) {
-      const Huffman& h = ac[ta[0]];
       each_block(sc, ns, br, [&](int, int16_t* blk) {
         if (eobrun > 0) {
           --eobrun;
           return;
         }
         for (int k = ss; k <= se; ++k) {
-          const int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+          const int rs = br.decode(act), r = rs >> 4, s = rs & 15;
           if (s) {
             k += r;
-            if (k > se) fail("SOS: corrupt entropy-coded data (AC index)");
-            blk[kZigzag[k]] = (int16_t)(extend(br.bits(s), s) * (1 << al));
+            blk[kNatural.at[k]] = (int16_t)((unsigned)extend(br.bits(s), s) << al);
           } else if (r == 15) {
             k += 15;
           } else {
@@ -557,14 +741,12 @@ struct Jpeg {
         }
       }, reset);
     } else {
-      const Huffman& h = ac[ta[0]];
       each_block(sc, ns, br, [&](int, int16_t* blk) {
         int k = ss;
         if (eobrun == 0) {
           for (; k <= se; ++k) {
-            int rs = br.decode(h), r = rs >> 4, s = rs & 15;
+            int rs = br.decode(act), r = rs >> 4, s = rs & 15;
             if (s) {
-              if (s != 1) fail("SOS: corrupt entropy-coded data (refinement)");
               s = br.bits(1) ? p1 : m1;
             } else if (r != 15) {
               eobrun = eob_run(r);
@@ -572,22 +754,19 @@ struct Jpeg {
             }
             // skip r zero coefficients, refining the nonzero ones on the way
             for (; k <= se; ++k) {
-              int16_t& c = blk[kZigzag[k]];
+              int16_t& c = blk[kNatural.at[k]];
               if (c != 0) {
                 refine(c);
               } else if (--r < 0) {
                 break;
               }
             }
-            if (s) {
-              if (k > se) fail("SOS: corrupt entropy-coded data (AC index)");
-              blk[kZigzag[k]] = (int16_t)s;
-            }
+            if (s) blk[kNatural.at[k]] = (int16_t)s;
           }
         }
         if (eobrun > 0) {  // the rest of the band: only refinement bits
           for (; k <= se; ++k) {
-            if (blk[kZigzag[k]] != 0) refine(blk[kZigzag[k]]);
+            if (blk[kNatural.at[k]] != 0) refine(blk[kNatural.at[k]]);
           }
           --eobrun;
         }
@@ -619,19 +798,22 @@ struct Jpeg {
       for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
       if (blocks > 10) fail("SOS: %d blocks in an MCU (libjpeg allows 10)", blocks);
     }
-    // the tables the scan decodes with
+    if (!scanned) one_pass = !progressive && ns == ncomp;
+    // a sequential scan's Ss, Se, Ah and Al are not read (libjpeg warns
+    // when they are not 0, 63, 0, 0)
+    if (progressive) check_progression(sc, ns, ss, se, ah, al);
+    // the tables the scan decodes with, built as it starts
     const bool dc_coded = !progressive || (ss == 0 && ah == 0);
     const bool ac_coded = !progressive || ss > 0;
+    Huffman dct[4], act[4];
     for (int i = 0; i < ns; ++i) {
-      if (td[i] > 3 || ta[i] > 3 || (dc_coded && !dc[td[i]].defined) ||
-          (ac_coded && !ac[ta[i]].defined)) {
+      if ((dc_coded && (td[i] > 3 || !dc[td[i]].defined)) ||
+          (ac_coded && (ta[i] > 3 || !ac[ta[i]].defined))) {
         fail("SOS: Huffman table not defined");
       }
+      if (dc_coded) build_huffman(dct[i], dc[td[i]], true);
+      if (ac_coded) build_huffman(act[i], ac[ta[i]], false);
     }
-    if (!progressive && (ss != 0 || se != 63 || ahal != 0)) {
-      fail("SOS: spectral selection %d..%d is not sequential", ss, se);
-    }
-    if (progressive) check_progression(sc, ns, ss, se, ah, al);
     for (int i = 0; i < ns; ++i) latch(*sc[i]);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
@@ -640,10 +822,10 @@ struct Jpeg {
 
     BitReader br(data + pos, data + size);
     if (!progressive) {
-      sequential_scan(sc, ns, td, ta, br);
+      sequential_scan(sc, ns, dct, act, br);
     } else {
       try {
-        progressive_scan(sc, ns, td, ta, ss, se, ah, al, br);
+        progressive_scan(sc, ns, dct, act[0], ss, se, ah, al, br);
       } catch (const Fault& f) {
         char where[96];
         std::snprintf(where, sizeof where,
@@ -653,6 +835,7 @@ struct Jpeg {
       }
     }
     pos = (size_t)(br.p - data);
+    pending = br.marker;
     scanned = true;
     ++scans;
   }
@@ -723,16 +906,19 @@ struct Jpeg {
         if (pos != stop) fail("DRI: bad segment length");
       } else if (m == 0xDA) {
         read_sos();
+        if (one_pass) break;
       } else if (m == 0xD9) {
         break;
       } else if (m == 0xDC) {
-        fail("DNL: height from a DNL marker is not supported");
+        pos = segment(m);  // a DNL after the frame is skipped (libjpeg reads no height from it)
       } else if (m == 0xDE || m == 0xDF) {
         fail("marker 0x%02X: hierarchical JPEG is not supported", m);
       } else if (m >= 0xE0 && m <= 0xEF) {
         read_app(m);
-      } else if (m == 0xFE || (m >= 0xF0 && m <= 0xFD)) {
+      } else if (m == 0xFE) {
         pos = segment(m);
+      } else if (m >= 0xF0 && m <= 0xFD) {
+        fail("marker 0x%02X: a JPGn extension marker (libjpeg refuses it)", m);
       } else if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
         // TEM, or a stray RSTn between segments: no payload
       } else if (m == 0xD8) {
@@ -751,7 +937,19 @@ struct Jpeg {
   }
 };
 
-// jidctint.c
+// libjpeg-turbo's SIMD jsimd_idct_islow (jidctint-sse2.asm and its AVX2
+// twin, which OpenCV's build runs) in 16-bit lanes: jidctint.c's islow
+// arithmetic, except that
+//   - dequantisation is a 16-bit multiply that wraps (pmullw), and so are
+//     in0 +- in4 and the odd part's two sums (paddw);
+//   - a block whose rows 1-7 of coefficients are all zero takes pass 1's
+//     shortcut: the DC row's dequantised values shifted up by PASS1_BITS in
+//     16 bits (psllw, which wraps); otherwise every column runs;
+//   - each pass's outputs are descaled and packed to int16 with saturation
+//     (packssdw), and pass 2's again to int8 (packsswb) before 128 is
+//     added, so an output past [-128, 127] clamps;
+//   - pass 2 has no shortcut.
+// jidctint.c's and jfdctint.c's constants: FIX(x) = x * 2^13, rounded
 constexpr int kConstBits = 13, kPass1Bits = 2;
 constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196,
                   FIX_0_541196100 = 4433, FIX_0_765366865 = 6270,
@@ -760,107 +958,88 @@ constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196,
                   FIX_1_961570560 = 16069, FIX_2_053119869 = 16819,
                   FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
 
-inline int32_t descale(int32_t x, int n) { return (x + (1 << (n - 1))) >> n; }
+constexpr int kPass1Shift = 13 - 2, kPass2Shift = 13 + 2 + 3;
 
-// The post-IDCT range-limit table of jdmaster.c, indexed by x & 1023:
-// x + 128 clamped to [0, 255] for |x| < 512, wrapping beyond.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int x = i < 512 ? i : i - 1024;
-      int v = x + 128;
-      t[i] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
-    }
-  }
-};
+inline int16_t wrap16(int64_t v) { return (int16_t)(uint16_t)(uint64_t)v; }
 
-// One 8-point pass of jpeg_idct_islow on x[0..7] (coefficients scaled as
-// that pass takes them): y[k] is output k before its descale.
-inline void idct_pass(const int32_t* x, int32_t* y) {
-  int32_t z2 = x[2], z3 = x[6];
-  int32_t z1 = (z2 + z3) * FIX_0_541196100;
-  int32_t tmp2 = z1 + z3 * -FIX_1_847759065;
-  int32_t tmp3 = z1 + z2 * FIX_0_765366865;
-  int32_t tmp0 = (x[0] + x[4]) * (1 << kConstBits);
-  int32_t tmp1 = (x[0] - x[4]) * (1 << kConstBits);
-  int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-
-  tmp0 = x[7];
-  tmp1 = x[5];
-  tmp2 = x[3];
-  tmp3 = x[1];
-  z1 = tmp0 + tmp3;
-  z2 = tmp1 + tmp2;
-  z3 = tmp0 + tmp2;
-  int32_t z4 = tmp1 + tmp3;
-  int32_t z5 = (z3 + z4) * FIX_1_175875602;
-  tmp0 *= FIX_0_298631336;
-  tmp1 *= FIX_2_053119869;
-  tmp2 *= FIX_3_072711026;
-  tmp3 *= FIX_1_501321110;
-  z1 *= -FIX_0_899976223;
-  z2 *= -FIX_2_562915447;
-  z3 *= -FIX_1_961570560;
-  z4 *= -FIX_0_390180644;
-  z3 += z5;
-  z4 += z5;
-  tmp0 += z1 + z3;
-  tmp1 += z2 + z4;
-  tmp2 += z2 + z3;
-  tmp3 += z1 + z4;
-  y[0] = tmp10 + tmp3;
-  y[7] = tmp10 - tmp3;
-  y[1] = tmp11 + tmp2;
-  y[6] = tmp11 - tmp2;
-  y[2] = tmp12 + tmp1;
-  y[5] = tmp12 - tmp1;
-  y[3] = tmp13 + tmp0;
-  y[4] = tmp13 - tmp0;
+inline int16_t sat16(int32_t v) {
+  return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
 }
 
-// jpeg_idct_islow: columns (dequantized) into the workspace, then rows
-// into the range-limited output; a column or row whose AC terms are all
-// zero takes the shortcut, which gives the same values.
+// One 8-point pass over eight int16 lanes x[0..7]: y[k] is output k,
+// descaled by shift and saturated to int16. jidctint.c's products and
+// sums, in 32 bits that wrap as the SIMD's pmaddwd / paddd do (taken
+// unsigned), with its 16-bit wraps of in0 +- in4, in7 + in3 and in5 + in1
+// (paddw); the SIMD's pmaddwd pairs are the same sums of products. Lanes
+// whose AC inputs are all zero give the DC term's value in every output,
+// computed alone.
+template <int shift>
+inline void idct_lanes(const int16_t* x, int16_t* y) {
+  using u32 = uint32_t;
+  constexpr u32 round = (u32)1 << (shift - 1);
+  if (!(x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7])) {
+    const int16_t v = sat16((int32_t)((u32)x[0] * 8192u + round) >> shift);
+    for (int k = 0; k < 8; ++k) y[k] = v;
+    return;
+  }
+  // even part
+  const u32 z1 = (u32)(x[2] + x[6]) * (u32)FIX_0_541196100;
+  const u32 tmp2 = z1 - (u32)x[6] * (u32)FIX_1_847759065;
+  const u32 tmp3 = z1 + (u32)x[2] * (u32)FIX_0_765366865;
+  const u32 tmp0 = (u32)wrap16(x[0] + x[4]) * 8192u;
+  const u32 tmp1 = (u32)wrap16(x[0] - x[4]) * 8192u;
+  const u32 tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const u32 tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  // odd part: x[7], x[5], x[3], x[1] are jidctint.c's tmp0..tmp3
+  const int32_t z3 = wrap16(x[7] + x[3]), z4 = wrap16(x[5] + x[1]);
+  const u32 z5 = (u32)(z3 + z4) * (u32)FIX_1_175875602;
+  const u32 zz3 = z5 - (u32)z3 * (u32)FIX_1_961570560;
+  const u32 zz4 = z5 - (u32)z4 * (u32)FIX_0_390180644;
+  const u32 za = (u32)(x[7] + x[1]) * (u32)FIX_0_899976223;
+  const u32 zb = (u32)(x[5] + x[3]) * (u32)FIX_2_562915447;
+  const u32 o0 = (u32)x[7] * (u32)FIX_0_298631336 - za + zz3;
+  const u32 o1 = (u32)x[5] * (u32)FIX_2_053119869 - zb + zz4;
+  const u32 o2 = (u32)x[3] * (u32)FIX_3_072711026 - zb + zz3;
+  const u32 o3 = (u32)x[1] * (u32)FIX_1_501321110 - za + zz4;
+  const u32 d[8] = {tmp10 + o3, tmp11 + o2, tmp12 + o1, tmp13 + o0,
+                    tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3};
+  for (int k = 0; k < 8; ++k) y[k] = sat16((int32_t)(d[k] + round) >> shift);
+}
+
+// jsimd_idct_islow: columns of the dequantised block, then rows, into
+// out (8 x 8 samples at the given stride).
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
-                int stride, const RangeLimit& rl) {
-  int32_t ws[64], x[8], y[8];
+                int stride) {
+  int16_t ws[64], x[8], y[8];
+  bool ac = false;
+  for (int k = 8; k < 64; ++k) ac |= in[k] != 0;
   for (int c = 0; c < 8; ++c) {
-    for (int r = 0; r < 8; ++r) x[r] = (int32_t)in[8 * r + c] * q[8 * r + c];
-    if (!x[1] && !x[2] && !x[3] && !x[4] && !x[5] && !x[6] && !x[7]) {
-      for (int r = 0; r < 8; ++r) ws[8 * r + c] = x[0] * (1 << kPass1Bits);
+    if (!ac) {
+      const int16_t v = wrap16((int32_t)wrap16((uint32_t)in[c] * q[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
       continue;
     }
-    idct_pass(x, y);
-    for (int r = 0; r < 8; ++r) {
-      ws[8 * r + c] = descale(y[r], kConstBits - kPass1Bits);
-    }
+    for (int r = 0; r < 8; ++r) x[r] = wrap16((uint32_t)in[8 * r + c] * q[8 * r + c]);
+    idct_lanes<kPass1Shift>(x, y);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = y[r];
   }
   for (int r = 0; r < 8; ++r) {
-    const int32_t* w = ws + 8 * r;
+    idct_lanes<kPass2Shift>(ws + 8 * r, y);
     uint8_t* op = out + (size_t)r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = rl.t[descale(w[0], kPass1Bits + 3) & 1023];
-      for (int c = 0; c < 8; ++c) op[c] = v;
-      continue;
-    }
-    idct_pass(w, y);
     for (int c = 0; c < 8; ++c) {
-      op[c] = rl.t[descale(y[c], kConstBits + kPass1Bits + 3) & 1023];
+      op[c] = (uint8_t)((y[c] < -128 ? -128 : y[c] > 127 ? 127 : y[c]) + 128);
     }
   }
 }
 
 void inverse_dct(Component& c) {
-  static const RangeLimit rl;
   int stride = c.bw * 8;
   c.plane.assign((size_t)stride * c.bh * 8, 0);
   if (c.coef.empty()) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
   for (int by = 0; by < c.bh; ++by) {
     for (int bx = 0; bx < c.bw; ++bx) {
       idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
-                 &c.plane[(size_t)by * 8 * stride + bx * 8], stride, rl);
+                 &c.plane[(size_t)by * 8 * stride + bx * 8], stride);
     }
   }
 }
@@ -1125,7 +1304,8 @@ JpegSamples decode_jpeg_samples(const uint8_t* tables, size_t tables_len,
                                 bool ycbcr_to_rgb) {
   if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail("JPEG: no SOI marker");
   // the tables stream without its EOI, then the stream without its SOI:
-  // one stream whose tables precede the frame, as libjpeg keeps them
+  // one stream whose tables precede the frame, as libjpeg keeps them; then
+  // the EOI that libtiff's source inserts where the data runs out
   std::vector<uint8_t> joined;
   if (tables_len >= 4) {
     if (tables[0] != 0xFF || tables[1] != 0xD8) fail("JPEGTables: no SOI marker");
@@ -1133,10 +1313,12 @@ JpegSamples decode_jpeg_samples(const uint8_t* tables, size_t tables_len,
     if (tables[keep - 2] == 0xFF && tables[keep - 1] == 0xD9) keep -= 2;
     joined.assign(tables, tables + keep);
     joined.insert(joined.end(), data + 2, data + size);
-    data = joined.data();
-    size = joined.size();
+  } else {
+    joined.assign(data, data + size);
   }
-  Jpeg j(data, size);
+  joined.push_back(0xFF);
+  joined.push_back(0xD9);
+  Jpeg j(joined.data(), joined.size());
   j.parse();
   JpegSamples out;
   out.width = j.width;
@@ -1184,16 +1366,58 @@ namespace {
 
 // -------------------------------------------------------------- inflate
 
+// What libpng's sequential reader makes of a zlib stream once every row
+// has inflated. zlib inflates into a row per call, and a call goes on past
+// a full row until it must write a byte, runs out of the piece of IDAT
+// data it was given, or ends the stream; an error in that call (a bad code, a
+// bad Adler-32) is fatal. After it, png_read_finish_IDAT inflates the rest
+// into a scratch buffer: an error there is only a warning, but a stream
+// that runs out of IDAT data before its end is fatal.
+struct RowsDone {
+  const std::vector<size_t>* ends;  // where each piece of IDAT data ends
+  int phase = 0;  // 0: rows not all in; 1: in the call that completed them; 2: after
+  uint64_t boundary = 0;  // the end of phase 1's piece, in bits
+  bool truncated = false;  // the data ran out before the stream ended
+};
+
 // LSB-first bits of a deflate stream. Past the end, zero bits are fed;
 // consuming one of them is a fault.
 struct InBits {
   const uint8_t* p;
   const uint8_t* end;
+  const uint8_t* start;
   uint64_t buf = 0;
   int cnt = 0;  // bits in buf
   int pad = 0;  // of them, fed past the end
+  RowsDone* rows = nullptr;  // PNG IDAT only
+  const size_t* out_n = nullptr;
+  size_t need = 0;
 
-  InBits(const uint8_t* p_, const uint8_t* e_) : p(p_), end(e_) {}
+  InBits(const uint8_t* p_, const uint8_t* e_) : p(p_), end(e_), start(p_) {}
+
+  uint64_t consumed() const { return (uint64_t)(p - start) * 8 - (uint64_t)(cnt - pad); }
+
+  void truncated() {
+    if (rows) rows->truncated = true;
+    fail("incomplete or truncated stream");
+  }
+
+  // Phase 1 starts when the rows are all in; it ends at the first bit
+  // past the piece of IDAT data that the completing call was reading.
+  void watch(uint64_t before, uint64_t after) {
+    if (rows->phase == 0) {
+      const uint64_t byte = (before + 7) / 8;
+      rows->boundary = UINT64_MAX;
+      for (size_t e : *rows->ends) {
+        if (e >= byte) {
+          rows->boundary = (uint64_t)e * 8;
+          break;
+        }
+      }
+      rows->phase = 1;
+    }
+    if (rows->phase == 1 && after > rows->boundary) rows->phase = 2;
+  }
 
   uint32_t peek(int n) {
     while (cnt <= 56 && cnt < n + 32) {
@@ -1210,9 +1434,11 @@ struct InBits {
   }
 
   void drop(int n) {
+    const uint64_t before = rows ? consumed() : 0;
     buf >>= n;
     cnt -= n;
-    if (cnt < pad) fail("incomplete or truncated stream");
+    if (cnt < pad) truncated();
+    if (rows && rows->phase < 2 && *out_n >= need) watch(before, before + (uint64_t)n);
   }
 
   uint32_t bits(int n) {
@@ -1308,6 +1534,12 @@ const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5, 
 struct Output {
   std::vector<uint8_t> v;
   size_t n = 0;
+  size_t limit = SIZE_MAX;  // PNG IDAT: the rows' bytes; writing past them ends the call
+  RowsDone* rows = nullptr;
+
+  void room(size_t k) {
+    if (rows && n + k > limit) rows->phase = 2;
+  }
 
   void grow(size_t k) {
     if (n + k > v.size()) {
@@ -1324,6 +1556,7 @@ void inflate_codes(InBits& in, Output& out, const InflateHuffman& lencode,
   for (;;) {
     int sym = decode_symbol(in, lencode);
     if (sym < 256) {
+      out.room(1);
       out.grow(1);
       out.v[out.n++] = (uint8_t)sym;
       continue;
@@ -1335,7 +1568,9 @@ void inflate_codes(InBits& in, Output& out, const InflateHuffman& lencode,
     int dsym = decode_symbol(in, distcode);
     if (dsym >= 30) fail("invalid distance code");
     size_t dist = kDistBase[dsym] + in.bits(kDistExtra[dsym]);
+    if (out.n >= out.limit) out.room(len);  // a full row ends the call before the copy
     if (dist > out.n) fail("invalid distance too far back");
+    out.room(len);
     out.grow(len);
     uint8_t* o = out.v.data() + out.n;
     const uint8_t* from = o - dist;
@@ -1348,6 +1583,7 @@ void inflate_stored(InBits& in, Output& out) {
   in.drop(in.cnt & 7);
   uint32_t len = in.bits(16), nlen = in.bits(16);
   if (len != (~nlen & 0xFFFF)) fail("invalid stored block lengths");
+  out.room(len);
   out.grow(len);
   while (len > 0 && in.cnt - in.pad >= 8) {  // the bytes already buffered
     out.v[out.n++] = (uint8_t)in.buf;
@@ -1356,7 +1592,7 @@ void inflate_stored(InBits& in, Output& out) {
     --len;
   }
   if (len > 0) {  // the rest straight from the stream
-    if ((size_t)(in.end - in.p) < len) fail("incomplete or truncated stream");
+    if ((size_t)(in.end - in.p) < len) in.truncated();
     std::memcpy(out.v.data() + out.n, in.p, len);
     out.n += len;
     in.p += len;
@@ -1578,6 +1814,7 @@ cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
   const uint8_t* exif = nullptr;
   size_t exif_len = 0;
   std::vector<uint8_t> idat;
+  std::vector<size_t> idat_ends;  // where each piece of IDAT data ends in idat
   for (;;) {
     if (pos + 12 > size) fail("PNG: truncated data (no IEND chunk)");
     const uint32_t length = be32(buf + pos);
@@ -1612,7 +1849,13 @@ cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
       }
       have_plte = true;
     } else if (std::memcmp(kind, "IDAT", 4) == 0) {
-      idat.insert(idat.end(), data, data + length);
+      // libpng hands zlib an IDAT chunk in pieces of up to
+      // PNG_IDAT_READ_SIZE (8192) bytes
+      for (size_t at = 0; at < length; at += 8192) {
+        const size_t piece = length - at < 8192 ? length - at : 8192;
+        idat.insert(idat.end(), data + at, data + at + piece);
+        idat_ends.push_back(idat.size());
+      }
     } else if (std::memcmp(kind, "IEND", 4) == 0) {
       break;
     } else if (critical) {
@@ -1669,7 +1912,7 @@ cris::Image decode_png(const uint8_t* buf, size_t size, bool gray) {
   }
   std::vector<uint8_t> raw;
   try {
-    raw = cris::zlib_inflate(idat.data(), idat.size(), need);
+    raw = cris::zlib_inflate(idat.data(), idat.size(), need, &idat_ends);
   } catch (const Fault& f) {
     throw Fault(std::string("PNG IDAT: ") + f.what());
   }
@@ -1828,6 +2071,8 @@ struct OutBits {
     if (n > 0) put((1u << (8 - n)) - 1, 8 - n);
   }
 };
+
+inline int32_t descale(int32_t x, int n) { return (x + (1 << (n - 1))) >> n; }
 
 // jfdctint.c jpeg_fdct_islow on level-shifted samples: the output is the
 // DCT scaled up by 8.
@@ -2086,32 +2331,51 @@ uint8_t* to_malloc(const uint8_t* p, size_t n) {
 namespace cris {
 
 std::vector<uint8_t> zlib_inflate(const uint8_t* data, size_t size,
-                                  size_t reserve) {
+                                  size_t reserve, const std::vector<size_t>* idat_ends,
+                                  bool whole_at_reserve) {
   InBits in(data, data + size);
-  const uint32_t cmf = in.bits(8), flg = in.bits(8);
-  if ((cmf & 0x0F) != 8 || (cmf >> 4) > 7 || (cmf << 8 | flg) % 31 != 0) {
-    fail("incorrect header check");
-  }
-  if (flg & 0x20) fail("a preset dictionary is not supported");
   Output out;
   out.v.resize(reserve);
-  for (;;) {
-    const uint32_t last = in.bits(1), type = in.bits(2);
-    if (type == 0) {
-      inflate_stored(in, out);
-    } else if (type == 1) {
-      inflate_fixed(in, out);
-    } else if (type == 2) {
-      inflate_dynamic(in, out);
-    } else {
-      fail("invalid block type");
-    }
-    if (last) break;
+  RowsDone rows{idat_ends};
+  if (idat_ends) {
+    in.rows = out.rows = &rows;
+    in.out_n = &out.n;
+    in.need = reserve;
+    out.limit = reserve;
   }
-  in.drop(in.cnt & 7);
-  uint32_t want = 0;
-  for (int i = 0; i < 4; ++i) want = want << 8 | in.bits(8);
-  if (adler32(out.v.data(), out.n) != want) fail("incorrect data check");
+  try {
+    const uint32_t cmf = in.bits(8), flg = in.bits(8);
+    if ((cmf & 0x0F) != 8 || (cmf >> 4) > 7 || (cmf << 8 | flg) % 31 != 0) {
+      fail("incorrect header check");
+    }
+    if (flg & 0x20) fail("a preset dictionary is not supported");
+    for (;;) {
+      const uint32_t last = in.bits(1), type = in.bits(2);
+      if (type == 0) {
+        inflate_stored(in, out);
+      } else if (type == 1) {
+        inflate_fixed(in, out);
+      } else if (type == 2) {
+        inflate_dynamic(in, out);
+      } else {
+        fail("invalid block type");
+      }
+      if (last) break;
+    }
+    in.drop(in.cnt & 7);
+    uint32_t want = 0;
+    for (int i = 0; i < 4; ++i) want = want << 8 | in.bits(8);
+    if (adler32(out.v.data(), out.n) != want) fail("incorrect data check");
+  } catch (const Fault&) {
+    if (whole_at_reserve && out.n >= reserve) {
+      out.v.resize(reserve);
+      return std::move(out.v);
+    }
+    if (!idat_ends || out.n < reserve || rows.truncated) throw;
+    // an error in the completing call (found before it left its piece)
+    // loses the last row; after that call it is a warning
+    if (rows.phase < 2) throw;
+  }
   out.v.resize(out.n);
   return std::move(out.v);
 }

@@ -89,7 +89,17 @@ void apply_orientation(Image& img, int orientation);
 // A zlib stream (RFC 1950 around RFC 1951 deflate data), inflated; the
 // Adler-32 checksum is checked, bytes after it are ignored. reserve is the
 // expected output size, 0 when unknown. Throws Fault.
+// With idat_ends (a PNG's IDAT data, joined, and where each piece of it
+// that libpng hands zlib ends), reserve is the rows' bytes and the stream
+// is read as libpng's sequential reader reads it: the output stops at the
+// rows, and an error or a bad Adler-32 after the call that completed them
+// is a warning. With whole_at_reserve (a TIFF strip or tile, as libtiff's
+// ZIPDecode inflates it into a buffer of reserve bytes), a fault once
+// reserve bytes are out is not one: libtiff reports it, but the buffer is
+// whole and OpenCV reads it.
 std::vector<uint8_t> zlib_inflate(const uint8_t* data, size_t size,
-                                  size_t reserve);
+                                  size_t reserve,
+                                  const std::vector<size_t>* idat_ends = nullptr,
+                                  bool whole_at_reserve = false);
 
 }  // namespace cris

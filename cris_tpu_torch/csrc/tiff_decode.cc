@@ -395,7 +395,19 @@ Image decode_tiff_impl(const uint8_t* data, size_t size, bool gray) {
   const uint32_t compression = d.one(259, 1);
   if (!d.find(262)) fail("TIFF: no PhotometricInterpretation tag");
   uint32_t photometric = d.one(262, 0);
+  // the tags TIFFReadDirectory fetches first, failing the directory on a
+  // value _TIFFVSetField refuses
   const uint32_t planar_tag = d.one(284, 1);
+  if (planar_tag != 1 && planar_tag != 2) {
+    fail("TIFF: PlanarConfiguration %d (libtiff refuses any value but 1 or 2, and cv2 "
+         "gives None)", (int)planar_tag);
+  }
+  if (d.find(278) && d.one(278, 1) == 0) {
+    fail("TIFF: RowsPerStrip 0 (libtiff refuses it, and cv2 gives None)");
+  }
+  if (d.find(32998) && d.one(32998, 1) == 0) {
+    fail("TIFF: TileDepth 0 (libtiff refuses it, and cv2 gives None)");
+  }
   const bool planar = planar_tag == 2 && spp > 1;
   const std::vector<uint32_t> sf_v = d.ints(339);
   const uint32_t sample_format = sf_v.empty() ? 1 : sf_v[0];
@@ -440,6 +452,13 @@ Image decode_tiff_impl(const uint8_t* data, size_t size, bool gray) {
   const int max_color = photometric <= 1 || photometric == 3 ? 1 : photometric == 5 ? 4 : 3;
   std::vector<uint32_t> extra = d.ints(338);
   if (extra.size() > spp) fail("TIFF: %d extra samples of %d samples", (int)extra.size(), (int)spp);
+  for (uint32_t& e : extra) {  // setExtraSamples: Corel Draw's 999 is unassociated
+    if (e == 999) e = 2;
+    if (e > 2) {
+      fail("TIFF: ExtraSamples value %d (libtiff refuses any above 2, and cv2 gives None)",
+           (int)e);
+    }
+  }
   if ((int)spp - (int)extra.size() > max_color) extra.resize(spp - max_color, 0);
   const int colorchannels = (int)spp - (int)extra.size();
   int alpha = 0;
@@ -637,7 +656,7 @@ Image decode_tiff_impl(const uint8_t* data, size_t size, bool gray) {
         case 5: raw = unlzw(src, cc, expect); break;
         case 32773: raw = unpackbits(src, cc, expect); break;
         default: {  // 8, 32946
-          raw = cris::zlib_inflate(src, cc, expect);
+          raw = cris::zlib_inflate(src, cc, expect, nullptr, true);
           if (raw.size() < expect) fail("TIFF: Deflate data end before the strip or tile does");
           raw.resize(expect);
         }

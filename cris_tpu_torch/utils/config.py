@@ -1,10 +1,10 @@
 """Flat config: ``CfgNode``, a YAML loader, ``--opts KEY VALUE``
-overrides and the CRIS-R50 and CRIS-R101 RefCOCO presets.
+overrides and the CRIS-R50 and CRIS-R101 RefCOCO configurations.
 
 Counterpart of ``cris_tpu.utils.config``: two-level YAML files flatten
-into one attribute-accessible dict. ``yaml`` is imported only by the
-loader, so the presets below serve where PyYAML is absent
-(``config_for`` picks one for its YAML path).
+into one attribute-accessible dict. The files are read by
+``yaml_subset`` (the standard library alone), so every config under
+``config/`` reads the same with or without PyYAML.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import copy
 import os
 from ast import literal_eval
+
+from .yaml_subset import load_file
 
 
 class CfgNode(dict):
@@ -35,14 +37,12 @@ class CfgNode(dict):
 
 
 def load_cfg_from_cfg_file(file: str) -> CfgNode:
-    """Load a two-level YAML file and flatten its sections (later sections
-    win on a key collision)."""
+    """Load a two-level YAML file through ``yaml_subset`` (what
+    ``yaml.safe_load`` gives, on every machine) and flatten its sections
+    (later sections win on a key collision)."""
     if not (os.path.isfile(file) and file.endswith(".yaml")):
         raise ValueError(f"{file} is not a yaml file")
-    import yaml
-
-    with open(file, "r") as f:
-        raw = yaml.safe_load(f)
+    raw = load_file(file)
     flat = {}
     for section in raw:
         flat.update(raw[section])
@@ -94,92 +94,30 @@ def _coerce_value_type(replacement, original, full_key):
         f"({original} vs. {replacement}) for config key: {full_key}")
 
 
-# config/refcoco/cris_r50.yaml, flattened
-_CRIS_R50_REFCOCO = dict(
-    dataset="refcoco",
-    train_lmdb="datasets/lmdb/refcoco/train.lmdb",
-    train_split="train",
-    val_lmdb="datasets/lmdb/refcoco/val.lmdb",
-    val_split="val",
-    mask_root="datasets/masks/refcoco",
-    clip_pretrain="pretrain/RN50.pt",
-    input_size=416,
-    word_len=17,
-    word_dim=1024,
-    vis_dim=512,
-    fpn_in=[512, 1024, 1024],
-    fpn_out=[256, 512, 1024],
-    sync_bn=True,
-    num_layers=3,
-    num_head=8,
-    dim_ffn=2048,
-    dropout=0.1,
-    intermediate=False,
-    workers=8,
-    workers_val=4,
-    epochs=50,
-    milestones=[35],
-    start_epoch=0,
-    batch_size=64,
-    batch_size_val=64,
-    base_lr=0.0001,
-    lr_decay=0.1,
-    lr_multi=0.1,
-    weight_decay=0.0,
-    max_norm=0.0,
-    manual_seed=0,
-    print_freq=100,
-    precision="bf16",
-    pallas=True,
-    remat=False,
-    scan_unroll=0,
-    wandb=False,
-    profile_dir=None,
-    exp_name="CRIS_R50",
-    output_folder="exp/refcoco",
-    save_freq=1,
-    weight=None,
-    resume=None,
-    evaluate=True,
-    dp_size=-1,
-    tp_size=1,
-    dist_url="tcp://localhost:3681",
-    dist_backend="nccl",
-    multiprocessing_distributed=True,
-    world_size=1,
-    rank=0,
-    fold_bn_eval=True,
-    test_split="val-test",
-    test_lmdb="datasets/lmdb/refcoco/val.lmdb",
-    visualize=False,
-)
-
-
-def cris_r50_refcoco() -> CfgNode:
-    """A fresh copy of the CRIS-R50 RefCOCO configuration."""
-    return CfgNode(copy.deepcopy(_CRIS_R50_REFCOCO))
-
-
-# config/refcoco/cris_r101.yaml, flattened: R50's but for these keys
-_CRIS_R101_REFCOCO = dict(_CRIS_R50_REFCOCO, clip_pretrain="pretrain/RN101.pt",
-                          word_dim=512, fpn_in=[512, 1024, 512],
-                          exp_name="CRIS_R101")
-
-
-def cris_r101_refcoco() -> CfgNode:
-    """A fresh copy of the CRIS-R101 RefCOCO configuration."""
-    return CfgNode(copy.deepcopy(_CRIS_R101_REFCOCO))
-
-
-_PRESETS = {os.path.join("config", "refcoco", "cris_r50.yaml"): cris_r50_refcoco,
-            os.path.join("config", "refcoco", "cris_r101.yaml"): cris_r101_refcoco}
+# the repository's root, where config/ is
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def config_for(path: str) -> CfgNode:
-    """The configuration of a YAML file: the preset for the two RefCOCO
-    files (matched on their last three path components, so no PyYAML is
-    needed for them), else the file through ``load_cfg_from_cfg_file``."""
-    key = os.path.join(*os.path.normpath(path).split(os.sep)[-3:])
-    if key in _PRESETS:
-        return _PRESETS[key]()
+    """The configuration of a YAML file through ``load_cfg_from_cfg_file``;
+    a path that is not there is looked up by its last three components
+    (``config/<dataset>/<file>``) under the repository's root."""
+    if not os.path.isfile(path):
+        parts = os.path.normpath(path).split(os.sep)[-3:]
+        in_repo = os.path.join(REPO_ROOT, *parts)
+        if os.path.isfile(in_repo):
+            path = in_repo
     return load_cfg_from_cfg_file(path)
+
+
+def cris_r50_refcoco() -> CfgNode:
+    """A fresh copy of the CRIS-R50 RefCOCO configuration
+    (``config/refcoco/cris_r50.yaml``)."""
+    return config_for(os.path.join("config", "refcoco", "cris_r50.yaml"))
+
+
+def cris_r101_refcoco() -> CfgNode:
+    """A fresh copy of the CRIS-R101 RefCOCO configuration
+    (``config/refcoco/cris_r101.yaml``)."""
+    return config_for(os.path.join("config", "refcoco", "cris_r101.yaml"))

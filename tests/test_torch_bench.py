@@ -250,9 +250,18 @@ def test_bench_runs_every_metric_on_the_cpu(monkeypatch, capsys, small_host):
     model: one JSON line each, under bench.py's names, with a positive
     value, its trials and its spread, and the host's cores to feed the
     eval rate after the eval metric; the train bench runs
-    engine.train_step once per batch."""
+    engine.train_step once per batch. The loops run on a fake clock that
+    reads one second a batch, so no turn is retried (on the host clock a
+    loaded machine could time the long loop no slower than the short one,
+    and the retry would run more steps)."""
     monkeypatch.setattr(bench, "METRICS", tuple(
         (name, step, TINY) for name, step, _ in bench.METRICS))
+    timed = bench.timed
+
+    def one_second_a_batch(run, batches, device):
+        return float(len(batches)), timed(run, batches, device)[1]
+
+    monkeypatch.setattr(bench, "timed", one_second_a_batch)
     steps = []
     train_step = bench.engine.train_step
 

@@ -26,6 +26,7 @@ says that OpenCV reads it where it does).
 """
 
 import io
+import os
 import struct
 import zlib
 
@@ -37,6 +38,9 @@ from PIL import Image
 from cris_tpu_torch.data import batch_preprocess, decode_image, decode_mask
 from test_torch_codec_formats import SIZE, _assert_as_cv2, _cv2, _photo
 from test_torch_codec_webp_bmp_pnm import _pil
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_codec_fixtures")
 
 
 def _pack_bits(rows, bps):
@@ -914,6 +918,20 @@ REFUSED = {
     "sun raster colormap at 24 bits": (lambda: _ras(4, 3, 24, bytes(24), cmap=bytes(6)),
                                        "colormap type 1", False),
     "sun raster truncated": (lambda: _ras(5, 3, 8, bytes(13)), "unexpected end of data", False),
+    # the values TIFFReadDirectory refuses as it reads the directory
+    "tiff PlanarConfiguration 3": (
+        lambda: _one_strip(photometric=2, spp=3, extra={284: (3, [3])}),
+        "PlanarConfiguration 3 .*libtiff refuses", False),
+    "tiff RowsPerStrip 0": (lambda: _one_strip(extra={278: (4, [0])}),
+                            "RowsPerStrip 0 .*libtiff refuses", False),
+    "tiff ExtraSamples value 3": (
+        lambda: _one_strip(photometric=2, spp=4, extra={338: (3, [3])}),
+        "ExtraSamples value 3 .*libtiff refuses", False),
+    "tiff TileDepth 0": (
+        lambda: _tiff({256: (4, [16]), 257: (4, [16]), 258: (3, [8]), 259: (3, [1]),
+                       262: (3, [1]), 277: (3, [1]), 322: (3, [16]), 323: (3, [16]),
+                       32998: (3, [0])}, [bytes(256)], tiles=True),
+        "TileDepth 0 .*libtiff refuses", False),
 }
 
 
@@ -932,3 +950,47 @@ def test_refused_tiff_gif_ras_raise_naming_them(case):
         decode_mask(buf)
     with pytest.raises(ValueError, match=f"sample 0: .*{words}"):
         batch_preprocess([buf], [buf], SIZE, nthreads=1)
+
+
+def _single_valued_tags(buf):
+    """(entry offset, tag, type, byte order) of each SHORT or LONG tag of
+    the first IFD with one value."""
+    order = "<" if buf[:2] == b"II" else ">"
+    ifd = struct.unpack(order + "I", buf[4:8])[0]
+    for k in range(struct.unpack(order + "H", buf[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        tag, kind, count = struct.unpack(order + "HHI", buf[at:at + 8])
+        if count == 1 and kind in (3, 4):
+            yield at, tag, kind, order
+
+
+SWEPT_TIFFS = ["palette_deflate_160x120.tif", "rgba_unassoc_160x120.tif",
+               "tiled_planar_160x120.tif"]
+
+
+@pytest.mark.parametrize("name", SWEPT_TIFFS)
+def test_single_valued_tags_swept_against_cv2(name):
+    """Every single-valued tag of the 160 x 120 TIFF fixtures set to each
+    of 0..11: the port reads no file that cv2 refuses, and decodes none to
+    other pixels (it may refuse, by name, a file that cv2 reads)."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        buf = f.read()
+    bad = []
+    for at, tag, kind, order in _single_valued_tags(buf):
+        for value in range(12):
+            b = bytearray(buf)
+            if kind == 3:
+                b[at + 8:at + 10] = struct.pack(order + "H", value)
+            else:
+                b[at + 8:at + 12] = struct.pack(order + "I", value)
+            b = bytes(b)
+            for flag, decode in ((cv2.IMREAD_COLOR, decode_image),
+                                 (cv2.IMREAD_GRAYSCALE, decode_mask)):
+                ref = _cv2(b, flag)
+                try:
+                    got = decode(b)
+                except ValueError:
+                    continue
+                if ref is None or got.shape != ref.shape or (got != ref).any():
+                    bad.append((tag, value, flag, ref is None))
+    assert not bad, bad

@@ -283,6 +283,9 @@ def test_port_imports_no_jax_opencv_yaml_or_regex():
         "import cris_tpu_torch.parity_report\n"
         "from cris_tpu_torch.data.refer import rasterize_polygons\n"
         "assert rasterize_polygons([[1, 1, 6, 1, 6, 6]], 8, 8).sum() == 21\n"
+        "from cris_tpu_torch.cli import get_parser\n"
+        "assert get_parser(argv=['--config', "
+        "'config/refcocog_u/cris_r50.yaml']).word_len == 22\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'yaml', 'regex', 'PIL',\n"
         "                   'wandb', 'tqdm', 'matplotlib', 'lmdb',\n"
         "                   'cris_tpu') if m in sys.modules]\n"

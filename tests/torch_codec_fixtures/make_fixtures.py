@@ -1,7 +1,10 @@
 """Write the decoder fixtures that ``chip_smoke.py`` phase 17 decodes on
 the card's machine (which has no OpenCV), and the digests OpenCV gives.
 
-    python3 tests/torch_codec_fixtures/make_fixtures.py
+    python3 tests/torch_codec_fixtures/make_fixtures.py [--tables]
+
+(``--tables`` rewrites only ``damaged.json`` and the configs'
+``expected.json``, from the files as committed.)
 
 Needs cv2, PIL and pytest (the Adam7 writer of
 ``tests/test_torch_codec_formats.py``, the BMP writers of
@@ -49,7 +52,17 @@ script:
   [0, 300]), from the same small image;
 - ``digests.json``: for each file, the shape and the sha256 of the pixel
   bytes of ``cv2.imdecode`` under IMREAD_COLOR ("color") and
-  IMREAD_GRAYSCALE ("gray"), with the OpenCV version.
+  IMREAD_GRAYSCALE ("gray"), with the OpenCV version;
+- ``damaged.json``: damaged copies of the baseline, progressive and CMYK
+  JPEGs and the RGBA PNG, each as its fixture and its edits ((offset,
+  xor) pairs; a PNG's IDAT CRCs are repaired after them), picked from the
+  seeded sweeps of ``tests/test_torch_codec_damaged.py`` (copies that cv2
+  reads to pixels other than the undamaged file's, and a few that it
+  refuses), with cv2's digests under both flags (null where it gives
+  None) and the batch plane's digest (``plane_digest``);
+- ``../torch_config_fixtures/expected.json``: every config under
+  ``config/``, flattened from ``yaml.safe_load`` as the loaders flatten it,
+  with the PyYAML version.
 
 ``tests/test_torch_codec_formats.py::test_committed_fixtures_match_their_digests``
 holds the committed files to the digests and to cv2.imdecode.
@@ -76,6 +89,14 @@ from test_torch_codec_webp_bmp_pnm import _bmp, _rle8  # noqa: E402
 from test_torch_codec_tiff_gif_ras import _ras, _tiff_image  # noqa: E402
 from test_torch_codec_jp2_webpanim_hdr_pfm import (  # noqa: E402
     _anmf, _animated, _webp_frame)
+from test_torch_codec_damaged import (  # noqa: E402
+    SEEDS, case_bytes, damaged_copies, idat_flips, plane_digest)
+
+REPO = os.path.dirname(os.path.dirname(HERE))
+# damaged cases picked a fixture: (read by cv2 to other pixels, refused)
+DAMAGED_PICKS = {"baseline_420_640x480.jpg": (7, 1),
+                 "progressive_420_640x480.jpg": (6, 1),
+                 "cmyk_160x120.jpg": (5, 0), "rgba_160x120.png": (3, 1)}
 
 
 def digest(img: np.ndarray) -> dict:
@@ -174,6 +195,73 @@ def files() -> dict:
     return out
 
 
+def _decoded(buf, flag):
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8), flag)
+    return None if img is None else digest(img)
+
+
+def damaged_table() -> dict:
+    """The committed damaged cases: fault 4's example, then each fixture's
+    first copies in its seeded sweep that cv2 reads (under both flags) to
+    pixels other than the undamaged file's, and its first that cv2
+    refuses."""
+    cases = [{"fixture": "baseline_420_640x480.jpg", "edits": [[32080, 0x37 ^ 0x0D]]}]
+    for name, (n_read, n_refused) in DAMAGED_PICKS.items():
+        with open(os.path.join(HERE, name), "rb") as f:
+            buf = f.read()
+        clean = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        copies = (idat_flips(buf, SEEDS[name]) if name.endswith(".png")
+                  else damaged_copies(buf, SEEDS[name]))
+        read, refused = [], []
+        for edits, data in copies:
+            color = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            gray = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
+            if color is None and gray is None and len(refused) < n_refused:
+                refused.append(edits)
+            elif (color is not None and gray is not None and len(read) < n_read
+                  and (color.shape != clean.shape or (color != clean).any())):
+                read.append(edits)
+        cases += [{"fixture": name, "edits": [list(e) for e in edits]}
+                  for edits in read + refused]
+    for case in cases:
+        data = case_bytes(case)
+        case["color"] = _decoded(data, cv2.IMREAD_COLOR)
+        case["gray"] = _decoded(data, cv2.IMREAD_GRAYSCALE)
+        case["plane"] = (plane_digest(data) if case["color"] and case["gray"]
+                         else None)
+    return {"opencv": cv2.__version__, "plane_size": 48, "cases": cases}
+
+
+def config_table() -> dict:
+    """Every config file's flattened config, as yaml.safe_load reads it."""
+    import yaml
+
+    configs = {}
+    folder = os.path.join(REPO, "config")
+    for dataset in sorted(os.listdir(folder)):
+        for name in sorted(os.listdir(os.path.join(folder, dataset))):
+            with open(os.path.join(folder, dataset, name)) as f:
+                raw = yaml.safe_load(f)
+            flat = {}
+            for section in raw:
+                flat.update(raw[section])
+            configs[f"config/{dataset}/{name}"] = flat
+    return {"pyyaml": yaml.__version__, "configs": configs}
+
+
+def write_tables():
+    """damaged.json and the configs' expected.json, from the committed
+    fixtures and config files."""
+    with open(os.path.join(HERE, "damaged.json"), "w") as f:
+        json.dump(damaged_table(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.makedirs(os.path.join(REPO, "tests", "torch_config_fixtures"), exist_ok=True)
+    with open(os.path.join(REPO, "tests", "torch_config_fixtures",
+                           "expected.json"), "w") as f:
+        json.dump(config_table(), f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main():
     table = {"opencv": cv2.__version__, "files": {}}
     for name, data in files().items():
@@ -187,7 +275,8 @@ def main():
     with open(os.path.join(HERE, "digests.json"), "w") as f:
         json.dump(table, f, indent=1, sort_keys=True)
         f.write("\n")
+    write_tables()
 
 
 if __name__ == "__main__":
-    main()
+    write_tables() if sys.argv[1:] == ["--tables"] else main()
